@@ -1,19 +1,38 @@
 """Smoke run of raocp_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # the smoke run (about 3 minutes)
+    python3 chip_smoke.py --baseline    # BASELINE configs 4 and 5 to 1e-3
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
-card, checks the solver's iteration-count parity on the card, and drives the
-main path once, ``Solver(problem, device="cuda").solve(x0)``, at the
-50-state, 20-input, 3-mode, 8-stage (9,841-node) configuration in float32.
+card (at the shapes of every path below, BASELINE config 5's width
+included), and then drives the port's paths, each with the launch counts
+set to 0 just before it and read just after:
+
+* ``parity_*``: the demo's 937 iterations in float64 on the card, and a
+  uniform 121-node tree through K1 against the CPU;
+* ``chunked_demo_f64``: the demo in 300-iteration chunks, the same history;
+* ``headline_f32``: ``Solver(problem, device="cuda").solve(x0)`` at the
+  50-state, 20-input, 3-mode, 8-stage (9,841-node) configuration;
+* ``mpc_config5_f32``: ``network_mpc_controller(offline="device")`` at
+  BASELINE config 5's full size (100 states, 40 inputs, 88,573 nodes),
+  two closed-loop steps;
+* ``accel_headline_f32``: SuperMann on the headline; SuperMann on the
+  uniform tree (through K1) and Anderson on the demo, in float64 against
+  the CPU port (the same T evaluations and iterates over the first 80 /
+  60 iterations), and Anderson's convergence after.
+
 It prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises; without a CUDA device it fails before printing anything. It imports
-no JAX.
+no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
+config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
+(``--config5-steps``, default 1).
 """
 
+import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -26,9 +45,11 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
 
 import raocp_tpu_torch as rt  # noqa: E402
+import raocp_tpu_torch.accel as accel_mod  # noqa: E402
 import raocp_tpu_torch.solver as solver_mod  # noqa: E402
 from raocp_tpu_torch.core.stacked import build_stacked  # noqa: E402
 from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
+                                    network_mpc_controller,
                                     random_network_problem)
 from raocp_tpu_torch.ops import sweep  # noqa: E402
 
@@ -37,9 +58,17 @@ SMALL = dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
              stopping_time=4)
 HEADLINE = dict(num_states=50, num_inputs=20, num_modes=3, num_stages=8,
                 stopping_time=8)
+# BASELINE config 5's width (4 stages, 40 nodes) and its full
+# 88,573-node tree
+CONFIG5_WIDTH = dict(num_states=100, num_inputs=40, num_modes=3,
+                     num_stages=3, stopping_time=3)
+CONFIG5 = dict(num_states=100, num_inputs=40, num_modes=3, num_stages=10,
+               stopping_time=10)
 # the JAX package's float32 count on this problem (BENCH_configs_r05.jsonl,
 # config 4): context only, not asserted
 JAX_F32_ITERS = 10174
+# K1 launches of each driven path
+PATH_LAUNCHES = {}
 
 
 def emit(phase, **fields):
@@ -49,6 +78,31 @@ def emit(phase, **fields):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def counted(path=None):
+    """Set the K1 launch count to 0 and count ``prox_f`` calls (the T
+    evaluations of a CP step) while a path runs; read both after it, and
+    keep the launches under ``path``."""
+    calls = {"prox_f": 0}
+    real = solver_mod.prox_f
+
+    def counting_prox_f(*args, **kwargs):
+        calls["prox_f"] += 1
+        return real(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    sweep.LAUNCHES = 0
+    solver_mod.prox_f = counting_prox_f
+    try:
+        yield calls
+    finally:
+        solver_mod.prox_f = real
+        torch.cuda.synchronize()
+    calls["k1"] = sweep.LAUNCHES
+    if path is not None:
+        PATH_LAUNCHES[path] = calls["k1"]
 
 
 def phase_device():
@@ -99,16 +153,37 @@ def _median_ms(fn, runs=50):
     return float(np.median(times))
 
 
+def _plan_fields(sp):
+    """The path (shared- or device-memory weights) and tile of each
+    direction; every stage of these uniform trees plans alike."""
+    out = {}
+    for p in sweep.sweep_plan(sp):
+        key = "bwd" if p["direction"] == "backward" else "fwd"
+        out.setdefault(f"{key}_weights", set()).add(p["weights"])
+        out.setdefault(f"{key}_tile", set()).add(p["tile"])
+    return {k: "/".join(str(v) for v in sorted(s)) for k, s in out.items()}
+
+
 def phase_kernel():
     """K1 against its plain version on the card. The error is relative to
     the output's inf-norm; ghost rows must be exactly zero."""
-    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12),
-             ("b_small_f32", SMALL, torch.float32, 4, 1e-5),
+    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12, None),
+             ("b_small_f32", SMALL, torch.float32, 4, 1e-5, None),
              # 8 sequential stages of up to c*n+m = 170-term float32 sums,
              # summed in another order than cuBLAS's
-             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4))
+             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4, "shared"),
+             # config 5's width: in float64 the weights (417 KB) do not fit
+             # in shared memory and are read from device memory
+             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12,
+              "device"),
+             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4,
+              "shared"),
+             # the shapes the mpc_config5_f32 path hands K1: 88,573 nodes,
+             # parent stages of up to 19,683 rows, many blocks per launch
+             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4,
+              "shared"))
     out = {}
-    for name, kwargs, dtype, pad, tol in cases:
+    for name, kwargs, dtype, pad, tol, weights in cases:
         sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad)
         check(sweep.sweep_eligible(sp), f"{name}: not sweep-eligible")
         x, u = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
@@ -122,8 +197,9 @@ def phase_kernel():
         finite = bool(torch.isfinite(x).all() and torch.isfinite(u).all())
         row = dict(case=name, nodes=sp.num_nodes, n=sp.n, m=sp.m,
                    dtype=str(dtype), max_abs_err=err, ref_inf_norm=scale,
-                   rel_err=err / scale, tol=tol, ghost_rows_zero=ghosts_zero)
-        if name.startswith("c_"):
+                   rel_err=err / scale, tol=tol, ghost_rows_zero=ghosts_zero,
+                   **_plan_fields(sp))
+        if weights is not None:
             row["kernel_ms"] = _median_ms(
                 lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0))
             row["plain_ms"] = _median_ms(
@@ -134,6 +210,10 @@ def phase_kernel():
         check(finite and err <= tol * scale,
               f"K1 {name}: error {err} above {tol} x {scale}")
         check(ghosts_zero, f"K1 {name}: ghost rows not zero")
+        if weights is not None:
+            check(row["bwd_weights"] == row["fwd_weights"] == weights,
+                  f"K1 {name}: weights in {row['bwd_weights']}/"
+                  f"{row['fwd_weights']} memory, expected {weights}")
         out[name] = row
     return out
 
@@ -141,45 +221,51 @@ def phase_kernel():
 def phase_parity():
     # the demo (a ragged tree: the torch branches) on the card, float64
     problem, x0 = demo_problem()
-    res = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
+    demo = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
         x0, max_iters=2000, tol=1e-3)
-    emit("parity_demo_f64", iters=res.num_iters, xi=res.xi.tolist())
-    check(res.converged and res.num_iters == 937,
-          f"demo took {res.num_iters} iterations, not 937")
-    check(np.allclose(res.xi, [9.9508e-4, 9.4106e-4, 9.5599e-4], rtol=1e-3,
-                      atol=0), f"demo xi {res.xi}")
+    emit("parity_demo_f64", iters=demo.num_iters, xi=demo.xi.tolist())
+    check(demo.converged and demo.num_iters == 937,
+          f"demo took {demo.num_iters} iterations, not 937")
+    check(np.allclose(demo.xi, [9.9508e-4, 9.4106e-4, 9.5599e-4], rtol=1e-3,
+                      atol=0), f"demo xi {demo.xi}")
     # the uniform fixture: K1 on the card against the plain version on CPU
     problem, x0 = random_network_problem(**SMALL)
-    before = sweep.LAUNCHES
-    gpu = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
-        x0, max_iters=20000, tol=1e-3)
-    launched = sweep.LAUNCHES - before
+    with counted("parity_small_f64") as calls:
+        gpu = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
+            x0, max_iters=20000, tol=1e-3)
     cpu = rt.Solver(problem, dtype=torch.float64, device="cpu").solve(
         x0, max_iters=20000, tol=1e-3)
     emit("parity_small_f64", gpu_iters=gpu.num_iters,
          cpu_iters=cpu.num_iters, gpu_objective=gpu.objective,
-         cpu_objective=cpu.objective, k1_launches=launched)
+         cpu_objective=cpu.objective, k1_launches=calls["k1"])
     check(gpu.converged and gpu.num_iters == cpu.num_iters,
           "CUDA and CPU iteration counts differ")
     check(abs(gpu.objective - cpu.objective) <= 1e-9,
           "CUDA and CPU objectives differ")
-    check(launched == gpu.num_iters, "K1 not launched once per CP step")
+    check(calls["k1"] == gpu.num_iters, "K1 not launched once per CP step")
+    return demo
+
+
+def phase_chunked(demo):
+    """The demo in 300-iteration chunks on the card: 937 iterations and the
+    unchunked card run's history."""
+    problem, x0 = demo_problem()
+    tic = time.perf_counter()
+    res = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
+        x0, max_iters=2000, tol=1e-3, alpha=demo.alpha, chunk_iters=300)
+    diff = float(np.abs(res.xi_history - demo.xi_history).max()) \
+        if res.xi_history.shape == demo.xi_history.shape else float("inf")
+    emit("chunked_demo_f64", iters=res.num_iters, chunk_iters=300,
+         max_history_diff=diff, seconds=time.perf_counter() - tic)
+    check(res.converged and res.num_iters == 937,
+          f"chunked demo took {res.num_iters} iterations, not 937")
+    check(diff <= 1e-12, f"chunked history differs by {diff}")
 
 
 def phase_headline():
     problem, x0 = random_network_problem(**HEADLINE)
-    calls = {"prox_f": 0}
-    real_prox_f = solver_mod.prox_f
-
-    def counting_prox_f(*args, **kwargs):
-        calls["prox_f"] += 1
-        return real_prox_f(*args, **kwargs)
-
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sweep.LAUNCHES = 0
-    solver_mod.prox_f = counting_prox_f
-    try:
+    with counted("headline_f32") as calls:
         tic = time.perf_counter()
         solver = rt.Solver(problem, device=DEV)
         torch.cuda.synchronize()
@@ -188,9 +274,6 @@ def phase_headline():
         solver.operator_norm_sq()
         power_s = time.perf_counter() - tic
         res = solver.solve(x0, max_iters=20000, tol=1e-3, check_every=25)
-    finally:
-        solver_mod.prox_f = real_prox_f
-    launches = sweep.LAUNCHES
     sp = solver.stacked
     finite = all(np.isfinite(v).all() for v in res.primal)
     emit("headline_f32", nodes=sp.num_nodes, n=sp.n, m=sp.m,
@@ -199,37 +282,235 @@ def phase_headline():
          power_iterations=solver.power_iterations, cp_iters=res.num_iters,
          jax_f32_iters_for_context=JAX_F32_ITERS, solve_s=res.solve_time,
          iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
-         objective=res.objective, k1_launches=launches,
+         objective=res.objective, k1_launches=calls["k1"],
          prox_f_calls=calls["prox_f"],
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     check(res.converged and np.isfinite(res.xi).all() and finite,
           "headline solve did not converge to finite values")
     check(res.primal.x.shape == (sp.np_pad, sp.n), "primal shape")
-    check(launches > 0 and launches == calls["prox_f"],
-          f"K1 launches {launches} != prox_f calls {calls['prox_f']}")
-    return launches
+    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+
+
+def _timed_solver_for_mode(controller, setup):
+    """Time each cached solver's setup (build_stacked + power iteration)
+    as the closed loop first asks for it."""
+    real = controller.solver_for_mode
+
+    def timed(mode):
+        if mode in setup:
+            return real(mode)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = real(mode)
+        out[0].operator_norm_sq()
+        torch.cuda.synchronize()
+        setup[mode] = time.perf_counter() - tic
+        return out
+
+    controller.solver_for_mode = timed
+
+
+def phase_mpc_config5():
+    """BASELINE config 5 at full size: two closed-loop steps."""
+    tic = time.perf_counter()
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
+                                            device=DEV)
+    setup = {}
+    _timed_solver_for_mode(controller, setup)
+    torch.cuda.reset_peak_memory_stats()
+    with counted("mpc_config5_f32") as calls:
+        run = controller.run(x0, num_steps=2, initial_mode=0, check_every=25,
+                             unroll=5, chunk_iters=1250, max_iters=2500,
+                             relax="auto")
+    wall = time.perf_counter() - tic
+    solver, problem = controller.solver_for_mode(int(run.modes[-2]))
+    sp = solver.stacked
+    tic = time.perf_counter()
+    valid = solver.validate()
+    validate_s = time.perf_counter() - tic
+    plan = _plan_fields(sp)
+    emit("mpc_config5_f32", nodes=sp.num_nodes, n=sp.n, m=sp.m,
+         dtype=str(sp.dtype), steps=run.num_steps, modes=run.modes.tolist(),
+         setup_s_per_solver={str(k): v for k, v in setup.items()},
+         iterations=run.iterations.tolist(),
+         solve_s=run.solve_times.tolist(),
+         iters_per_second=(run.iterations / run.solve_times).tolist(),
+         statuses=run.statuses.tolist(), total_cost=run.total_cost,
+         wall_s=wall, max_memory_allocated_bytes=(
+             torch.cuda.max_memory_allocated()),
+         k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
+         validate_last=valid, validate_s=validate_s,
+         k1_fields=plan)
+    check(sp.num_nodes == 88573 and sp.K is None,
+          "config 5 is not the 88,573-node host-table tree")
+    check(np.isfinite(run.states).all() and np.isfinite(run.inputs).all(),
+          "closed-loop states or inputs not finite")
+    check(run.states.shape == (3, 100) and run.inputs.shape == (2, 40),
+          "closed-loop shapes")
+    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+
+
+def _accel_window(phase, problem, x0, iters, **kw):
+    """An accelerated solve capped at ``iters`` iterations, float64, on the
+    card and on the CPU with one step size. The accelerators amplify
+    rounding (one ulp on alpha moves the JAX package's own Anderson count
+    on the demo from 353 to 418, tests/test_torch_accel.py), so the two are
+    held together only inside a window where they still agree: the same
+    T evaluations (every safeguard, line-search and fallback decision
+    taken alike) and iterates within 1e-8. Returns both solvers and the
+    solve options."""
+    solvers = {"gpu": rt.Solver(problem, dtype=torch.float64, device=DEV),
+               "cpu": rt.Solver(problem, dtype=torch.float64, device="cpu")}
+    kw["alpha"] = 0.999 / solvers["cpu"].operator_norm_sq()
+    res, calls = {}, {}
+    for where, solver in solvers.items():
+        with counted() as calls[where]:
+            res[where] = solver.solve(x0, max_iters=iters, tol=1e-12, **kw)
+    diff = max(float(np.abs(a - b).max()) for a, b in
+               zip(res["gpu"].primal, res["cpu"].primal))
+    evals = {w: c["prox_f"] for w, c in calls.items()}
+    emit(phase, window_iters=iters, window_t_evals_gpu=evals["gpu"],
+         window_t_evals_cpu=evals["cpu"],
+         window_k1_launches_gpu=calls["gpu"]["k1"],
+         window_max_iterate_diff=diff)
+    check(evals["gpu"] == evals["cpu"] and diff <= 1e-8
+          and res["gpu"].num_iters == res["cpu"].num_iters,
+          f"{phase}: the first {iters} iterations differ between card and "
+          f"CPU: {evals['gpu']} / {evals['cpu']} T evaluations, iterates "
+          f"{diff} apart")
+    return solvers, kw, calls["gpu"]
+
+
+def phase_accel():
+    """SuperMann on the headline (1,000 iterations at most); SuperMann on
+    the uniform fixture (through K1) and Anderson on the demo, each in
+    float64 on the card against the CPU port."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem, device=DEV)
+    solver.operator_norm_sq()
+    reads = accel_mod.HOST_READS
+    with counted("accel_headline_f32") as calls:
+        res = solver.solve(x0, max_iters=1000, tol=1e-3, accel="supermann",
+                           accel_memory=5, check_every=25)
+    reads = accel_mod.HOST_READS - reads
+    checked = res.xi_history[~np.isnan(res.xi_history).any(axis=1)]
+    first = float(checked[0].max())
+    emit("accel_headline_f32", accel="supermann", memory=5, check_every=25,
+         iters=res.num_iters, t_evals=calls["prox_f"],
+         k1_launches=calls["k1"], seconds=res.solve_time,
+         iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
+         first_checked_xi=first, host_reads=reads,
+         host_reads_per_iter=reads / res.num_iters)
+    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+    check(np.isfinite(res.xi).all() and float(res.xi.max()) < first,
+          f"SuperMann xi {res.xi} not below its first check {first}")
+
+    # SuperMann on the uniform fixture runs K1 on the card. There one ulp
+    # on alpha moves the CPU iterates by 2e-11 after 80 iterations and by
+    # 9e-9 after 100, so its window is 80.
+    problem, x0 = random_network_problem(**SMALL)
+    _, _, calls = _accel_window("accel_supermann_small_window_f64", problem,
+                                x0, 80, accel="supermann", accel_memory=5)
+    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
+          f"SuperMann window: K1 launches {calls['k1']} != prox_f calls "
+          f"{calls['prox_f']}")
+
+    # Anderson on the demo (ragged: no K1): its first 60 iterations, then
+    # the converged counts on card and CPU are recorded
+    problem, x0 = demo_problem()
+    solvers, kw, _ = _accel_window("accel_anderson_demo_window_f64", problem,
+                                   x0, 60, accel="anderson")
+    gpu = solvers["gpu"].solve(x0, max_iters=2000, tol=1e-3, **kw)
+    cpu = solvers["cpu"].solve(x0, max_iters=2000, tol=1e-3, **kw)
+    valid = solvers["gpu"].validate(gpu)
+    emit("accel_anderson_demo_f64", gpu_iters=gpu.num_iters,
+         cpu_iters=cpu.num_iters, gpu_xi=gpu.xi.tolist(),
+         cpu_xi=cpu.xi.tolist(), gpu_seconds=gpu.solve_time,
+         gpu_validate=valid)
+    check(gpu.converged and gpu.num_iters < 937,
+          f"Anderson on the demo: {gpu.num_iters} iterations, status "
+          f"{gpu.status}")
+    check(max(valid.values()) < 1e-3,
+          "Anderson's solution on the card fails validate")
+
+
+def baseline(config5_steps):
+    """BASELINE config 4 (SuperMann) and config 5 (closed loop) to 1e-3,
+    as ``scripts/bench_configs.py`` runs them in the JAX package."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    tic = time.perf_counter()
+    solver = rt.Solver(problem, device=DEV)
+    solver.operator_norm_sq()
+    setup_s = time.perf_counter() - tic
+    with counted("config4_supermann") as calls:
+        res = solver.solve(x0, max_iters=20000, tol=1e-3, accel="supermann")
+    emit("config4_supermann_f32", nodes=solver.stacked.num_nodes,
+         converged=res.converged, iters=res.num_iters,
+         t_evals=calls["prox_f"], k1_launches=calls["k1"],
+         time_to_tol_s=res.solve_time, setup_s=setup_s,
+         iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
+         max_violation=max(solver.validate(res).values()))
+    check(res.converged, "config 4 SuperMann did not converge")
+
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
+                                            device=DEV)
+    setup = {}
+    _timed_solver_for_mode(controller, setup)
+    tic = time.perf_counter()
+    with counted("config5_closed_loop") as calls:
+        run = controller.run(x0, num_steps=config5_steps, max_iters=20000,
+                             tol=1e-3, check_every=25, unroll=5,
+                             chunk_iters=2500, relax="auto")
+    emit("config5_closed_loop_f32", steps=run.num_steps,
+         converged=run.converged, modes=run.modes.tolist(),
+         iterations=run.iterations.tolist(),
+         solve_s=run.solve_times.tolist(),
+         setup_s_per_solver={str(k): v for k, v in setup.items()},
+         wall_s=time.perf_counter() - tic, k1_launches=calls["k1"],
+         prox_f_calls=calls["prox_f"], total_cost=run.total_cost)
+    check(run.converged, "a config-5 step did not converge")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", action="store_true",
+                    help="run BASELINE configs 4 and 5 to 1e-3 instead")
+    ap.add_argument("--config5-steps", type=int, default=1)
+    args = ap.parse_args()
     smi = phase_device()
     phase_build()
+    if args.baseline:
+        baseline(args.config5_steps)
+        print(smi, flush=True)
+        return 0
     kernel = phase_kernel()
-    phase_parity()
-    launches = phase_headline()
+    demo = phase_parity()
+    phase_chunked(demo)
+    phase_headline()
+    phase_mpc_config5()
+    phase_accel()
     c = kernel["c_headline_f32"]
+    worst = max(kernel.values(), key=lambda r: r["rel_err"])
     print(json.dumps({"kernels": [{
         "name": "K1 dynamics-projection sweep",
         "route": "cuda",
         "source": "raocp_tpu_torch/csrc/sweep.cu",
         "replaces": "raocp_tpu/ops/pallas_sweep.py:79",
-        "launches": launches,
-        "max_abs_err": c["max_abs_err"],
+        "launches": sum(PATH_LAUNCHES.values()),
+        "launches_per_path": PATH_LAUNCHES,
+        "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
+        "max_rel_err": worst["rel_err"],
+        "max_rel_err_case": worst["case"],
         "ms": c["kernel_ms"],
         "plain_ms": c["plain_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ families) is a NumPy copy of the JAX package's; the stacked problem, the
 operators L / L', the proximal maps and the Chambolle-Pock loop run on
 torch tensors on the device given to :class:`Solver` (``device="cuda"``
 on a GPU). The dynamics-projection sweep of ``prox_f`` is a hand-written
-CUDA kernel (:mod:`raocp_tpu_torch.ops.sweep`). This package imports no
-JAX.
+CUDA kernel (:mod:`raocp_tpu_torch.ops.sweep`). The accelerated loops
+(:mod:`raocp_tpu_torch.accel`), closed-loop MPC (:mod:`raocp_tpu_torch.mpc`)
+and the NumPy reporting helpers (:mod:`raocp_tpu_torch.utils`) sit on top.
+This package imports no JAX.
 """
 
 from raocp_tpu_torch.core.tree import (ScenarioTree,
@@ -33,6 +35,7 @@ from raocp_tpu_torch.core.constraints import (
 )
 from raocp_tpu_torch.core.spec import RAOCP
 from raocp_tpu_torch.solver import Solver, SolverResult
+from raocp_tpu_torch.mpc import RiskAverseMPC, ClosedLoopResult
 
 __version__ = "0.1.0"
 
@@ -65,4 +68,6 @@ __all__ = [
     "RAOCP",
     "Solver",
     "SolverResult",
+    "RiskAverseMPC",
+    "ClosedLoopResult",
 ]

@@ -294,6 +294,84 @@ def _offline_riccati(spec: RAOCP, n: int, m: int):
     return A, B, P, Rinv, K, Abar, sumAPB
 
 
+def _riccati_device(A, B, child_idx, child_mask, anc, stage_start,
+                    num_nonleaf: int, nl_pad: int):
+    """The same backward factorisation as :func:`_offline_riccati`, as an
+    eager loop over stages on the tensors' device (JAX
+    ``core/stacked.py:381``): only the per-mode dynamics and the index
+    plans are uploaded, and the [N, n, n]-class stacks are computed where
+    they are read. Returns (P, Rinv, K, Abar, sumAPB); the stage results are
+    written into preallocated stacks in place."""
+    ss = stage_start
+    ns = len(ss) - 1
+    np_pad, n = A.shape[0], A.shape[1]
+    m = B.shape[2]
+    NL, N = num_nonleaf, ss[ns]
+    z = dict(dtype=A.dtype, device=A.device)
+    eye_n = torch.eye(n, **z)
+    eye_m = torch.eye(m, **z)
+    P = torch.zeros((np_pad, n, n), **z)
+    P[NL:N] = eye_n                                # leaves: P = I
+    K = torch.zeros((nl_pad, m, n), **z)
+    Rinv = torch.zeros((nl_pad, m, m), **z)
+    Abar = torch.zeros((np_pad, n, n), **z)
+    sumAPB = torch.zeros((nl_pad, n, m), **z)
+    for k in range(ns - 2, -1, -1):
+        a, b = ss[k], ss[k + 1]
+        a2, b2 = ss[k + 1], ss[k + 2]
+        Ac, Bc, Pc = A[a2:b2], B[a2:b2], P[a2:b2]
+        rel = torch.clamp(child_idx[a:b] - a2, 0, b2 - a2 - 1)
+        mask = child_mask[a:b][..., None, None]
+        PB = Pc @ Bc                                        # [W2, n, m]
+        BtPB = Bc.transpose(1, 2) @ PB
+        BtPA = Bc.transpose(1, 2) @ (Pc @ Ac)
+        r_tilde = eye_m + torch.sum(BtPB[rel] * mask, dim=1)
+        sum_k = torch.sum(BtPA[rel] * mask, dim=1)
+        Rinv_k = torch.linalg.inv(r_tilde)
+        K_k = torch.linalg.solve(r_tilde, -sum_k)
+        Abar_c = Ac + Bc @ K_k[anc[a2:b2] - a]
+        APB = Abar_c.transpose(1, 2) @ PB
+        AtPA = Abar_c.transpose(1, 2) @ Pc @ Abar_c
+        P[a:b] = (eye_n + K_k.transpose(1, 2) @ K_k
+                  + torch.sum(AtPA[rel] * mask, dim=1))
+        K[a:b] = K_k
+        Rinv[a:b] = Rinv_k
+        sumAPB[a:b] = torch.sum(APB[rel] * mask, dim=1)
+        Abar[a2:b2] = Abar_c
+    return P, Rinv, K, Abar, sumAPB
+
+
+def _offline_riccati_stage(modes_a, modes_b, patterns):
+    """Backward Riccati recursion for fully stage-constant trees: one tiny
+    (n x n)-class computation per stage (JAX ``core/stacked.py:573``).
+    Host NumPy float64. Returns per-stage lists (P_s[ns], K_s, Rinv_s,
+    sumAPB_s, Abar_s) where Abar_s[k] is [c, n, n] for stage k's
+    children."""
+    n = modes_a.shape[1]
+    m = modes_b.shape[2]
+    ns_nl = len(patterns)
+    P_s = [None] * (ns_nl + 1)
+    P_s[ns_nl] = np.eye(n)
+    K_s, Rinv_s, APB_s, Abar_s = ([None] * ns_nl for _ in range(4))
+    for k in range(ns_nl - 1, -1, -1):
+        pat = patterns[k]
+        Pc = P_s[k + 1]
+        A = modes_a[list(pat)]          # [c, n, n]
+        B = modes_b[list(pat)]          # [c, n, m]
+        PB = Pc @ B                     # [c, n, m]
+        r_tilde = np.eye(m) + np.einsum("rba,rbc->ac", B, PB)
+        sum_k = np.einsum("rba,rbc->ac", B, Pc @ A)
+        Rinv_s[k] = np.linalg.inv(r_tilde)
+        K = np.linalg.solve(r_tilde, -sum_k)
+        Abar = A + B @ K
+        K_s[k] = K
+        Abar_s[k] = Abar
+        APB_s[k] = np.einsum("rba,rbc->ac", Abar, PB)
+        P_s[k] = (np.eye(n) + K.T @ K
+                  + np.einsum("rba,bc,rcd->ad", Abar, Pc, Abar))
+    return P_s, K_s, Rinv_s, APB_s, Abar_s
+
+
 def _dedup_dynamics(spec: RAOCP, n: int, m: int):
     """Distinct (A, B) pairs + per-node mode index (mode 0 = zero pair for
     the root / padding rows). Host-side, O(num_nodes) hashing."""
@@ -610,20 +688,23 @@ def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
     (all-node / nonleaf / leaf) to a multiple of this; ghost rows are zero
     (bounds: +-inf) and stay zero through every operator and prox map.
 
-    The Riccati-like factorisation runs on the host in float64 NumPy
-    (``offline="host"``): over one tiny matrix per stage (per mode on chain
-    stages) when the tree admits stage / mode tables, else over the dense
-    per-node stacks. ``keep_dense`` forces the dense stacks (A/B/P/Rinv/K/
-    Abar/sumAPB) onto the device. ``offline="device"`` is not ported yet
-    (ROADMAP.md queue 1 item 13).
+    The Riccati-like factorisation, in the JAX package's branch order:
+
+    * a fully tabled tree without ``keep_dense``: on the host in float64
+      NumPy over one tiny matrix per stage (per mode on chain stages),
+      whatever ``offline`` says; only the tables reach the device;
+    * ``offline="device"``: on ``device`` in ``dtype`` — the stage tables
+      broadcast to dense stacks on a fully stage-constant tree with
+      ``keep_dense``, else :func:`_riccati_device` over the dense stacks;
+    * ``offline="host"``: on the host in float64 over the dense per-node
+      stacks.
+
+    ``keep_dense`` forces the dense stacks (A/B/P/Rinv/K/Abar/sumAPB) onto
+    the device.
     """
     device = torch.device(device)
     dtype = default_dtype(device) if dtype is None else _torch_dtype(dtype)
-    if offline == "device":
-        raise NotImplementedError(
-            "offline='device' (the device Riccati program) is not ported "
-            "yet: ROADMAP.md queue 1 item 13; use offline='host'")
-    if offline != "host":
+    if offline not in ("host", "device"):
         raise ValueError(f"offline must be 'host' or 'device', got {offline}")
     tree = spec.tree
     N = tree.num_nodes
@@ -723,6 +804,7 @@ def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
 
     stage_start = tuple(int(v) for v in tree.stage_start)
     stage_child = tree.stage_child
+    anc_dev = dev_idx(_pad0(anc, NP_))
     child_idx_dev = dev_idx(_pad0(tree.children_padded, NLP))
     child_mask_dev = dev(_pad0(tree.children_mask.astype(np.float64), NLP))
 
@@ -754,6 +836,7 @@ def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
 
     # K/Rinv/sumAPB stacks are read only on stages with neither stage- nor
     # mode-constant tables; A/B/P/Abar never
+    fully_const = bool(ns_nl) and stage_const[0]
     plan = _riccati_plan(w_idx, stage_start, stage_child, ab_pat)
     fully_tabled = bool(ns_nl) and plan[0] is not None
     need_kr = keep_dense or not fully_tabled
@@ -781,6 +864,40 @@ def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
                 if plan[k] is not None and plan[k][0] == "modal":
                     cls[stage_start[k]:stage_start[k + 1]] = plan[k][1]
             riccati_cls = dev_idx(cls)
+    elif offline == "device":
+        A_dev, B_dev = Am.modes[idx_dev], Bm.modes[idx_dev]
+        if fully_const:
+            # keep_dense on a fully stage-constant tree: the stage tables,
+            # broadcast to the dense stacks on the device
+            P_sl, K_sl, Rinv_sl, APB_sl, Abar_sl = _offline_riccati_stage(
+                modes_a, modes_b, ab_pat)
+            widths = [stage_start[k + 1] - stage_start[k]
+                      for k in range(tree.num_stages)]
+
+            def bcast(tabs, rows, pad_rows):
+                parts = [dev(t).expand((w,) + t.shape)
+                         for t, w in zip(tabs, rows)]
+                parts.append(torch.zeros((pad_rows,) + tabs[0].shape,
+                                         dtype=dtype, device=device))
+                return torch.cat(parts, dim=0)
+
+            P_dev = bcast(P_sl, widths, NP_ - N)
+            K_dev = bcast(K_sl, widths[:-1], NLP - NL)
+            Rinv_dev = bcast(Rinv_sl, widths[:-1], NLP - NL)
+            sumAPB_dev = bcast(APB_sl, widths[:-1], NLP - NL)
+            ab_parts = [torch.zeros((1, n, n), dtype=dtype, device=device)]
+            for k, ab in enumerate(Abar_sl):      # [c, n, n] per parent
+                ab_parts.append(dev(ab).expand((widths[k],) + ab.shape)
+                                .reshape(-1, n, n))
+            ab_parts.append(torch.zeros((NP_ - N, n, n), dtype=dtype,
+                                        device=device))
+            Abar_dev = torch.cat(ab_parts, dim=0)
+        else:
+            P_dev, Rinv_dev, K_dev, Abar_dev, sumAPB_dev = _riccati_device(
+                A_dev, B_dev, child_idx_dev, child_mask_dev, anc_dev,
+                stage_start, NL, NLP)
+            if not keep_dense:   # transient inputs and outputs
+                A_dev = B_dev = P_dev = Abar_dev = None
     else:
         # host-dense branch: the per-node factorisation over dense stacks
         A, B, P, Rinv, K, Abar, sumAPB = _offline_riccati(spec, n, m)
@@ -810,7 +927,7 @@ def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
         stage_start=stage_start,
         stage_child=stage_child,
         np_pad=NP_, nl_pad=NLP, lf_pad=LFP, y_dim=Y,
-        anc=dev_idx(_pad0(anc, NP_)),
+        anc=anc_dev,
         child_idx=child_idx_dev,
         child_mask=child_mask_dev,
         child_rank=dev_idx(_pad0(tree.child_rank, NP_)),

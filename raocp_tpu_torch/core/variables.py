@@ -14,12 +14,13 @@ e3..e6) are identically zero at all times; every operator and prox map
 preserves this, so norms and inner products match the reference exactly.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
 
 __all__ = ["Primal", "Dual", "tree_inf_norm", "tree_dot", "tree_axpy",
-           "tree_scale", "tree_sub", "tree_add"]
+           "tree_scale", "tree_sub", "tree_add", "make_packers"]
 
 
 class Primal(NamedTuple):
@@ -67,6 +68,38 @@ class Dual(NamedTuple):
     e12: torch.Tensor
     e13: torch.Tensor
     e14: torch.Tensor
+
+
+def make_packers(sp):
+    """(pack_primal, unpack_primal, pack_dual, unpack_dual) for one problem
+    (JAX ``core/variables.py:77``): the 5-leaf primal / 11-leaf dual as one
+    flat vector in leaf order. A pack is one concatenation; an unpack is
+    views of the flat vector. Padded slots stay zero, so packed norms equal
+    the per-leaf ones."""
+    p_shapes = [(sp.np_pad, sp.n), (sp.nl_pad, sp.m), (sp.nl_pad, sp.Y),
+                (sp.np_pad,), (sp.np_pad,)]
+    d_shapes = [(sp.nl_pad, sp.Y), (sp.nl_pad,), (sp.np_pad, sp.n),
+                (sp.np_pad, sp.m), (sp.np_pad,), (sp.np_pad,),
+                (sp.nl_pad, sp.nl_rows), (sp.lf_pad, sp.n), (sp.lf_pad,),
+                (sp.lf_pad,), (sp.lf_pad, sp.l_rows)]
+
+    def _mk(shapes, cls):
+        offs = [0]
+        for shape in shapes:
+            offs.append(offs[-1] + math.prod(shape))
+
+        def pack(tree):
+            return torch.cat([leaf.reshape(-1) for leaf in tree])
+
+        def unpack(vec):
+            return cls(*(vec[offs[i]:offs[i + 1]].reshape(shapes[i])
+                         for i in range(len(shapes))))
+
+        return pack, unpack
+
+    pack_p, unpack_p = _mk(p_shapes, Primal)
+    pack_d, unpack_d = _mk(d_shapes, Dual)
+    return pack_p, unpack_p, pack_d, unpack_d
 
 
 def tree_inf_norm(tree) -> torch.Tensor:

@@ -1,7 +1,9 @@
 from raocp_tpu_torch.models.examples import (
+    demo_mpc_controller,
     demo_problem,
     lqr_binary_problem,
     mass_spring_problem,
+    network_mpc_controller,
     random_network_problem,
     soc_network_problem,
 )
@@ -12,4 +14,6 @@ __all__ = [
     "mass_spring_problem",
     "random_network_problem",
     "soc_network_problem",
+    "demo_mpc_controller",
+    "network_mpc_controller",
 ]

@@ -17,7 +17,8 @@ from raocp_tpu_torch.core.spec import RAOCP
 from raocp_tpu_torch.core.tree import MarkovChainScenarioTreeFactory
 
 __all__ = ["demo_problem", "lqr_binary_problem", "mass_spring_problem",
-           "random_network_problem", "soc_network_problem"]
+           "random_network_problem", "soc_network_problem",
+           "demo_mpc_controller", "network_mpc_controller"]
 
 
 def demo_problem(num_stages: int = 4, stopping_time: int = 3,
@@ -200,3 +201,56 @@ def soc_network_problem(num_states: int = 20, num_inputs: int = 8,
         num_states=num_states, num_inputs=num_inputs, num_modes=num_modes,
         num_stages=num_stages, stopping_time=stopping_time, alpha=alpha,
         seed=seed, constraint="ball")
+
+def demo_mpc_controller(dtype=None, num_stages: int = 4,
+                        stopping_time: int = 3, mesh=None, device="cpu"):
+    """Closed-loop risk-averse MPC on the reference demo plant
+    (BASELINE config 5 shape at small scale).
+
+    Returns (controller, initial_state); run with
+    ``controller.run(x0, num_steps)``."""
+    from raocp_tpu_torch.mpc import RiskAverseMPC
+
+    p = np.array([[0.1, 0.8, 0.1],
+                  [0.4, 0.6, 0.0],
+                  [0.0, 0.3, 0.7]])
+
+    def factory(v):
+        problem, _ = demo_problem(num_stages=num_stages,
+                                  stopping_time=stopping_time,
+                                  initial_distribution=v)
+        return problem
+
+    return (RiskAverseMPC(factory, p, dtype=dtype, mesh=mesh, device=device),
+            np.array([5.0, -6.0, -1.0]))
+
+
+def network_mpc_controller(num_states: int = 20, num_inputs: int = 8,
+                           num_modes: int = 3, num_stages: int = 7,
+                           stopping_time: int = 3, alpha: float = 0.95,
+                           seed: int = 0, dtype=None,
+                           offline: str = "host", mesh=None, device="cpu"):
+    """Closed-loop MPC on the random-network plant at any scale
+    (full BASELINE config 5 with num_states=100, num_inputs=40,
+    num_stages=10, stopping_time=10: 88,573 nodes). Returns
+    (controller, initial_state)."""
+    from raocp_tpu_torch.mpc import RiskAverseMPC
+
+    rng = np.random.default_rng(seed)
+    p = rng.random((num_modes, num_modes)) + 0.1
+    p /= p.sum(axis=1, keepdims=True)
+
+    def factory(v):
+        problem, _ = random_network_problem(
+            num_states=num_states, num_inputs=num_inputs,
+            num_modes=num_modes, num_stages=num_stages,
+            stopping_time=stopping_time, alpha=alpha, seed=seed,
+            initial_distribution=v)
+        return problem
+
+    _, x0 = random_network_problem(
+        num_states=num_states, num_inputs=num_inputs, num_modes=num_modes,
+        num_stages=2, stopping_time=1, seed=seed)
+    return (RiskAverseMPC(factory, p, dtype=dtype, offline=offline,
+                          mesh=mesh, device=device), x0)
+

@@ -19,8 +19,8 @@ import torch
 from raocp_tpu_torch.core.stacked import StackedProblem
 from raocp_tpu_torch.core.variables import Dual, Primal
 
-__all__ = ["ell", "ell_t", "sum_over_children", "parent_expand", "repad",
-           "stage_groups"]
+__all__ = ["ell", "ell_t", "flat_linops", "sum_over_children",
+           "parent_expand", "repad", "stage_groups"]
 
 
 def stage_groups(sp: StackedProblem, same):
@@ -232,3 +232,36 @@ def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
         [eta.e2[:NL], (0.5 * (eta.e12 + eta.e13))[:LF]], dim=0), sp.np_pad)
 
     return Primal(x=x, u=u, y=y, tau=tau, s=s)
+
+
+def flat_linops(sp: StackedProblem):
+    """(matvec, rmatvec, primal_dim, dual_dim) on flat NumPy vectors (JAX
+    ``ops/operator.py:274``; parity: reference ``operators.py:96-109``).
+    Each call uploads the vector to the problem's device, applies L or L',
+    and returns a float64 NumPy vector, so the pair plugs into
+    ``scipy.sparse.linalg.LinearOperator``::
+
+        mv, rmv, np_, nd = flat_linops(sp)
+        L = LinearOperator((nd, np_), matvec=mv, rmatvec=rmv)
+    """
+    import numpy as np
+
+    from raocp_tpu_torch.core.variables import make_packers
+
+    pack_p, unpack_p, pack_d, unpack_d = make_packers(sp)
+    primal_dim = int(pack_p(sp.zero_primal()).shape[0])
+    dual_dim = int(pack_d(sp.zero_dual()).shape[0])
+
+    def upload(vec):
+        return torch.as_tensor(np.asarray(vec, dtype=np.float64).reshape(-1),
+                               dtype=sp.dtype, device=sp.device)
+
+    def matvec(vec):
+        out = pack_d(ell(sp, unpack_p(upload(vec))))
+        return out.cpu().numpy().astype(np.float64)
+
+    def rmatvec(vec):
+        out = pack_p(ell_t(sp, unpack_d(upload(vec))))
+        return out.cpu().numpy().astype(np.float64)
+
+    return matvec, rmatvec, primal_dim, dual_dim

@@ -9,8 +9,13 @@ fused launch per stage and direction (``csrc/sweep.cu``, built with
 ``nvcc`` for ``sm_90a`` at first use and bound with ``ctypes``).
 
 * CUDA tensors: the kernel runs, or the call raises. There is no fallback.
+  A launch the CUDA runtime refuses or faults raises :class:`DeviceFault`.
 * CPU tensors: :func:`project_dynamics_sweep_ref`, the plain torch version
   of exactly the kernel's math, runs instead.
+
+Each stage and direction stages its weights in shared memory where they fit
+beside the tile's rows, else reads them from device memory;
+:func:`sweep_plan` reports the choice and the tile.
 
 ``LAUNCHES`` counts the calls that launched the kernel, so a run can show
 that its main path went through it.
@@ -26,7 +31,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["sweep_eligible", "project_dynamics_sweep",
-           "project_dynamics_sweep_ref", "build_library", "LAUNCHES"]
+           "project_dynamics_sweep_ref", "sweep_plan", "build_library",
+           "DeviceFault", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -35,6 +41,10 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raocp_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _LIB = None
+
+
+class DeviceFault(RuntimeError):
+    """The CUDA runtime refused or faulted a launch of the sweep kernel."""
 
 
 def sweep_eligible(sp) -> bool:
@@ -84,6 +94,8 @@ def _library():
         for fn in (lib.raocp_sweep_f32, lib.raocp_sweep_f64):
             fn.argtypes = [p] * 14 + [i, i, i, ll, ll, p]
             fn.restype = i
+        lib.raocp_sweep_tile.argtypes = [i] * 5
+        lib.raocp_sweep_tile.restype = i
         lib.raocp_error_string.argtypes = [i]
         lib.raocp_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -153,14 +165,31 @@ def project_dynamics_sweep(sp, x_in, u_in, x0):
                  sp.num_stages, sp.n, sp.m, sp.np_pad, sp.nl_pad, stream)
     if err == -2:
         raise RuntimeError(
-            f"the sweep kernel's stage weights (n={sp.n}, m={sp.m}, "
-            f"c={max(sp.stage_child)}, {sp.dtype}) do not fit in the "
+            f"one row of the sweep kernel's tile (n={sp.n}, m={sp.m}, "
+            f"c={max(sp.stage_child)}, {sp.dtype}) does not fit in the "
             "227 KB of shared memory a block may use")
     if err != 0:
-        raise RuntimeError(f"the sweep kernel failed to launch: CUDA error "
-                           f"{err} ({lib.raocp_error_string(err).decode()})")
+        raise DeviceFault(f"the sweep kernel failed to launch: CUDA error "
+                          f"{err} ({lib.raocp_error_string(err).decode()})")
     LAUNCHES += 1
     return x_out, u_out
+
+
+def sweep_plan(sp):
+    """How the kernel runs each stage of ``sp``: one dict per nonleaf stage
+    and direction with ``weights`` ("shared" or "device" memory) and
+    ``tile`` (rows per block; 0 where not even one row fits). Needs the
+    built library (a CUDA toolkit)."""
+    lib = _library()
+    esize = torch.empty((), dtype=sp.dtype).element_size()
+    plan = []
+    for direction, fwd in (("backward", False), ("forward", True)):
+        for k, c in enumerate(sp.stage_child):
+            t = lib.raocp_sweep_tile(int(fwd), sp.n, sp.m, c, esize)
+            plan.append(dict(stage=k, direction=direction,
+                             weights="shared" if t > 0 else "device",
+                             tile=abs(t)))
+    return plan
 
 
 def project_dynamics_sweep_ref(sp, x_in, u_in, x0):

@@ -1,15 +1,19 @@
 """Chambolle-Pock solver for RAOCPs on torch tensors (counterpart of
-:mod:`raocp_tpu.solver`, plain CP on one device).
+:mod:`raocp_tpu.solver` on one device).
 
 Parity: reference ``raocp/core/solver.py:12`` (``Solver.chock``). The loop
 is a host Python loop over eager tensor ops; the host reads the device only
 when a residual is checked (every iteration at ``check_every=1``, once per
 period otherwise). Like the JAX package it carries L z and L'eta between
 iterations, so a step costs two operator applies, plus one for the xi_0
-residual at a check.
+residual at a check. Chunked solves (:func:`_chunked_loop`), the
+accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting helpers
+(``validate``, plots, pgfplots exports) keep the JAX package's semantics.
 """
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -17,14 +21,24 @@ import numpy as np
 import torch
 
 from raocp_tpu_torch.core.spec import RAOCP
-from raocp_tpu_torch.core.stacked import StackedProblem, build_stacked
+from raocp_tpu_torch.core.stacked import (StackedProblem, _dedup_dynamics,
+                                          build_stacked)
 from raocp_tpu_torch.core.variables import (Dual, Primal, tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
                                       prox_f)
+from raocp_tpu_torch.ops.sweep import DeviceFault
 
 __all__ = ["Solver", "SolverResult", "pin_full_precision"]
+
+# The faults a chunked solve retries once from its host snapshot: a failed
+# K1 launch, a CUDA runtime fault, and running out of device memory. Errors
+# of the caller (ValueError, TypeError, ...) are never caught.
+_DEVICE_FAULTS = tuple(c for c in (DeviceFault,
+                                   getattr(torch, "AcceleratorError", None),
+                                   torch.cuda.OutOfMemoryError)
+                       if c is not None)
 
 
 def _not_ported(what: str, item: int):
@@ -71,12 +85,10 @@ class SolverResult:
 
     def save_checkpoint(self, path: str) -> None:
         """Persist (z, eta, k) in the JAX package's npz layout, so either
-        package can warm-start from it."""
-        primal = {f"primal_{k}": np.asarray(v)
-                  for k, v in self.primal._asdict().items()}
-        dual = {f"dual_{k}": np.asarray(v)
-                for k, v in self.dual._asdict().items()}
-        np.savez(path, num_iters=self.num_iters, **primal, **dual)
+        package can warm-start from it. One writer
+        (:func:`_write_iterate_npz`) serves this and the fault checkpoints
+        of chunked solves."""
+        _write_iterate_npz(self.primal, self.dual, self.num_iters, path)
 
     @staticmethod
     def load_checkpoint(path: str):
@@ -181,11 +193,23 @@ def _rebalance(a1, a2, phi, err):
     return a1 * fac, a2 / fac, phi_new
 
 
+def _log_residuals(k, err):
+    print(f"[raocp_tpu_torch] iter {int(k):>7d}  "
+          f"xi_0={float(err[0]):.3e} xi_1={float(err[1]):.3e} "
+          f"xi_2={float(err[2]):.3e}")
+
+
 def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
             max_iters: int, check_every: int = 1, unroll: int = 1,
-            adaptive: bool = False, relax: float = 1.0):
+            adaptive: bool = False, relax: float = 1.0,
+            log_every: Optional[int] = None, k0: int = 0):
     """The CP loop with the JAX package's semantics. Returns (z, eta,
     iters, final errors as NumPy [3], history NumPy [iters, 6]).
+
+    ``log_every=j`` prints the last checked residuals after every step
+    whose loop index is a multiple of j (JAX ``solver.py:442``), with the
+    index offset by ``k0`` (the iterations of earlier chunks); it reads
+    nothing from the device beyond the checks.
 
     ``check_every=k`` evaluates the residuals (and the stopping test) only
     at every k-th iteration; unchecked history rows are NaN (all rows are
@@ -223,6 +247,8 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
                 row = torch.cat([err, derr]).cpu().numpy()   # the one sync
                 hist[k + i] = row
                 err_np = row[:3]
+            if log_every is not None and (k + i) % log_every == 0:
+                _log_residuals(k0 + k + i, err_np)
             if relax != 1.0:
                 # over-relaxation after the residual evaluation; the carried
                 # operator images relax linearly
@@ -235,9 +261,98 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
     return z, eta, k, err_np, hist[:k]
 
 
+def _to_numpy(tree):
+    return type(tree)(*(v.detach().cpu().numpy() for v in tree))
+
+
+def _chunked_loop(run_chunk, z0, eta0, tol, max_iters,
+                  checkpoint_on_fault, write_checkpoint):
+    """Drive a CP loop in chunks of a fixed budget, with one retry.
+
+    ``run_chunk(z, eta, iters_done) -> (z, eta, it, err, hist)`` runs one
+    chunk (JAX ``solver.py:241``); ``iters_done`` offsets its logged
+    indices, so they are global. The iterates stay on the device between
+    chunks, and each completed chunk's iterate is also copied to host
+    memory. A device fault (:data:`_DEVICE_FAULTS`: a failed K1 launch, a
+    CUDA runtime fault, or device memory running out) mid-chunk retries
+    that chunk once from the last host snapshot. If the retry fails too
+    and ``checkpoint_on_fault`` is set, ``write_checkpoint(z_np, eta_np,
+    iters, path)`` writes the snapshot before the error is raised.
+
+    CUDA faults differ from XLA's: an illegal-address fault is sticky, the
+    process's CUDA context is dead, and the retry fails as well. For such a
+    fault the checkpoint is what saves the work: a fresh process resumes
+    with ``solve(warm_start=SolverResult.load_checkpoint(path)[:2])``.
+    """
+    zc, ec = z0, eta0
+    iters = 0
+    hists = []
+    snap = (_to_numpy(z0), _to_numpy(eta0), 0)
+    retried = False
+    while True:
+        try:
+            z, eta, it, err, hist = run_chunk(zc, ec, iters)
+        except _DEVICE_FAULTS as e:
+            if not retried:
+                # redo this chunk from the last good host snapshot (its
+                # history was never appended)
+                retried = True
+                zc, ec, iters = snap
+                continue
+            if checkpoint_on_fault is not None:
+                zs, es, ks = snap
+                write_checkpoint(zs, es, ks, checkpoint_on_fault)
+                raise RuntimeError(
+                    f"device fault persisted after retry; last good "
+                    f"iterate (iteration {ks}) saved to "
+                    f"{checkpoint_on_fault} — resume via "
+                    "solve(warm_start=SolverResult."
+                    "load_checkpoint(path)[:2])") from e
+            raise
+        retried = False
+        iters += it
+        hists.append(hist)
+        snap = (_to_numpy(z), _to_numpy(eta), iters)
+        if float(err.max()) <= tol or iters >= max_iters or it == 0:
+            break
+        zc, ec = z, eta          # device-resident warm start
+    return z, eta, iters, err, np.concatenate(hists)
+
+
+def _write_iterate_npz(z_np, eta_np, num_iters, path):
+    """Persist (z, eta, k) in the SolverResult.save_checkpoint format."""
+    primal = {f"primal_{k}": np.asarray(v) for k, v
+              in Primal(*z_np)._asdict().items()}
+    dual = {f"dual_{k}": np.asarray(v) for k, v
+            in Dual(*eta_np)._asdict().items()}
+    np.savez(path, num_iters=num_iters, **primal, **dual)
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: torch.device):
+    """``torch.profiler`` around the solve (CUDA activity only on a CUDA
+    device), its Chrome trace written to ``profile_dir/trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def _host(v):
+    return None if v is None else v.detach().cpu().numpy()
+
+
 class Solver:
     """Builds the stacked problem + offline factorisations on ``device``,
-    then solves with plain Chambolle-Pock.
+    then solves with Chambolle-Pock.
 
     Building a Solver pins full-float32 matmul precision for the process
     (:func:`pin_full_precision`: TF32 off in cuBLAS and cuDNN, "highest"
@@ -261,6 +376,7 @@ class Solver:
             offline=offline, device=device)
         self.__result: Optional[SolverResult] = None
         self.__lambda_max: Optional[float] = None
+        self.__validate_plan: Optional[dict] = None
         self.power_iterations: Optional[int] = None
 
     def operator_norm_sq(self) -> float:
@@ -287,6 +403,7 @@ class Solver:
               log_every: Optional[int] = None,
               profile_dir: Optional[str] = None,
               accel: Optional[str] = None,
+              accel_memory: int = 5,
               check_every: int = 1,
               unroll: int = 1,
               step_ratio: float = 1.0,
@@ -300,22 +417,27 @@ class Solver:
         :param alpha: overrides the 0.999/lambda_max(L'L) step rule
         :param warm_start: optional (primal, dual) (arrays or tensors, e.g.
             from :meth:`SolverResult.load_checkpoint`) to resume from
+        :param log_every: print the last checked residuals every k steps
+        :param profile_dir: wrap the solve in ``torch.profiler`` and write
+            its Chrome trace to ``profile_dir/trace.json``
+        :param accel: ``None`` (plain CP), ``"anderson"``, or
+            ``"supermann"`` (aliases ``"broyden"``, ``"lbfgs"``); see
+            :mod:`raocp_tpu_torch.accel`. Accelerated solves step with
+            ``alpha`` itself and ignore ``step_ratio``, ``adaptive``,
+            ``relax``, ``unroll`` and ``chunk_iters``.
+        :param accel_memory: Anderson / Broyden history depth
         :param check_every: evaluate the residuals every k-th iteration
         :param unroll: CP steps per loop trip (must divide check_every)
         :param step_ratio: alpha1 = gamma * alpha, alpha2 = alpha / gamma
         :param adaptive: residual balancing of alpha1/alpha2 at each check
         :param relax: over-relaxation rho in (0, 2), or ``"auto"`` (1.8)
-
-        ``log_every``, ``profile_dir``, ``accel``, ``chunk_iters`` and
-        ``checkpoint_on_fault`` are not ported yet and raise.
+        :param chunk_iters: run the plain loop in chunks of this many
+            iterations (each runs ``chunk_iters + 1`` steps, the loop's
+            ``k + unroll < max_iters + 2`` rule) until convergence or
+            ``max_iters``; see :func:`_chunked_loop` for the one retry
+        :param checkpoint_on_fault: with ``chunk_iters``, where to write
+            the last good iterate if the retry fails too
         """
-        if accel is not None:
-            raise _not_ported(f"accel={accel!r}", 11)
-        if chunk_iters is not None or checkpoint_on_fault is not None:
-            raise _not_ported("chunked solves (chunk_iters, "
-                              "checkpoint_on_fault)", 9)
-        if log_every is not None or profile_dir is not None:
-            raise _not_ported("log_every / profile_dir", 9)
         sp = self.__stacked
         relax = _resolve_relax(relax)
         x0_np = np.asarray(initial_state, dtype=np.float64).reshape(-1)
@@ -325,29 +447,55 @@ class Solver:
             raise ValueError(f"step_ratio must be positive, got {step_ratio}")
         if not 0.0 < relax < 2.0:
             raise ValueError(f"relax must lie in (0, 2), got {relax}")
+        if accel not in (None, "anderson", "supermann", "broyden", "lbfgs"):
+            raise ValueError(f"unknown accel '{accel}'")
         x0 = torch.as_tensor(x0_np, dtype=sp.dtype, device=sp.device)
         if alpha is None:
             alpha = 0.999 / self.operator_norm_sq()
+
+        def conv(tree, cls):
+            """Arrays or tensors -> tensors on the problem's device (no copy
+            for tensors already there)."""
+            return cls(*(torch.as_tensor(
+                v if isinstance(v, torch.Tensor) else np.asarray(v),
+                dtype=sp.dtype, device=sp.device) for v in tree))
+
         if warm_start is None:
             z0 = sp.zero_primal()
             z0.x[0] = x0             # reference cache_initial_state
             eta0 = sp.zero_dual()
         else:
-            def conv(v):
-                if not isinstance(v, torch.Tensor):
-                    v = np.asarray(v)
-                return torch.as_tensor(v, dtype=sp.dtype, device=sp.device)
-
-            z0 = Primal(*map(conv, warm_start[0]))
-            eta0 = Dual(*map(conv, warm_start[1]))
+            z0 = conv(warm_start[0], Primal)
+            eta0 = conv(warm_start[1], Dual)
         if sp.device.type == "cuda":
             torch.cuda.synchronize(sp.device)
         tic = time.perf_counter()
-        z, eta, iters, err, hist = _run_cp(
-            sp, z0, eta0, x0, alpha * step_ratio, alpha / step_ratio, tol,
-            max_iters, check_every, unroll, adaptive, relax)
-        if sp.device.type == "cuda":
-            torch.cuda.synchronize(sp.device)
+        with _profiled(profile_dir, sp.device):
+            if accel is None and chunk_iters is not None:
+                def run_chunk(zc, ec, iters_done):
+                    return _run_cp(
+                        sp, conv(zc, Primal), conv(ec, Dual), x0,
+                        alpha * step_ratio, alpha / step_ratio, tol,
+                        int(chunk_iters), check_every, unroll, adaptive,
+                        relax, log_every, k0=iters_done)
+
+                z, eta, iters, err, hist = _chunked_loop(
+                    run_chunk, z0, eta0, tol, max_iters,
+                    checkpoint_on_fault, _write_iterate_npz)
+            elif accel is None:
+                z, eta, iters, err, hist = _run_cp(
+                    sp, z0, eta0, x0, alpha * step_ratio, alpha / step_ratio,
+                    tol, max_iters, check_every, unroll, adaptive, relax,
+                    log_every)
+            else:
+                from raocp_tpu_torch import accel as accel_mod
+                run = (accel_mod.run_cp_anderson if accel == "anderson"
+                       else accel_mod.run_cp_supermann)
+                z, eta, iters, _evals, err, hist = run(
+                    sp, z0, eta0, x0, alpha, tol, max_iters,
+                    memory=accel_memory, check_every=check_every)
+            if sp.device.type == "cuda":
+                torch.cuda.synchronize(sp.device)
         toc = time.perf_counter()
         self.__result = SolverResult(
             status=0 if float(err.max()) <= tol else 1,
@@ -357,8 +505,8 @@ class Solver:
             delta_history=hist[:, 3:],
             alpha=float(alpha),
             solve_time=toc - tic,
-            primal=Primal(*(v.cpu().numpy() for v in z)),
-            dual=Dual(*(v.cpu().numpy() for v in eta)),
+            primal=_to_numpy(z),
+            dual=_to_numpy(eta),
         )
         return self.__result
 
@@ -368,28 +516,162 @@ class Solver:
         convergence, 1 otherwise; rich results stay on :attr:`result`."""
         return self.solve(initial_state, max_iters=max_iters, tol=tol).status
 
-    # -- not ported yet ----------------------------------------------------
-
     def solve_batch(self, *args, **kwargs):
         raise _not_ported("solve_batch", 10)
 
-    def validate(self, *args, **kwargs):
-        raise _not_ported("validate", 9)
+    # -- reporting (parity: reference solver.py:173-253) ---------------------
 
-    def print_states(self, *args, **kwargs):
-        raise _not_ported("print_states", 9)
+    def print_states(self) -> None:
+        print("states =\n")
+        for row in self.__result.primal.x:
+            print(f"{row.reshape(-1, 1)}\n")
 
-    def print_inputs(self, *args, **kwargs):
-        raise _not_ported("print_inputs", 9)
+    def print_inputs(self) -> None:
+        print("inputs =\n")
+        for row in self.__result.primal.u:
+            print(f"{row.reshape(-1, 1)}\n")
 
-    def plot_residuals(self, *args, **kwargs):
-        raise _not_ported("plot_residuals", 9)
+    def plot_residuals(self, filename: Optional[str] = None,
+                       show: bool = True):
+        from raocp_tpu_torch.utils.plots import plot_residuals
+        return plot_residuals(self.__result, filename=filename, show=show)
 
-    def plot_solution(self, *args, **kwargs):
-        raise _not_ported("plot_solution", 9)
+    def plot_solution(self, filename: Optional[str] = None,
+                      show: bool = True):
+        from raocp_tpu_torch.utils.plots import plot_solution
+        return plot_solution(self.__spec.tree, self.__result,
+                             filename=filename, show=show)
 
-    def save_residuals_tex(self, *args, **kwargs):
-        raise _not_ported("save_residuals_tex", 9)
+    def save_residuals_tex(self, filename: str) -> None:
+        """pgfplots export of the residual curves (reference writes
+        '4-3-residuals.tex', ``solver.py:199``)."""
+        from raocp_tpu_torch.utils.plots import save_residuals_tex
+        save_residuals_tex(self.__result, filename)
 
-    def save_solution_tex(self, *args, **kwargs):
-        raise _not_ported("save_solution_tex", 9)
+    def save_solution_tex(self, filename: str) -> None:
+        """pgfplots export of the trajectory fans (reference writes
+        'python-solution.tex', ``solver.py:253``)."""
+        from raocp_tpu_torch.utils.plots import save_solution_tex
+        save_solution_tex(self.__spec.tree, self.__result, filename)
+
+    def validate(self, result: Optional[SolverResult] = None) -> dict:
+        """Host-side check of a solution (JAX ``solver.py:1010``), NumPy on
+        the result. Returns max-norm violations of:
+
+        * ``dynamics``: x_j - (A_j x_i + B_j u_i) over non-root nodes
+        * ``kernel``: the risk-recursion kernel constraint M_i [y; tau; s]
+        * ``constraints``: distance of [x; u] / x to each node's constraint
+          set (0 when feasible), from the stacked tables and, on a sample
+          of nodes, from the spec's own ``Constraint.violation``
+        """
+        res = result if result is not None else self.__result
+        if res is None:
+            raise RuntimeError("no solve result to validate")
+        sp = self.__stacked
+        spec = self.__spec
+        tree = spec.tree
+        x = np.asarray(res.primal.x)
+        u = np.asarray(res.primal.u)
+        y = np.asarray(res.primal.y)
+        tau = np.asarray(res.primal.tau)
+        s = np.asarray(res.primal.s)
+        NL, N = sp.num_nonleaf, sp.num_nodes
+
+        plan = self._validate_plan()
+        modes_a, modes_b, w_idx = plan["dynamics"]
+        anc = tree.ancestors
+        dyn = 0.0
+        for w in range(1, modes_a.shape[0]):
+            nodes = np.nonzero(w_idx == w)[0]
+            nodes = nodes[nodes >= 1]
+            if nodes.size == 0:
+                continue
+            par = anc[nodes]
+            pred = x[par] @ modes_a[w].T + u[par] @ modes_b[w].T
+            dyn = max(dyn, float(np.abs(x[nodes] - pred).max()))
+
+        # kernel: one batched matmul per distinct (E, F, child count)
+        ker = 0.0
+        ch_idx = tree.children_padded
+        for E, F, c, nodes in plan["kernel_groups"]:
+            nodes = np.asarray(nodes)
+            eye, zc = np.eye(c), np.zeros((F.shape[1], c))
+            M = np.vstack((np.hstack((E.T, -eye, -eye)),
+                           np.hstack((F.T, zc, zc))))
+            ch = ch_idx[nodes, :c]
+            V = np.concatenate(
+                [y[nodes, :E.shape[0]], tau[ch], s[ch]], axis=1)
+            if V.size:
+                ker = max(ker, float(np.abs(V @ M.T).max()))
+
+        # constraints, from the stacked tables (Rectangle/Polyhedral row
+        # residuals; Ball max-norm distance to the Euclidean projection)
+        def table_violation(v, G, lo, hi, active, ball_c, ball_r):
+            act = active > 0.0
+            if not act.any():
+                return 0.0
+            img = v if G is None else v @ G.T
+            rect = np.maximum(np.maximum(lo - img, img - hi), 0.0)
+            rect = np.where(np.isfinite(rect), rect, 0.0).max(axis=1)
+            diff = v - ball_c
+            dist = np.linalg.norm(diff, axis=1)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                factor = np.where(
+                    dist > ball_r, 1.0 - ball_r / np.maximum(dist, 1e-300),
+                    0.0)
+            ball = factor * np.abs(diff).max(axis=1)
+            return float(np.maximum(rect, ball)[act].max())
+
+        xu = np.concatenate([x[:NL], u[:NL]], axis=1)
+        con = table_violation(
+            xu, _host(sp.nl_G), _host(sp.nl_lo[:NL]), _host(sp.nl_hi[:NL]),
+            _host(sp.nl_active[:NL]), _host(sp.nl_ball_c[:NL]),
+            _host(sp.nl_ball_r[:NL]))
+        LF = N - NL
+        con = max(con, table_violation(
+            x[NL:N], _host(sp.l_G), _host(sp.l_lo[:LF]),
+            _host(sp.l_hi[:LF]), _host(sp.l_active[:LF]),
+            _host(sp.l_ball_c[:LF]), _host(sp.l_ball_r[:LF])))
+
+        # a deterministic node sample against the spec's per-node oracles,
+        # independent of the stacked tables
+        for i in plan["nl_sample"]:
+            c = spec.nonleaf_constraint_at_node(int(i))
+            if c.is_active:
+                con = max(con, float(c.violation(xu[i])))
+        for i in plan["lf_sample"]:
+            c = spec.leaf_constraint_at_node(int(NL + i))
+            if c.is_active:
+                con = max(con, float(c.violation(x[NL + i])))
+
+        return {"dynamics": dyn, "kernel": ker, "constraints": con}
+
+    def _validate_plan(self) -> dict:
+        """The O(num_nodes) host setup of :meth:`validate` (dynamics mode
+        interning, kernel groups, constraint samples), once per Solver."""
+        if self.__validate_plan is not None:
+            return self.__validate_plan
+        sp = self.__stacked
+        spec = self.__spec
+        tree = spec.tree
+        NL, N = sp.num_nonleaf, sp.num_nodes
+        groups: dict = {}
+        for i in range(NL):
+            risk = spec.risk_at_node(i)
+            E, F = risk.matrix_e, risk.matrix_f
+            c = int(tree.child_count[i])
+            key = (E.shape, E.tobytes(), F.shape, F.tobytes(), c)
+            groups.setdefault(key, (E, F, c, []))[3].append(i)
+        # <= 64 evenly spaced nodes per class
+        nl_sample = np.unique(np.linspace(0, NL - 1, min(NL, 64),
+                                          dtype=np.int64)) if NL else []
+        lf = N - NL
+        lf_sample = np.unique(np.linspace(0, lf - 1, min(lf, 64),
+                                          dtype=np.int64)) if lf else []
+        self.__validate_plan = {
+            "dynamics": _dedup_dynamics(spec, sp.n, sp.m),
+            "kernel_groups": list(groups.values()),
+            "nl_sample": nl_sample,
+            "lf_sample": lf_sample,
+        }
+        return self.__validate_plan

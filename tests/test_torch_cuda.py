@@ -17,17 +17,25 @@ from raocp_tpu_torch.models import random_network_problem  # noqa: E402
 from raocp_tpu_torch.ops import sweep  # noqa: E402
 from raocp_tpu_torch.ops.prox import project_dynamics  # noqa: E402
 
-# the tests/test_pallas.py fixture, and a wider one (n=50, m=20, c=3)
+# the tests/test_pallas.py fixture, a wider one (n=50, m=20, c=3), and
+# BASELINE config 5's width (n=100, m=40, c=3; 4 stages, 40 nodes), whose
+# weights do not fit in shared memory in float64
 FIXTURES = {
     "small": dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
                   stopping_time=4),
     "wide": dict(num_states=50, num_inputs=20, num_modes=3, num_stages=5,
                  stopping_time=5),
+    "config5_width": dict(num_states=100, num_inputs=40, num_modes=3,
+                          num_stages=3, stopping_time=3),
 }
 # float64: summation-order noise; float32: the TPU test's tolerance, and
-# 1e-4 for 170-term sums over stages
+# 1e-4 for the 170- to 340-term sums over stages
 TOLS = {("small", "float32"): 1e-5, ("small", "float64"): 1e-12,
-        ("wide", "float32"): 1e-4, ("wide", "float64"): 1e-12}
+        ("wide", "float32"): 1e-4, ("wide", "float64"): 1e-12,
+        ("config5_width", "float32"): 1e-4,
+        ("config5_width", "float64"): 1e-12}
+# the path each case's stages take: weights in shared or device memory
+WEIGHTS = {("config5_width", "float64"): "device"}
 
 
 @pytest.fixture
@@ -63,6 +71,10 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
     x2, _ = project_dynamics(sp, *args)
     assert sweep.LAUNCHES == before + 2
     torch.testing.assert_close(x2, x, rtol=0, atol=0)
+    plan = sweep.sweep_plan(sp)
+    assert {p["weights"] for p in plan} == {WEIGHTS.get((name, dtype),
+                                                        "shared")}
+    assert all(p["tile"] > 0 for p in plan)
 
 
 @pytest.mark.cuda

@@ -78,19 +78,26 @@ def test_example_families_match_jax(name, kwargs):
 
 
 def test_port_never_imports_jax():
-    """A fresh process imports the port, builds and steps the demo, and
-    finds no JAX module loaded."""
+    """A fresh process imports the port (accel, mpc and utils included),
+    builds, steps and validates the demo, and finds no JAX module loaded,
+    and no matplotlib either (only the plotting functions import it)."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import raocp_tpu_torch as r\n"
+        "import raocp_tpu_torch.accel, raocp_tpu_torch.mpc\n"
+        "import raocp_tpu_torch.utils.evaluate, raocp_tpu_torch.utils.plots\n"
         "from raocp_tpu_torch.models import demo_problem\n"
         "problem, x0 = demo_problem()\n"
-        "res = r.Solver(problem).solve(x0, max_iters=3, tol=1e-3)\n"
+        "solver = r.Solver(problem)\n"
+        "res = solver.solve(x0, max_iters=3, tol=1e-3)\n"
         "assert res.num_iters == 4, res.num_iters\n"
+        "res = solver.solve(x0, max_iters=3, tol=1e-3, accel='anderson')\n"
+        "solver.validate(res)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
-        "                                            'raocp_tpu.')))\n"
+        "                                            'raocp_tpu.',\n"
+        "                                            'matplotlib')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

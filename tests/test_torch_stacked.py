@@ -140,9 +140,16 @@ def test_from_numpy_rejects_multi_device_layouts():
 
 
 def test_offline_device_not_ported():
+    """The name predates the port of ``offline="device"``. On a fully
+    tabled tree the option takes the host tables, as in the JAX package
+    (the device branches are in tests/test_torch_offline.py); an unknown
+    ``offline`` still raises."""
     spec, _ = port_models.lqr_binary_problem()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_stacked(spec, offline="device")
+    port, ref = _pair("lqr_binary_problem", {}, 1, offline="device")
+    assert port.K is None
+    assert_same_problem(port, ref)
+    with pytest.raises(ValueError, match="offline"):
+        build_stacked(spec, offline="disk")
 
 
 def test_default_dtype_follows_device():
