@@ -2,17 +2,21 @@
 
     python3 chip_smoke.py               # the smoke run (about 3 minutes)
     python3 chip_smoke.py --baseline    # BASELINE configs 4 and 5 to 1e-3
+    python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
 card (at the shapes of every path below, BASELINE config 5's width
-included), and then drives the port's paths, each with the launch counts
-set to 0 just before it and read just after:
+included; each case with its time, the plain version's, and the least time
+the card could take for the same operations and bytes), and then drives the
+port's paths, each with the launch counts set to 0 just before it and read
+just after:
 
 * ``parity_*``: the demo's 937 iterations in float64 on the card, and a
   uniform 121-node tree through K1 against the CPU;
 * ``chunked_demo_f64``: the demo in 300-iteration chunks, the same history;
-* ``headline_f32``: ``Solver(problem, device="cuda").solve(x0)`` at the
+* ``headline_f32``: ``Solver(problem).solve(x0)`` (the card is the default
+  device) at the
   50-state, 20-input, 3-mode, 8-stage (9,841-node) configuration;
 * ``mpc_config5_f32``: ``network_mpc_controller(offline="device")`` at
   BASELINE config 5's full size (100 states, 40 inputs, 88,573 nodes),
@@ -28,14 +32,18 @@ power limit, and as its last line
 raises; without a CUDA device it fails before printing anything. It imports
 no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
 config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
-(``--config5-steps``, default 1).
+(``--config5-steps``, default 1). ``--profile`` runs 100 CP steps of
+config 5 with ``solve(profile_dir=...)`` and prints, from that trace, the
+card's busy share of the step and its kernels by time.
 """
 
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -69,6 +77,13 @@ CONFIG5 = dict(num_states=100, num_inputs=40, num_modes=3, num_stages=10,
 JAX_F32_ITERS = 10174
 # K1 launches of each driven path
 PATH_LAUNCHES = {}
+# the card's published peaks (NVIDIA H100 SXM data sheet), by element size:
+# FLOP/s of FMA in that type without loss of digits (float32 outside the
+# tensor cores; float64 through the tensor cores' DMMA, which rounds like
+# fma and so is open to the kernel, at twice the 34e12 of the FMA pipes),
+# and bytes/s of device memory
+PEAK_FLOPS = {4: 67e12, 8: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def emit(phase, **fields):
@@ -154,36 +169,65 @@ def _median_ms(fn, runs=50):
 
 
 def _plan_fields(sp):
-    """The path (shared- or device-memory weights) and tile of each
-    direction; every stage of these uniform trees plans alike."""
-    out = {}
-    for p in sweep.sweep_plan(sp):
-        key = "bwd" if p["direction"] == "backward" else "fwd"
-        out.setdefault(f"{key}_weights", set()).add(p["weights"])
-        out.setdefault(f"{key}_tile", set()).add(p["tile"])
-    return {k: "/".join(str(v) for v in sorted(s)) for k, s in out.items()}
+    """The schedule of one apply, and the least time the card could take
+    for its work: the larger of its operations over the peak FMA rate of
+    the element type and its compulsory bytes over the memory rate."""
+    plan = sweep.sweep_schedule(sp)
+    work = sweep.sweep_work(sp)
+    esize = sweep._esize(sp.dtype)
+    by = {"operations": work["flop"] / PEAK_FLOPS[esize],
+          "bytes": work["bytes"] / PEAK_BYTES}
+    bound_by = max(by, key=by.get)
+    return dict(
+        launches_per_apply=plan["launch_count"],
+        apex_stages=plan["apex_stages"], apex_tile=plan["apex_tile"],
+        stage_launches=" ".join(
+            f"{la['direction'][0]}{la['stages'][0]}:tm{la['tm']}"
+            f"xt{la['tile']}xg{la['grid']}"
+            for la in plan["launches"] if la["kind"] == "stage"),
+        flop=work["flop"], bytes=work["bytes"],
+        bound_ms=1e3 * by[bound_by], bound_by=bound_by,
+        # no single PyTorch call computes the sweep: the plain version is
+        # about eight calls per stage
+        library_ms=None)
+
+
+def phase_matmul_context():
+    """Context only: one ``torch.matmul`` on the one largest product of
+    config 5's sweep. The port never calls it."""
+    a = torch.randn(19683, 300, device=DEV)
+    b = torch.randn(300, 140, device=DEV)
+    ms = _median_ms(lambda: torch.matmul(a, b))
+    emit("context_matmul", shape="[19683, 300] x [300, 140]",
+         dtype="torch.float32", ms=ms, flop=2 * 19683 * 300 * 140,
+         tflops=2 * 19683 * 300 * 140 / (1e-3 * ms) / 1e12,
+         note="the largest single product of config 5's sweep through "
+              "torch.matmul, as a yardstick; the port never calls it")
 
 
 def phase_kernel():
     """K1 against its plain version on the card. The error is relative to
-    the output's inf-norm; ghost rows must be exactly zero."""
-    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12, None),
-             ("b_small_f32", SMALL, torch.float32, 4, 1e-5, None),
+    the output's inf-norm; ghost rows must be exactly zero; a second apply
+    on the same buffers must give the same bits."""
+    odd_width = dict(HEADLINE, num_inputs=18)
+    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12),
+             ("b_small_f32", SMALL, torch.float32, 4, 1e-5),
              # 8 sequential stages of up to c*n+m = 170-term float32 sums,
              # summed in another order than cuBLAS's
-             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4, "shared"),
-             # config 5's width: in float64 the weights (417 KB) do not fit
-             # in shared memory and are read from device memory
-             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12,
-              "device"),
-             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4,
-              "shared"),
+             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4),
+             # config 5's width: the widest rows, 40 nodes
+             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12),
+             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4),
              # the shapes the mpc_config5_f32 path hands K1: 88,573 nodes,
-             # parent stages of up to 19,683 rows, many blocks per launch
-             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4,
-              "shared"))
+             # parent stages of up to 19,683 rows, persistent blocks
+             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4),
+             ("g_headline_f64", HEADLINE, torch.float64, 8, 1e-12),
+             # m no multiple of 4 (rows of 72 bytes: 8-byte copies, scalar
+             # stores), stages that are no multiples of their tiles, node
+             # spaces padded to multiples of 5
+             ("h_odd_width_f32", odd_width, torch.float32, 5, 1e-4))
     out = {}
-    for name, kwargs, dtype, pad, tol, weights in cases:
+    for name, kwargs, dtype, pad, tol in cases:
         sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad)
         check(sweep.sweep_eligible(sp), f"{name}: not sweep-eligible")
         x, u = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
@@ -195,25 +239,28 @@ def phase_kernel():
         ghosts_zero = bool(torch.all(x[sp.num_nodes:] == 0)
                            and torch.all(u[sp.num_nonleaf:] == 0))
         finite = bool(torch.isfinite(x).all() and torch.isfinite(u).all())
+        x2, u2 = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
+        same_bits = bool(torch.equal(x, x2) and torch.equal(u, u2))
         row = dict(case=name, nodes=sp.num_nodes, n=sp.n, m=sp.m,
-                   dtype=str(dtype), max_abs_err=err, ref_inf_norm=scale,
-                   rel_err=err / scale, tol=tol, ghost_rows_zero=ghosts_zero,
+                   dtype=str(dtype), pad_multiple=pad, max_abs_err=err,
+                   ref_inf_norm=scale, rel_err=err / scale, tol=tol,
+                   ghost_rows_zero=ghosts_zero, second_apply_same=same_bits,
                    **_plan_fields(sp))
-        if weights is not None:
-            row["kernel_ms"] = _median_ms(
-                lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0))
-            row["plain_ms"] = _median_ms(
-                lambda: sweep.project_dynamics_sweep_ref(sp, x_in, u_in, x0))
-            row["kernel_us_per_apply"] = 1e3 * row["kernel_ms"]
-            row["plain_us_per_apply"] = 1e3 * row["plain_ms"]
+        row["ms"] = _median_ms(
+            lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0))
+        row["plain_ms"] = _median_ms(
+            lambda: sweep.project_dynamics_sweep_ref(sp, x_in, u_in, x0))
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         emit("kernel_vs_plain", **row)
         check(finite and err <= tol * scale,
               f"K1 {name}: error {err} above {tol} x {scale}")
         check(ghosts_zero, f"K1 {name}: ghost rows not zero")
-        if weights is not None:
-            check(row["bwd_weights"] == row["fwd_weights"] == weights,
-                  f"K1 {name}: weights in {row['bwd_weights']}/"
-                  f"{row['fwd_weights']} memory, expected {weights}")
+        check(same_bits, f"K1 {name}: two applies differ")
+        ns_nl = sp.num_stages - 1
+        check(row["launches_per_apply"]
+              == 2 * (ns_nl - row["apex_stages"]) + 1 <= 2 * ns_nl - 1,
+              f"K1 {name}: {row['launches_per_apply']} launches for "
+              f"{ns_nl} stages, {row['apex_stages']} in the apex")
         out[name] = row
     return out
 
@@ -267,7 +314,7 @@ def phase_headline():
     torch.cuda.reset_peak_memory_stats()
     with counted("headline_f32") as calls:
         tic = time.perf_counter()
-        solver = rt.Solver(problem, device=DEV)
+        solver = rt.Solver(problem)         # the default device: the card
         torch.cuda.synchronize()
         build_s = time.perf_counter() - tic
         tic = time.perf_counter()
@@ -275,9 +322,10 @@ def phase_headline():
         power_s = time.perf_counter() - tic
         res = solver.solve(x0, max_iters=20000, tol=1e-3, check_every=25)
     sp = solver.stacked
+    check(sp.device.type == "cuda", "the default device is not the card")
     finite = all(np.isfinite(v).all() for v in res.primal)
     emit("headline_f32", nodes=sp.num_nodes, n=sp.n, m=sp.m,
-         dtype=str(sp.dtype), build_stacked_s=build_s,
+         dtype=str(sp.dtype), device=str(sp.device), build_stacked_s=build_s,
          power_iteration_s=power_s,
          power_iterations=solver.power_iterations, cp_iters=res.num_iters,
          jax_f32_iters_for_context=JAX_F32_ITERS, solve_s=res.solve_time,
@@ -314,8 +362,7 @@ def _timed_solver_for_mode(controller, setup):
 def phase_mpc_config5():
     """BASELINE config 5 at full size: two closed-loop steps."""
     tic = time.perf_counter()
-    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
-                                            device=DEV)
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device")
     setup = {}
     _timed_solver_for_mode(controller, setup)
     torch.cuda.reset_peak_memory_stats()
@@ -474,26 +521,80 @@ def baseline(config5_steps):
     check(run.converged, "a config-5 step did not converge")
 
 
+def profile_config5(steps=100):
+    """Where a CP step of config 5 (88,573 nodes, float32) goes, from the
+    trace that ``solve(profile_dir=...)`` writes: the wall time per step
+    (from the first device event's start to the last one's end), the share
+    of it the card is busy, K1's share of the card's time, and the kernels
+    that take most of it."""
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device")
+    solver, _ = controller.solver_for_mode(0)
+    solver.operator_norm_sq()
+    opts = dict(max_iters=steps, tol=1e-12, check_every=25, unroll=5,
+                relax="auto")
+    solver.solve(x0, **opts)                    # warm up, builds K1
+    with tempfile.TemporaryDirectory() as folder, counted() as calls:
+        res = solver.solve(x0, profile_dir=folder, **opts)
+        with open(os.path.join(folder, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    events = [ev for ev in events
+              if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(events, "the trace holds no device event")
+    by_name = {}                                # kernel -> [us, launches]
+    for ev in events:
+        entry = by_name.setdefault(ev["name"], [0.0, 0])
+        entry[0] += ev["dur"]
+        entry[1] += 1
+    busy_us = sum(t for t, _ in by_name.values())
+    wall_us = max(ev["ts"] + ev["dur"] for ev in events) \
+        - min(ev["ts"] for ev in events)
+    k1_us = sum(t for name, (t, _) in by_name.items()
+                if "stage_kernel" in name or "apex_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    emit("profile_config5_f32", nodes=solver.stacked.num_nodes,
+         steps=res.num_iters,
+         wall_ms_per_step=1e-3 * wall_us / res.num_iters,
+         device_ms_per_step=1e-3 * busy_us / res.num_iters,
+         device_busy_share=busy_us / wall_us,
+         k1_ms_per_step=1e-3 * k1_us / res.num_iters,
+         k1_share_of_device=k1_us / busy_us, k1_launches=calls["k1"],
+         kernel_launches_per_step=sum(
+             c for _, c in by_name.values()) / res.num_iters,
+         top_kernels=[dict(name=name[:60], ms_per_step=1e-3 * t
+                           / res.num_iters, launches_per_step=c
+                           / res.num_iters) for name, (t, c) in top])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="store_true",
                     help="run BASELINE configs 4 and 5 to 1e-3 instead")
     ap.add_argument("--config5-steps", type=int, default=1)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile 100 CP steps of config 5 instead")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
-    if args.baseline:
-        baseline(args.config5_steps)
+    if args.baseline or args.profile:
+        if args.profile:
+            profile_config5()
+        else:
+            baseline(args.config5_steps)
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
+    phase_matmul_context()
     demo = phase_parity()
     phase_chunked(demo)
     phase_headline()
     phase_mpc_config5()
     phase_accel()
+    # the kernel's own numbers are the headline's (the first K1 path); every
+    # timed shape stands beside it, config 5's full size included
     c = kernel["c_headline_f32"]
     worst = max(kernel.values(), key=lambda r: r["rel_err"])
+    shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "launches_per_apply", "flop", "bytes", "ms_over_bound")
     print(json.dumps({"kernels": [{
         "name": "K1 dynamics-projection sweep",
         "route": "cuda",
@@ -504,8 +605,10 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "max_rel_err": worst["rel_err"],
         "max_rel_err_case": worst["case"],
-        "ms": c["kernel_ms"],
-        "plain_ms": c["plain_ms"]}]}), flush=True)
+        **{k: c[k] for k in shape_keys},
+        "library_note": "no single PyTorch call computes the sweep",
+        "per_shape": {name: {k: r[k] for k in shape_keys}
+                      for name, r in kernel.items()}}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

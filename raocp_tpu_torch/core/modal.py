@@ -72,7 +72,7 @@ def _select(all_modes, idx):
     return torch.gather(all_modes, 1, index)[:, 0]
 
 
-def upload(arr, dtype=None, device="cpu") -> torch.Tensor:
+def upload(arr, dtype=None, device="cuda") -> torch.Tensor:
     """A C-contiguous tensor of ``arr`` on ``device`` (NumPy results such
     as stacked transposes can be strided; the kernels take plain row-major
     memory)."""

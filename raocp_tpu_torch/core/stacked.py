@@ -680,8 +680,9 @@ def default_dtype(device) -> torch.dtype:
 
 def build_stacked(spec: RAOCP, dtype=None, pad_multiple: int = 1,
                   offline: str = "host", keep_dense: bool = False,
-                  device="cpu") -> StackedProblem:
-    """Materialise a :class:`StackedProblem` on ``device``.
+                  device="cuda") -> StackedProblem:
+    """Materialise a :class:`StackedProblem` on ``device`` (the card by
+    default; pass ``device="cpu"`` for the CPU).
 
     ``dtype`` defaults to float64 on the CPU and float32 on a GPU
     (:func:`default_dtype`). ``pad_multiple`` pads each node space
@@ -997,7 +998,7 @@ def to_numpy(sp):
     return leaves, static
 
 
-def from_numpy(leaves: dict, static: dict, device="cpu",
+def from_numpy(leaves: dict, static: dict, device="cuda",
                dtype=None) -> StackedProblem:
     """Build a :class:`StackedProblem` from :func:`to_numpy`'s dicts (for
     example of a problem stacked by the JAX package). Float leaves become

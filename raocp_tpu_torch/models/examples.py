@@ -203,7 +203,7 @@ def soc_network_problem(num_states: int = 20, num_inputs: int = 8,
         seed=seed, constraint="ball")
 
 def demo_mpc_controller(dtype=None, num_stages: int = 4,
-                        stopping_time: int = 3, mesh=None, device="cpu"):
+                        stopping_time: int = 3, mesh=None, device="cuda"):
     """Closed-loop risk-averse MPC on the reference demo plant
     (BASELINE config 5 shape at small scale).
 
@@ -229,7 +229,7 @@ def network_mpc_controller(num_states: int = 20, num_inputs: int = 8,
                            num_modes: int = 3, num_stages: int = 7,
                            stopping_time: int = 3, alpha: float = 0.95,
                            seed: int = 0, dtype=None,
-                           offline: str = "host", mesh=None, device="cpu"):
+                           offline: str = "host", mesh=None, device="cuda"):
     """Closed-loop MPC on the random-network plant at any scale
     (full BASELINE config 5 with num_states=100, num_inputs=40,
     num_stages=10, stopping_time=10: 88,573 nodes). Returns

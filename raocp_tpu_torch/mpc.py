@@ -68,7 +68,7 @@ class RiskAverseMPC:
     def __init__(self, problem_factory: Callable[[np.ndarray], RAOCP],
                  transition_matrix, plant_dynamics: Optional[Sequence] = None,
                  dtype=None, offline: str = "host", mesh=None,
-                 device="cpu"):
+                 device="cuda"):
         if mesh is not None:
             raise _not_ported("a multi-device mesh", 14)
         self.__factory = problem_factory

@@ -359,13 +359,15 @@ class Solver:
     float32 matmul precision), which the solver needs to reach its
     tolerances in float32.
 
-    ``dtype`` defaults to float64 on the CPU and float32 on a GPU.
+    ``device`` defaults to the card (``"cuda"``); without one the call
+    raises, and nothing carries on on the CPU unless ``device="cpu"`` is
+    passed. ``dtype`` defaults to float64 on the CPU and float32 on a GPU.
     ``mesh`` (multi-device runs) is not ported yet.
     """
 
     def __init__(self, problem_spec: RAOCP, dtype=None,
                  pad_multiple: Optional[int] = None, offline: str = "host",
-                 mesh=None, device="cpu"):
+                 mesh=None, device="cuda"):
         if mesh is not None:
             raise _not_ported("a multi-device mesh", 14)
         pin_full_precision()

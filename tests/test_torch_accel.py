@@ -36,7 +36,7 @@ def demo_pair():
     pp, _ = port_models.demo_problem()
     jsolver = rj.Solver(jp)
     alpha = 0.999 / jsolver.operator_norm_sq()
-    return jsolver.stacked, rt.Solver(pp), alpha, x0
+    return jsolver.stacked, rt.Solver(pp, device="cpu"), alpha, x0
 
 
 @pytest.mark.parametrize("check_every", [1, 5])

@@ -17,25 +17,27 @@ from raocp_tpu_torch.models import random_network_problem  # noqa: E402
 from raocp_tpu_torch.ops import sweep  # noqa: E402
 from raocp_tpu_torch.ops.prox import project_dynamics  # noqa: E402
 
-# the tests/test_pallas.py fixture, a wider one (n=50, m=20, c=3), and
-# BASELINE config 5's width (n=100, m=40, c=3; 4 stages, 40 nodes), whose
-# weights do not fit in shared memory in float64
+# name -> (tree, pad_multiple): the tests/test_pallas.py fixture; a wider
+# one (n=50, m=20, c=3); BASELINE config 5's width (n=100, m=40, c=3; 4
+# stages, 40 nodes); the 9,841-node headline, whose 729- and 2,187-row stages
+# are no multiples of their row tiles; and a width where m is no multiple of
+# 4 (rows of 72 bytes, 8-byte copies) on the same tree, padded to multiples
+# of 5
 FIXTURES = {
-    "small": dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
-                  stopping_time=4),
-    "wide": dict(num_states=50, num_inputs=20, num_modes=3, num_stages=5,
-                 stopping_time=5),
-    "config5_width": dict(num_states=100, num_inputs=40, num_modes=3,
-                          num_stages=3, stopping_time=3),
+    "small": (dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
+                   stopping_time=4), 8),
+    "wide": (dict(num_states=50, num_inputs=20, num_modes=3, num_stages=5,
+                  stopping_time=5), 8),
+    "config5_width": (dict(num_states=100, num_inputs=40, num_modes=3,
+                           num_stages=3, stopping_time=3), 8),
+    "headline": (dict(num_states=50, num_inputs=20, num_modes=3,
+                      num_stages=8, stopping_time=8), 8),
+    "odd_width": (dict(num_states=50, num_inputs=18, num_modes=3,
+                       num_stages=8, stopping_time=8), 5),
 }
-# float64: summation-order noise; float32: the TPU test's tolerance, and
-# 1e-4 for the 170- to 340-term sums over stages
-TOLS = {("small", "float32"): 1e-5, ("small", "float64"): 1e-12,
-        ("wide", "float32"): 1e-4, ("wide", "float64"): 1e-12,
-        ("config5_width", "float32"): 1e-4,
-        ("config5_width", "float64"): 1e-12}
-# the path each case's stages take: weights in shared or device memory
-WEIGHTS = {("config5_width", "float64"): "device"}
+# float64: summation-order noise; float32: the TPU test's tolerance at the
+# small fixture, and 1e-4 for the 170- to 340-term sums over stages
+TOLS = {"float64": 1e-12, "float32": 1e-4, ("small", "float32"): 1e-5}
 
 
 @pytest.fixture
@@ -49,9 +51,10 @@ def cuda():
 @pytest.mark.parametrize("name", sorted(FIXTURES))
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_kernel_matches_plain_version(cuda, name, dtype):
-    spec, x0 = random_network_problem(**FIXTURES[name])
+    kwargs, pad = FIXTURES[name]
+    spec, x0 = random_network_problem(**kwargs)
     tdt = getattr(torch, dtype)
-    sp = build_stacked(spec, dtype=tdt, pad_multiple=8, device=cuda)
+    sp = build_stacked(spec, dtype=tdt, pad_multiple=pad, device=cuda)
     rng = np.random.default_rng(0)
     args = tuple(torch.as_tensor(a, dtype=tdt, device=cuda) for a in (
         rng.standard_normal((sp.np_pad, sp.n)),
@@ -62,25 +65,66 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
     assert sweep.LAUNCHES == before + 1
     x_ref, u_ref = sweep.project_dynamics_sweep_ref(sp, *args)
     scale = max(1.0, float(x_ref.abs().max()), float(u_ref.abs().max()))
-    tol = TOLS[name, dtype] * scale
+    tol = TOLS.get((name, dtype), TOLS[dtype]) * scale
     torch.testing.assert_close(x, x_ref, rtol=0, atol=tol)
     torch.testing.assert_close(u, u_ref, rtol=0, atol=tol)
     assert torch.all(x[sp.num_nodes:] == 0)
     assert torch.all(u[sp.num_nonleaf:] == 0)
-    # prox's dispatch takes the kernel on the card
-    x2, _ = project_dynamics(sp, *args)
+    # prox's dispatch takes the kernel on the card, and a second apply on
+    # the same buffers gives the same bits (no stale shared memory, no race
+    # across the apex's barriers)
+    x2, u2 = project_dynamics(sp, *args)
     assert sweep.LAUNCHES == before + 2
-    torch.testing.assert_close(x2, x, rtol=0, atol=0)
-    plan = sweep.sweep_plan(sp)
-    assert {p["weights"] for p in plan} == {WEIGHTS.get((name, dtype),
-                                                        "shared")}
-    assert all(p["tile"] > 0 for p in plan)
+    assert torch.equal(x2, x) and torch.equal(u2, u)
+    # the schedule the library was handed: every stage once each way, and
+    # shared memory as the library itself counts it
+    plan = sweep.sweep_schedule(sp)
+    ns_nl = sp.num_stages - 1
+    assert plan["launch_count"] == 2 * (ns_nl - plan["apex_stages"]) + 1
+    lib = sweep._library()
+    for la in plan["launches"]:
+        if la["kind"] == "stage":
+            fwd = la["direction"] == "forward"
+            c = sp.stage_child[la["stages"][0]]
+            cols = sweep.slab_cols(fwd, la["tile"], la["tm"], sp.n, sp.m, c)
+            assert la["smem"] == lib.raocp_sweep_smem(
+                int(fwd), la["tile"], la["tm"], cols, sp.n, sp.m, c,
+                sweep._esize(tdt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [(0, 4), (1, 0), (2, 200), (3, 2)])
+def test_library_refuses_a_layout_that_does_not_fit(cuda, field, value):
+    """The library computes no product's layout itself; it checks the one
+    it is handed: rows of K that are not the row arrays' (Kp), no pass, more
+    column groups than threads, a split where a thread owns two rows."""
+    spec, x0 = random_network_problem(**FIXTURES["headline"][0])
+    sp = build_stacked(spec, dtype=torch.float32, device=cuda)
+    args = (torch.zeros((sp.np_pad, sp.n), device=cuda),
+            torch.zeros((sp.nl_pad, sp.m), device=cuda),
+            torch.as_tensor(x0, dtype=torch.float32, device=cuda))
+    sweep.project_dynamics_sweep(sp, *args)
+    call = sweep._problem(sp)["call"]
+    # the last stage's first product runs on rows of two or more a thread
+    last = [la for la in call["plan"]["launches"] if la["kind"] == "stage"][0]
+    assert last["tm"] > 1
+    layouts = call["held"][1]
+    at = 4 * 5 * last["stages"][0] + field
+    kept = layouts[at]
+    layouts[at] = value
+    try:
+        with pytest.raises(RuntimeError, match="does not take"):
+            sweep.project_dynamics_sweep(sp, *args)
+    finally:
+        layouts[at] = kept
+    sweep.project_dynamics_sweep(sp, *args)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_cpu_problem_with_cuda_tensors(cuda):
-    spec, x0 = random_network_problem(**FIXTURES["small"])
-    sp = build_stacked(spec, dtype=torch.float32)
+    spec, x0 = random_network_problem(**FIXTURES["small"][0])
+    sp = build_stacked(spec, dtype=torch.float32, device="cpu")
     x = torch.zeros((sp.np_pad, sp.n), device=cuda)
     u = torch.zeros((sp.nl_pad, sp.m), device=cuda)
     with pytest.raises(ValueError, match="the problem on"):

@@ -89,7 +89,7 @@ def test_port_never_imports_jax():
         "import raocp_tpu_torch.utils.evaluate, raocp_tpu_torch.utils.plots\n"
         "from raocp_tpu_torch.models import demo_problem\n"
         "problem, x0 = demo_problem()\n"
-        "solver = r.Solver(problem)\n"
+        "solver = r.Solver(problem, device='cpu')\n"
         "res = solver.solve(x0, max_iters=3, tol=1e-3)\n"
         "assert res.num_iters == 4, res.num_iters\n"
         "res = solver.solve(x0, max_iters=3, tol=1e-3, accel='anderson')\n"
@@ -106,3 +106,43 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _entry_points():
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.core import modal
+    from raocp_tpu_torch.core import stacked
+    return {
+        "Solver": rt.Solver.__init__,
+        "RiskAverseMPC": rt.RiskAverseMPC.__init__,
+        "demo_mpc_controller": port_models.demo_mpc_controller,
+        "network_mpc_controller": port_models.network_mpc_controller,
+        "build_stacked": stacked.build_stacked,
+        "from_numpy": stacked.from_numpy,
+        "upload": modal.upload,
+    }
+
+
+@pytest.mark.parametrize("name", ["Solver", "RiskAverseMPC",
+                                  "demo_mpc_controller",
+                                  "network_mpc_controller", "build_stacked",
+                                  "from_numpy", "upload"])
+def test_entry_points_default_to_the_card(name):
+    import inspect
+    default = inspect.signature(_entry_points()[name]).parameters[
+        "device"].default
+    assert default == "cuda"
+
+
+def test_solver_without_a_device_raises_without_a_card():
+    """Nothing looks for a GPU and carries on on the CPU: where there is no
+    card, the default device makes the call raise (PyTorch's own error)."""
+    import torch
+    import raocp_tpu_torch as rt
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    problem, x0 = port_models.demo_problem()
+    with pytest.raises((RuntimeError, AssertionError)):
+        rt.Solver(problem)
+    assert rt.Solver(problem, device="cpu").solve(
+        x0, max_iters=2, tol=1e-3).num_iters >= 2

@@ -17,7 +17,7 @@ RUN = dict(num_steps=3, seed=0, max_iters=3000, tol=1e-3)
 @pytest.fixture(scope="module")
 def runs():
     jctl, x0 = jax_models.demo_mpc_controller()
-    pctl, px0 = port_models.demo_mpc_controller()
+    pctl, px0 = port_models.demo_mpc_controller(device="cpu")
     np.testing.assert_array_equal(px0, x0)
     return jctl, jctl.run(x0, **RUN), pctl, pctl.run(px0, **RUN)
 
@@ -55,4 +55,4 @@ def test_solver_cached_per_mode(runs):
 
 def test_mesh_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 14"):
-        port_models.demo_mpc_controller(mesh=object())
+        port_models.demo_mpc_controller(mesh=object(), device="cpu")

@@ -63,7 +63,7 @@ def test_demo_device_offline_matches_jax(keep_dense):
     port_spec, _ = port_models.demo_problem()
     jax_spec, _ = jax_models.demo_problem()
     port = build_stacked(port_spec, dtype=torch.float64, offline="device",
-                         keep_dense=keep_dense)
+                         keep_dense=keep_dense, device="cpu")
     ref = jax_build(jax_spec, dtype=jnp.float64, offline="device",
                     keep_dense=keep_dense)
     assert (port.K is not None) and (port.P is not None) == keep_dense
@@ -72,8 +72,8 @@ def test_demo_device_offline_matches_jax(keep_dense):
 
 def test_demo_device_offline_solves_in_937():
     problem, x0 = port_models.demo_problem()
-    res = rt.Solver(problem, offline="device").solve(x0, max_iters=2000,
-                                                     tol=1e-3)
+    res = rt.Solver(problem, offline="device", device="cpu").solve(
+        x0, max_iters=2000, tol=1e-3)
     assert res.converged and res.num_iters == 937
 
 
@@ -83,9 +83,10 @@ def test_keep_dense_device_matches_host(kwargs):
     """Stage tables broadcast on the device (stage-constant tree) and the
     device Riccati program (chain stages) give the host dense build."""
     spec, _ = port_models.random_network_problem(**kwargs)
-    host = build_stacked(spec, dtype=torch.float64, keep_dense=True)
+    host = build_stacked(spec, dtype=torch.float64, keep_dense=True,
+                         device="cpu")
     dev = build_stacked(spec, dtype=torch.float64, offline="device",
-                        keep_dense=True)
+                        keep_dense=True, device="cpu")
     assert dev.P is not None and dev.Abar is not None
     _assert_leaves_close(dev, host, 1e-10)
     jax_spec, _ = jax_models.random_network_problem(**kwargs)
@@ -98,8 +99,9 @@ def test_fully_tabled_tree_ignores_offline():
     """A fully tabled tree takes the host tables whatever ``offline``
     says (JAX ``core/stacked.py:957``): no dense stacks either way."""
     spec, _ = port_models.random_network_problem(**CHAIN_NET)
-    host = build_stacked(spec, dtype=torch.float64)
-    dev = build_stacked(spec, dtype=torch.float64, offline="device")
+    host = build_stacked(spec, dtype=torch.float64, device="cpu")
+    dev = build_stacked(spec, dtype=torch.float64, offline="device",
+                        device="cpu")
     assert dev.K is None and dev.P is None and dev.A is None
     _assert_leaves_close(dev, host, 0.0)
 
@@ -107,7 +109,7 @@ def test_fully_tabled_tree_ignores_offline():
 def test_network_mpc_controller_device_offline_builds():
     controller, x0 = port_models.network_mpc_controller(
         num_states=4, num_inputs=2, num_modes=3, num_stages=3,
-        stopping_time=3, offline="device")
+        stopping_time=3, offline="device", device="cpu")
     solver, problem = controller.solver_for_mode(0)
     assert solver.stacked.num_nodes == problem.tree.num_nodes == 40
     assert solver.stacked.K is None          # the host stage tables

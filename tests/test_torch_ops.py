@@ -132,7 +132,8 @@ def _pair(name, branch="default"):
     family, kwargs, pad = FIXTURES[name]
     port_spec, x0 = getattr(port_models, family)(**kwargs)
     jax_spec, _ = getattr(jax_models, family)(**kwargs)
-    port = build_stacked(port_spec, dtype=torch.float64, pad_multiple=pad)
+    port = build_stacked(port_spec, dtype=torch.float64, pad_multiple=pad,
+                         device="cpu")
     ref = jax_build(jax_spec, dtype=jnp.float64, pad_multiple=pad)
     if branch != "default":
         # force L / L' onto the fused-modal or the unfused branch

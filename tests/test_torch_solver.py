@@ -26,8 +26,8 @@ def test_gate_a_demo_matches_jax_history(jax_demo):
     """Same step size => the same iterate sequence: 937 iterations and the
     JAX xi/delta histories to 1e-10."""
     problem, x0 = port_models.demo_problem()
-    res = rt.Solver(problem).solve(x0, max_iters=2000, tol=1e-3,
-                                   alpha=jax_demo.alpha)
+    res = rt.Solver(problem, device="cpu").solve(
+        x0, max_iters=2000, tol=1e-3, alpha=jax_demo.alpha)
     assert res.converged and res.num_iters == jax_demo.num_iters == 937
     np.testing.assert_allclose(res.xi_history, jax_demo.xi_history,
                                rtol=0, atol=1e-10)
@@ -44,7 +44,7 @@ def test_gate_b_own_power_iteration(jax_demo):
     """The port's power iteration (NumPy-seeded start, rel_tol 1e-12) gives
     the same step size to ~1e-10 and still 937 iterations."""
     problem, x0 = port_models.demo_problem()
-    solver = rt.Solver(problem)
+    solver = rt.Solver(problem, device="cpu")
     res = solver.solve(x0, max_iters=2000, tol=1e-3)
     assert res.alpha == pytest.approx(jax_demo.alpha, rel=1e-9)
     assert res.num_iters == 937 and res.converged
@@ -56,7 +56,7 @@ def test_gate_b_own_power_iteration(jax_demo):
 
 def test_lqr_converges_and_chock():
     problem, x0 = port_models.lqr_binary_problem()
-    solver = rt.Solver(problem)
+    solver = rt.Solver(problem, device="cpu")
     assert solver.chock(x0, max_iters=5000, tol=1e-4) == 0
     res = solver.result
     assert res.converged and res.xi.max() <= 1e-4
@@ -73,7 +73,8 @@ def test_lqr_converges_and_chock():
 
 def test_not_converged_status():
     problem, x0 = port_models.demo_problem()
-    res = rt.Solver(problem).solve(x0, max_iters=5, tol=1e-3)
+    res = rt.Solver(problem, device="cpu").solve(x0, max_iters=5,
+                                                 tol=1e-3)
     assert res.status == 1 and res.num_iters == 6
 
 
@@ -90,7 +91,7 @@ def test_checkpoints_cross_packages(tmp_path):
     z, eta, k = rt.SolverResult.load_checkpoint(path)
     assert k == first.num_iters
     jres = jsolver.solve(x0, max_iters=30, tol=1e-9, warm_start=(z, eta))
-    psolver = rt.Solver(pp)
+    psolver = rt.Solver(pp, device="cpu")
     pres = psolver.solve(x0, max_iters=30, tol=1e-9, alpha=first.alpha,
                          warm_start=(z, eta))
     assert pres.num_iters == jres.num_iters
@@ -108,13 +109,14 @@ def test_not_ported_options_raise():
     """Only batch solves (item 10) and the mesh (item 14) are still not
     ported; the relax / step_ratio range errors stay."""
     problem, x0 = port_models.lqr_binary_problem()
-    solver = rt.Solver(problem)
+    solver = rt.Solver(problem, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         solver.solve_batch(np.stack([x0, x0]))
     with pytest.raises(NotImplementedError, match="item 14"):
-        rt.Solver(problem, mesh=object())
+        rt.Solver(problem, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        rt.RiskAverseMPC(lambda v: problem, np.eye(2), mesh=object())
+        rt.RiskAverseMPC(lambda v: problem, np.eye(2), mesh=object(),
+                         device="cpu")
     with pytest.raises(ValueError, match="relax"):
         solver.solve(x0, max_iters=10, relax=2.0)
     with pytest.raises(ValueError, match="step_ratio"):
@@ -125,7 +127,7 @@ def test_solver_pins_full_float32_precision():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     problem, _ = port_models.lqr_binary_problem()
-    rt.Solver(problem)
+    rt.Solver(problem, device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"

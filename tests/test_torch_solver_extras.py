@@ -28,7 +28,7 @@ def demo():
     jsolver = rj.Solver(jp)
     jres = jsolver.solve(x0, max_iters=2000, tol=1e-3)
     pp, _ = port_models.demo_problem()
-    psolver = rt.Solver(pp)
+    psolver = rt.Solver(pp, device="cpu")
     pres = psolver.solve(x0, max_iters=2000, tol=1e-3, alpha=jres.alpha)
     return jsolver, jres, psolver, pres, x0
 
@@ -166,7 +166,8 @@ def test_validate_flags_an_infeasible_point(demo):
     assert v["dynamics"] >= 0.99
     assert v["constraints"] == pytest.approx(0.5, abs=1e-6)
     with pytest.raises(RuntimeError, match="no solve result"):
-        rt.Solver(port_models.lqr_binary_problem()[0]).validate()
+        rt.Solver(port_models.lqr_binary_problem()[0],
+                  device="cpu").validate()
 
 
 def test_tex_exports_match_jax(demo, tmp_path):

@@ -27,7 +27,7 @@ def solvers():
     jp, x0 = jax_models.demo_problem()
     pp, _ = port_models.demo_problem()
     jsolver = rj.Solver(jp)
-    return jsolver, rt.Solver(pp), x0, 0.999 / jsolver.operator_norm_sq()
+    return jsolver, rt.Solver(pp, device="cpu"), x0, 0.999 / jsolver.operator_norm_sq()
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))

@@ -42,7 +42,7 @@ def _pair(family, kwargs, pad, **build):
     port_spec, _ = getattr(port_models, family)(**kwargs)
     jax_spec, _ = getattr(jax_models, family)(**kwargs)
     port = build_stacked(port_spec, dtype=torch.float64, pad_multiple=pad,
-                         **build)
+                         device="cpu", **build)
     ref = jax_build(jax_spec, dtype=jnp.float64, pad_multiple=pad, **build)
     return port, ref
 
@@ -136,7 +136,7 @@ def test_from_numpy_rejects_multi_device_layouts():
     _, ref = _pair("lqr_binary_problem", {}, 1)
     leaves, static = to_numpy(dataclasses.replace(ref, frontier=1))
     with pytest.raises(NotImplementedError, match="item 14"):
-        from_numpy(leaves, static)
+        from_numpy(leaves, static, device="cpu")
 
 
 def test_offline_device_not_ported():
@@ -149,13 +149,14 @@ def test_offline_device_not_ported():
     assert port.K is None
     assert_same_problem(port, ref)
     with pytest.raises(ValueError, match="offline"):
-        build_stacked(spec, offline="disk")
+        build_stacked(spec, offline="disk", device="cpu")
 
 
 def test_default_dtype_follows_device():
     spec, _ = port_models.lqr_binary_problem()
-    assert build_stacked(spec).dtype == torch.float64
-    assert build_stacked(spec, dtype=np.float32).dtype == torch.float32
+    assert build_stacked(spec, device="cpu").dtype == torch.float64
+    assert build_stacked(spec, dtype=np.float32,
+                         device="cpu").dtype == torch.float32
 
 
 @pytest.mark.parametrize("fixture", [FIXTURES[0], FIXTURES[7]],
@@ -165,7 +166,7 @@ def test_every_tensor_is_contiguous(fixture):
     the stacked transposes of ``ab_fwd`` must not reach them strided."""
     _, family, kwargs, pad = fixture
     port, ref = _pair(family, kwargs, pad, keep_dense=True)
-    carried = from_numpy(*to_numpy(ref), dtype=torch.float64)
+    carried = from_numpy(*to_numpy(ref), device="cpu", dtype=torch.float64)
     for sp in (port, carried):
         for f in dataclasses.fields(sp):
             v = getattr(sp, f.name)
