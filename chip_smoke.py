@@ -1,16 +1,17 @@
 """Smoke run of raocp_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py               # the smoke run (about 3 minutes)
-    python3 chip_smoke.py --baseline    # BASELINE configs 4 and 5 to 1e-3
+    python3 chip_smoke.py --baseline    # BASELINE configs 3-5 to 1e-3
     python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
-card (at the shapes of every path below, BASELINE config 5's width
-included; each case with its time, the plain version's, and the least time
-the card could take for the same operations and bytes), and then drives the
-port's paths, each with the launch counts set to 0 just before it and read
-just after:
+card (at the shapes of every path below, BASELINE config 5's width and
+batches of 8 and 3 lanes included; each case with its time, the plain
+version's, the least time the card could take for the same operations and
+bytes, and its launches counted in a profile), times the two layouts of a
+batch's apex, and then drives the port's paths, each with the launch counts
+set to 0 just before it and read just after:
 
 * ``parity_*``: the demo's 937 iterations in float64 on the card, and a
   uniform 121-node tree through K1 against the CPU;
@@ -24,7 +25,14 @@ just after:
 * ``accel_headline_f32``: SuperMann on the headline; SuperMann on the
   uniform tree (through K1) and Anderson on the demo, in float64 against
   the CPU port (the same T evaluations and iterates over the first 80 /
-  60 iterations), and Anderson's convergence after.
+  60 iterations), and Anderson's convergence after;
+* ``batch_demo_f64``: ``solve_batch`` on the demo's three lanes in float64
+  (lane 0: 937 iterations, every lane converged and valid);
+* ``batch_headline_f32``: ``Solver(problem).solve_batch(x0s, ...)`` of the
+  headline from ``scripts/bench_batch.py``'s eight initial states, capped
+  at 2,500 iterations: one K1 launch set per ``prox_f`` call, lane 0's
+  history against a single card solve, and the batch's rate beside the
+  single solve's.
 
 It prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line
@@ -32,9 +40,14 @@ power limit, and as its last line
 raises; without a CUDA device it fails before printing anything. It imports
 no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
 config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
-(``--config5-steps``, default 1). ``--profile`` runs 100 CP steps of
+(``--config5-steps``, default 1), and ``scripts/bench_batch.py``'s two
+measurements on the card: eight lanes of the headline and of config 3 to
+1e-3 in one batch against eight sequential solves. ``--profile`` runs 100 CP steps of
 config 5 with ``solve(profile_dir=...)`` and prints, from that trace, the
-card's busy share of the step and its kernels by time.
+card's busy share of the step and its kernels by time. ``--k1-times``
+times K1's unbatched cases through the public wrapper alone, so that the
+script, copied into another checkout's root and run there, times that
+checkout's kernel in the same call.
 """
 
 import argparse
@@ -58,7 +71,8 @@ import raocp_tpu_torch.solver as solver_mod  # noqa: E402
 from raocp_tpu_torch.core.stacked import build_stacked  # noqa: E402
 from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     network_mpc_controller,
-                                    random_network_problem)
+                                    random_network_problem,
+                                    soc_network_problem)
 from raocp_tpu_torch.ops import sweep  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -142,15 +156,50 @@ def phase_build():
          seconds=time.perf_counter() - tic)
 
 
-def _sweep_inputs(kwargs, dtype, pad):
+def bench_lanes(x0, lanes=8):
+    """``scripts/bench_batch.py``'s initial states: (0.5 + r) x0, r from
+    ``numpy.random.default_rng(0)``."""
+    x0 = np.asarray(x0, dtype=np.float64)
+    return np.stack([s * x0 for s in
+                     0.5 + np.random.default_rng(0).random(lanes)])
+
+
+def _sweep_inputs(kwargs, dtype, pad, lanes=None):
+    """A problem and K1's inputs on the card: x [np_pad, n], u [nl_pad, m]
+    and x0 [n], or with ``lanes`` x [B, np_pad, n], u [B, nl_pad, m] and
+    x0 [B, n]."""
     spec, x0 = random_network_problem(**kwargs)
     sp = build_stacked(spec, dtype=dtype, pad_multiple=pad, device=DEV)
     rng = np.random.default_rng(0)
-    x_in = torch.as_tensor(rng.standard_normal((sp.np_pad, sp.n)),
+    lead = () if lanes is None else (lanes,)
+    x_in = torch.as_tensor(rng.standard_normal(lead + (sp.np_pad, sp.n)),
                            dtype=dtype, device=DEV)
-    u_in = torch.as_tensor(rng.standard_normal((sp.nl_pad, sp.m)),
+    u_in = torch.as_tensor(rng.standard_normal(lead + (sp.nl_pad, sp.m)),
                            dtype=dtype, device=DEV)
+    x0 = x0 if lanes is None else bench_lanes(x0, lanes)
     return sp, x_in, u_in, torch.as_tensor(x0, dtype=dtype, device=DEV)
+
+
+def _k1_profile(fn, applies=1):
+    """K1 on the card per call of ``fn``, from a profile of ``applies``
+    calls: the kernels it launches, and their device time in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(applies):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as folder:
+        path = os.path.join(folder, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    k1 = [ev for ev in events if ev.get("cat") == "kernel"
+          and ("stage_kernel" in ev["name"] or "apex_kernel" in ev["name"])]
+    return len(k1) / applies, 1e-3 * sum(ev["dur"] for ev in k1) / applies
 
 
 def _median_ms(fn, runs=50):
@@ -168,19 +217,21 @@ def _median_ms(fn, runs=50):
     return float(np.median(times))
 
 
-def _plan_fields(sp):
-    """The schedule of one apply, and the least time the card could take
-    for its work: the larger of its operations over the peak FMA rate of
-    the element type and its compulsory bytes over the memory rate."""
-    plan = sweep.sweep_schedule(sp)
-    work = sweep.sweep_work(sp)
+def _plan_fields(sp, lanes=1):
+    """The schedule of one apply of ``lanes`` lanes, and the least time the
+    card could take for its work: the larger of its operations over the
+    peak FMA rate of the element type and its compulsory bytes over the
+    memory rate."""
+    plan = sweep.sweep_schedule(sp, lanes)
+    work = sweep.sweep_work(sp, lanes)
     esize = sweep._esize(sp.dtype)
     by = {"operations": work["flop"] / PEAK_FLOPS[esize],
           "bytes": work["bytes"] / PEAK_BYTES}
     bound_by = max(by, key=by.get)
     return dict(
-        launches_per_apply=plan["launch_count"],
+        lanes=lanes, launches_per_apply=plan["launch_count"],
         apex_stages=plan["apex_stages"], apex_tile=plan["apex_tile"],
+        apex_grid=lanes // plan["apex_lanes"],
         stage_launches=" ".join(
             f"{la['direction'][0]}{la['stages'][0]}:tm{la['tm']}"
             f"xt{la['tile']}xg{la['grid']}"
@@ -206,38 +257,55 @@ def phase_matmul_context():
 
 
 def phase_kernel():
-    """K1 against its plain version on the card. The error is relative to
-    the output's inf-norm; ghost rows must be exactly zero; a second apply
-    on the same buffers must give the same bits."""
+    """K1 against its plain version on the card, unbatched and batched.
+    The error is relative to the output's inf-norm; ghost rows must be
+    exactly zero in every lane; a second apply on the same buffers must
+    give the same bits; the kernels one apply puts on the card (counted in
+    a profile of 20 applies, which also gives their device time) must be
+    the schedule's. A batch's lanes are also held
+    against the unbatched kernel on each lane, and one lane must be the
+    unbatched call to the bit."""
     odd_width = dict(HEADLINE, num_inputs=18)
-    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12),
-             ("b_small_f32", SMALL, torch.float32, 4, 1e-5),
+    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12, None),
+             ("b_small_f32", SMALL, torch.float32, 4, 1e-5, None),
              # 8 sequential stages of up to c*n+m = 170-term float32 sums,
              # summed in another order than cuBLAS's
-             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4),
+             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4, None),
              # config 5's width: the widest rows, 40 nodes
-             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12),
-             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4),
+             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12,
+              None),
+             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4,
+              None),
              # the shapes the mpc_config5_f32 path hands K1: 88,573 nodes,
              # parent stages of up to 19,683 rows, persistent blocks
-             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4),
-             ("g_headline_f64", HEADLINE, torch.float64, 8, 1e-12),
+             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4, None),
+             ("g_headline_f64", HEADLINE, torch.float64, 8, 1e-12, None),
              # m no multiple of 4 (rows of 72 bytes: 8-byte copies, scalar
              # stores), stages that are no multiples of their tiles, node
              # spaces padded to multiples of 5
-             ("h_odd_width_f32", odd_width, torch.float32, 5, 1e-4))
+             ("h_odd_width_f32", odd_width, torch.float32, 5, 1e-4, None),
+             # the shapes the batch_headline_f32 path hands K1: 8 lanes,
+             # 78,728 rows; and the uniform tree in 3 lanes of float64
+             ("i_headline_b8_f32", HEADLINE, torch.float32, 8, 1e-6, 8),
+             ("j_small_b3_f64", SMALL, torch.float64, 4, 1e-14, 3))
+    # a lane of a batch against the unbatched kernel: tiles of other rows,
+    # so split-K sums in another order
+    lane_tol = {torch.float32: 1e-6, torch.float64: 1e-14}
     out = {}
-    for name, kwargs, dtype, pad, tol in cases:
-        sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad)
+    for name, kwargs, dtype, pad, tol, lanes in cases:
+        sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad, lanes)
         check(sweep.sweep_eligible(sp), f"{name}: not sweep-eligible")
+        before = sweep.LAUNCHES
         x, u = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
         torch.cuda.synchronize()
+        check(sweep.LAUNCHES == before + 1,
+              f"K1 {name}: one apply counted {sweep.LAUNCHES - before}")
         x_ref, u_ref = sweep.project_dynamics_sweep_ref(sp, x_in, u_in, x0)
         err = max(float((x - x_ref).abs().max()),
                   float((u - u_ref).abs().max()))
         scale = max(1.0, float(x_ref.abs().max()), float(u_ref.abs().max()))
-        ghosts_zero = bool(torch.all(x[sp.num_nodes:] == 0)
-                           and torch.all(u[sp.num_nonleaf:] == 0))
+        ghosts_zero = bool(torch.all(x[..., sp.num_nodes:, :] == 0)
+                           and torch.all(u[..., sp.num_nonleaf:, :] == 0))
         finite = bool(torch.isfinite(x).all() and torch.isfinite(u).all())
         x2, u2 = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
         same_bits = bool(torch.equal(x, x2) and torch.equal(u, u2))
@@ -245,7 +313,24 @@ def phase_kernel():
                    dtype=str(dtype), pad_multiple=pad, max_abs_err=err,
                    ref_inf_norm=scale, rel_err=err / scale, tol=tol,
                    ghost_rows_zero=ghosts_zero, second_apply_same=same_bits,
-                   **_plan_fields(sp))
+                   **_plan_fields(sp, lanes or 1))
+        row["device_launches_per_apply"], row["device_ms"] = _k1_profile(
+            lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0), 20)
+        if lanes is not None:
+            lane_err = 0.0
+            for b in range(lanes):
+                xb, ub = sweep.project_dynamics_sweep(sp, x_in[b], u_in[b],
+                                                      x0[b])
+                lane_err = max(lane_err, float((x[b] - xb).abs().max()),
+                               float((u[b] - ub).abs().max()))
+            row["lane_vs_unbatched_rel_err"] = lane_err / scale
+            # a batch of one lane against the unbatched call on lane 0
+            x1, u1 = sweep.project_dynamics_sweep(sp, x_in[:1], u_in[:1],
+                                                  x0[:1])
+            xs, us = sweep.project_dynamics_sweep(sp, x_in[0], u_in[0],
+                                                  x0[0])
+            row["one_lane_same_bits"] = bool(torch.equal(x1[0], xs)
+                                             and torch.equal(u1[0], us))
         row["ms"] = _median_ms(
             lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0))
         row["plain_ms"] = _median_ms(
@@ -258,11 +343,72 @@ def phase_kernel():
         check(same_bits, f"K1 {name}: two applies differ")
         ns_nl = sp.num_stages - 1
         check(row["launches_per_apply"]
-              == 2 * (ns_nl - row["apex_stages"]) + 1 <= 2 * ns_nl - 1,
-              f"K1 {name}: {row['launches_per_apply']} launches for "
-              f"{ns_nl} stages, {row['apex_stages']} in the apex")
+              == 2 * (ns_nl - row["apex_stages"]) + 1 <= 2 * ns_nl - 1
+              and row["device_launches_per_apply"]
+              == row["launches_per_apply"],
+              f"K1 {name}: {row['launches_per_apply']} launches planned "
+              f"for {ns_nl} stages, {row['apex_stages']} in the apex; "
+              f"{row['device_launches_per_apply']} on the card")
+        if lanes is not None:
+            check(row["lane_vs_unbatched_rel_err"] <= lane_tol[dtype],
+                  f"K1 {name}: a lane differs from the unbatched kernel by "
+                  f"{row['lane_vs_unbatched_rel_err']}")
+            check(row["one_lane_same_bits"],
+                  f"K1 {name}: one lane is not the unbatched call")
         out[name] = row
     return out
+
+
+def phase_apex_ab(turns=3):
+    """The two layouts of a batch's apex at the headline, 8 lanes, float32,
+    in turns (a block a lane, all lanes in one block, and back, ``turns``
+    times): each apply's time (CUDA events, the host in it) and its
+    kernels' device time (a profile). The rule (``sweep.APEX_LANES``)
+    keeps the faster."""
+    sp, x_in, u_in, x0 = _sweep_inputs(HEADLINE, torch.float32, 8, 8)
+    layouts = {"block_per_lane": 1, "one_block": 8}
+    times = {k: [] for k in layouts}
+    device = {k: [] for k in layouts}
+    out = {}
+    for key in ("block_per_lane", "one_block", "one_block",
+                "block_per_lane") * turns:
+        def apply(apex=layouts[key]):
+            return sweep.project_dynamics_sweep(sp, x_in, u_in, x0,
+                                                apex_lanes=apex)
+
+        out.setdefault(key, apply())
+        times[key].append(_median_ms(apply))
+        device[key].append(_k1_profile(apply, 20)[1])
+    plans = {k: sweep.sweep_schedule(sp, 8, a) for k, a in layouts.items()}
+    emit("apex_ab_headline_b8_f32", ms=times, device_ms=device,
+         median_ms={k: float(np.median(v)) for k, v in times.items()},
+         median_device_ms={k: float(np.median(v)) for k, v in device.items()},
+         launches_per_apply={k: p["launch_count"] for k, p in plans.items()},
+         apex_stages={k: p["apex_stages"] for k, p in plans.items()},
+         rule_apex_lanes=sweep.APEX_LANES)
+    (xa, ua), (xb, ub) = out.values()
+    rel = max(float((xa - xb).abs().max()), float((ua - ub).abs().max())) \
+        / max(1.0, float(xa.abs().max()), float(ua.abs().max()))
+    check(rel <= 1e-6, f"the two apex layouts differ by {rel}")
+    return dict(ms=times, device_ms=device)
+
+
+def k1_times():
+    """The unbatched cases of the kernel phase, timed through the public
+    wrapper alone (``project_dynamics_sweep``), so that the same script
+    times another checkout's K1: run it from that checkout's root."""
+    cases = (("a_small_f64", SMALL, torch.float64, 4),
+             ("c_headline_f32", HEADLINE, torch.float32, 8),
+             ("f_config5_full_f32", CONFIG5, torch.float32, 1),
+             ("g_headline_f64", HEADLINE, torch.float64, 8))
+    for name, kwargs, dtype, pad in cases:
+        sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad)
+
+        def apply():
+            return sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
+
+        emit("k1_times", case=name, package=os.path.dirname(sweep.__file__),
+             ms=_median_ms(apply), device_ms=_k1_profile(apply, 20)[1])
 
 
 def phase_parity():
@@ -484,6 +630,130 @@ def phase_accel():
           "Anderson's solution on the card fails validate")
 
 
+def phase_batch_demo():
+    """The demo's three lanes (tests/test_solver.py:330) in float64 on the
+    card: a ragged tree, so the torch branches with a lane axis."""
+    problem, x0 = demo_problem()
+    solver = rt.Solver(problem, dtype=torch.float64, device=DEV)
+    x0 = np.asarray(x0)
+    res = solver.solve_batch(np.stack([x0, 0.5 * x0, -0.3 * x0]),
+                             max_iters=2000, tol=1e-3)
+    valid = [solver.validate(r) for r in res]
+    emit("batch_demo_f64", iters=[r.num_iters for r in res],
+         xi=[r.xi.tolist() for r in res], seconds=res[0].solve_time,
+         validate=valid)
+    check(res[0].num_iters == 937,
+          f"the demo's lane 0 took {res[0].num_iters} iterations, not 937")
+    check(all(r.converged for r in res)
+          and max(max(v.values()) for v in valid) < 1e-8,
+          "a demo lane did not converge to a valid solution")
+
+
+def phase_batch_headline():
+    """``solve_batch`` of the headline from bench_batch.py's eight initial
+    states in float32, capped at 2,500 iterations, and a single card solve
+    of lane 0's state in the same call."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem)             # the default device: the card
+    solver.operator_norm_sq()
+    x0s = bench_lanes(x0)
+    opts = dict(max_iters=2500, tol=1e-3, check_every=25, unroll=25)
+    # K1's batched and unbatched calls are planned and packed on first use
+    solver.solve_batch(x0s, max_iters=25, tol=1e-3)
+    solver.solve(x0s[0], max_iters=25, tol=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    with counted("batch_headline_f32") as calls:
+        res = solver.solve_batch(x0s, **opts)
+    peak = torch.cuda.max_memory_allocated()
+    single = solver.solve(x0s[0], **opts)
+    sp = solver.stacked
+    steps = max(r.num_iters for r in res)
+    # lane 0 against the single solve: the checked rows of the first 200
+    # iterations
+    rows = ~np.isnan(single.xi_history[:200, 0])
+    lane0, alone = res[0].xi_history[:200][rows], \
+        single.xi_history[:200][rows]
+    hist_rel = float(np.max(np.abs(lane0 - alone) / np.abs(alone)))
+    emit("batch_headline_f32", nodes=sp.num_nodes, n=sp.n, m=sp.m,
+         dtype=str(sp.dtype), lanes=len(res),
+         tree_rows_per_k1_apply=len(res) * sp.num_nodes,
+         iters=[r.num_iters for r in res], solve_s=res[0].solve_time,
+         step_ms=1e3 * res[0].solve_time / steps,
+         batch_iters_per_second=steps / res[0].solve_time,
+         lane_iters_per_second=sum(r.num_iters for r in res)
+         / res[0].solve_time,
+         single_iters=single.num_iters, single_solve_s=single.solve_time,
+         single_iters_per_second=single.iters_per_second,
+         xi=[r.xi.tolist() for r in res],
+         lane0_vs_single_max_rel=hist_rel, k1_launches=calls["k1"],
+         prox_f_calls=calls["prox_f"], max_memory_allocated_bytes=peak)
+    check(all(np.isfinite(v).all() for r in res for v in r.primal)
+          and all(np.isfinite(r.xi).all() for r in res),
+          "a headline lane is not finite")
+    check(all(r.primal.x.shape == (sp.np_pad, sp.n) for r in res),
+          "a lane's primal shape")
+    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}: "
+          "not one launch set per batched apply")
+    check(rows.sum() >= 8 and hist_rel <= 1e-3,
+          f"lane 0's first 200 iterations differ from the single solve's "
+          f"by {hist_rel} (relative)")
+
+
+def baseline_batch(names=("batch_config4_f32", "batch_config3_f32")):
+    """``scripts/bench_batch.py``'s two measurements on the card: eight
+    lanes solved to 1e-3 in one batch against eight sequential solves, at
+    the headline (BASELINE config 4) and at config 3
+    (``soc_network_problem()``, ``offline="device"``), float32. Each lane
+    must end as its sequential solve does (converged, or at the cap);
+    the counts, and how far each lane's is from its sequential count
+    (``scripts/bench_batch.py`` allows one check period, 25), are
+    recorded: in float32 the lanes round otherwise than the single solves
+    (other tiles of K1, other GEMM shapes), and where a residual lingers
+    near the tolerance that moves the first check below it."""
+    configs = {
+        "batch_config4_f32": (lambda: random_network_problem(**HEADLINE),
+                              20000, {}),
+        "batch_config3_f32": (soc_network_problem, 4000,
+                              dict(offline="device"))}
+    for name in names:
+        make, max_iters, extra = configs[name]
+        problem, x0 = make()
+        solver = rt.Solver(problem, dtype=torch.float32, device=DEV,
+                           **extra)
+        solver.operator_norm_sq()
+        x0s = bench_lanes(x0)
+        kw = dict(max_iters=max_iters, tol=1e-3, check_every=25, unroll=25)
+        solver.solve(x0s[0], max_iters=25, tol=1e-3)      # warm up
+        solver.solve_batch(x0s, max_iters=25, tol=1e-3)
+        tic = time.perf_counter()
+        seq = [solver.solve(x, **kw) for x in x0s]
+        seq_s = time.perf_counter() - tic
+        with counted(name) as calls:
+            tic = time.perf_counter()
+            bat = solver.solve_batch(x0s, **kw)
+            bat_s = time.perf_counter() - tic
+        diff = [b.num_iters - a.num_iters for a, b in zip(seq, bat)]
+        emit(name, nodes=solver.stacked.num_nodes, lanes=len(bat),
+             sequential_s=seq_s, batched_s=bat_s, ratio=seq_s / bat_s,
+             sequential_iters=[r.num_iters for r in seq],
+             batched_iters=[r.num_iters for r in bat],
+             sequential_status=[r.status for r in seq],
+             batched_status=[r.status for r in bat], count_diff=diff,
+             lanes_beyond_one_period=sum(abs(d) > 25 for d in diff),
+             sequential_lane_iters_per_second=sum(
+                 r.num_iters for r in seq) / seq_s,
+             batched_lane_iters_per_second=sum(
+                 r.num_iters for r in bat) / bat_s,
+             k1_launches=calls["k1"], prox_f_calls=calls["prox_f"])
+        check([r.status for r in seq] == [r.status for r in bat],
+              f"{name}: a lane ends otherwise than its sequential solve")
+        check(not sweep.sweep_eligible(solver.stacked)
+              or calls["k1"] == calls["prox_f"] > 0,
+              f"{name}: K1 launches {calls['k1']} != prox_f calls "
+              f"{calls['prox_f']}")
+
+
 def baseline(config5_steps):
     """BASELINE config 4 (SuperMann) and config 5 (closed loop) to 1e-3,
     as ``scripts/bench_configs.py`` runs them in the JAX package."""
@@ -568,33 +838,42 @@ def profile_config5(steps=100):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="store_true",
-                    help="run BASELINE configs 4 and 5 to 1e-3 instead")
+                    help="run BASELINE configs 3-5 to 1e-3 instead")
     ap.add_argument("--config5-steps", type=int, default=1)
     ap.add_argument("--profile", action="store_true",
                     help="profile 100 CP steps of config 5 instead")
+    ap.add_argument("--k1-times", action="store_true",
+                    help="time K1's unbatched cases alone instead")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
-    if args.baseline or args.profile:
-        if args.profile:
+    if args.baseline or args.profile or args.k1_times:
+        if args.k1_times:
+            k1_times()
+        elif args.profile:
             profile_config5()
         else:
             baseline(args.config5_steps)
+            baseline_batch()
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
+    apex_ms = phase_apex_ab()
     phase_matmul_context()
     demo = phase_parity()
     phase_chunked(demo)
     phase_headline()
     phase_mpc_config5()
     phase_accel()
+    phase_batch_demo()
+    phase_batch_headline()
     # the kernel's own numbers are the headline's (the first K1 path); every
     # timed shape stands beside it, config 5's full size included
     c = kernel["c_headline_f32"]
     worst = max(kernel.values(), key=lambda r: r["rel_err"])
-    shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                  "launches_per_apply", "flop", "bytes", "ms_over_bound")
+    shape_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "lanes", "launches_per_apply", "flop",
+                  "bytes", "ms_over_bound")
     print(json.dumps({"kernels": [{
         "name": "K1 dynamics-projection sweep",
         "route": "cuda",
@@ -607,6 +886,7 @@ def main():
         "max_rel_err_case": worst["case"],
         **{k: c[k] for k in shape_keys},
         "library_note": "no single PyTorch call computes the sweep",
+        "batch_apex_headline_b8": apex_ms,
         "per_shape": {name: {k: r[k] for k in shape_keys}
                       for name, r in kernel.items()}}]}), flush=True)
     print(smi, flush=True)

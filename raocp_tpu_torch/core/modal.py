@@ -34,21 +34,23 @@ class ModalMatrix:
         return self.idx.shape[0]
 
     def matvec(self, x):
-        """Per-row M[i] @ x[i]; x: [N, b] -> [N, a]."""
+        """Per-row M[i] @ x[i]; x: [..., N, b] -> [..., N, a]."""
         if self.dense_m is not None:
-            return torch.einsum("jab,jb->ja", self.dense_m, x)
+            return torch.einsum("jab,...jb->...ja", self.dense_m, x)
         if self.modes.shape[0] == 1:
             return x @ self.modes[0].T
-        all_modes = torch.einsum("jb,mab->jma", x, self.modes)   # [N, M, a]
+        all_modes = torch.einsum("...jb,mab->...jma", x,
+                                 self.modes)                # [..., N, M, a]
         return _select(all_modes, self.idx)
 
     def rmatvec(self, v):
-        """Per-row M[i]' @ v[i]; v: [N, a] -> [N, b]."""
+        """Per-row M[i]' @ v[i]; v: [..., N, a] -> [..., N, b]."""
         if self.dense_m is not None:
-            return torch.einsum("jab,ja->jb", self.dense_m, v)
+            return torch.einsum("jab,...ja->...jb", self.dense_m, v)
         if self.modes.shape[0] == 1:
             return v @ self.modes[0]
-        all_modes = torch.einsum("ja,mab->jmb", v, self.modes)   # [N, M, b]
+        all_modes = torch.einsum("...ja,mab->...jmb", v,
+                                 self.modes)                # [..., N, M, b]
         return _select(all_modes, self.idx)
 
     def slice_rows(self, a: int, b: int) -> "ModalMatrix":
@@ -67,9 +69,11 @@ class ModalMatrix:
 
 
 def _select(all_modes, idx):
-    """rows[i] = all_modes[i, idx[i]] for all_modes [N, M, a]."""
-    index = idx[:, None, None].expand(-1, 1, all_modes.shape[2])
-    return torch.gather(all_modes, 1, index)[:, 0]
+    """rows[..., i, :] = all_modes[..., i, idx[i], :] for all_modes
+    [..., N, M, a]."""
+    index = idx[:, None, None].expand(
+        tuple(all_modes.shape[:-3]) + (-1, 1, all_modes.shape[-1]))
+    return torch.gather(all_modes, -2, index)[..., 0, :]
 
 
 def upload(arr, dtype=None, device="cuda") -> torch.Tensor:

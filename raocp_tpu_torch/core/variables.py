@@ -12,6 +12,9 @@ Padding invariant: padded slots (y/e1 columns beyond a node's real risk
 rows, masked child-table entries, row 0 of the child-indexed parts
 e3..e6) are identically zero at all times; every operator and prox map
 preserves this, so norms and inner products match the reference exactly.
+
+A batch of solves from B initial states (``Solver.solve_batch``) gives
+every leaf a leading lane axis, [B, ...]; the ops take either layout.
 """
 
 import math
@@ -20,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["Primal", "Dual", "tree_inf_norm", "tree_dot", "tree_axpy",
-           "tree_scale", "tree_sub", "tree_add", "make_packers"]
+           "tree_scale", "tree_sub", "tree_add", "lane_view", "make_packers"]
 
 
 class Primal(NamedTuple):
@@ -102,24 +105,40 @@ def make_packers(sp):
     return pack_p, unpack_p, pack_d, unpack_d
 
 
-def tree_inf_norm(tree) -> torch.Tensor:
-    """max |entry| over every leaf (a 0-d tensor; no host sync)."""
-    return torch.stack([leaf.abs().max() for leaf in tree]).max()
+def lane_view(a, leaf):
+    """A per-lane scalar ``a`` [B] as [B, 1, ...], to broadcast against
+    ``leaf`` [B, ...]; a number or a 0-d tensor as it is."""
+    if not isinstance(a, torch.Tensor) or a.dim() == 0:
+        return a
+    return a.reshape(tuple(a.shape) + (1,) * (leaf.dim() - a.dim()))
 
 
-def tree_dot(a, b) -> torch.Tensor:
-    """Inner product <a, b> over matching NamedTuples (a 0-d tensor)."""
-    return torch.stack([torch.vdot(x.reshape(-1), y.reshape(-1))
-                        for x, y in zip(a, b)]).sum()
+def tree_inf_norm(tree, lanes: bool = False) -> torch.Tensor:
+    """max |entry| over every leaf: a 0-d tensor, or with ``lanes`` one per
+    lane of a leading lane axis, [B] (no host sync)."""
+    if not lanes:
+        return torch.stack([leaf.abs().max() for leaf in tree]).max()
+    return torch.stack([leaf.abs().flatten(1).amax(dim=1)
+                        for leaf in tree]).amax(dim=0)
+
+
+def tree_dot(a, b, lanes: bool = False) -> torch.Tensor:
+    """Inner product <a, b> over matching NamedTuples: a 0-d tensor, or
+    with ``lanes`` one per lane of a leading lane axis, [B]."""
+    if not lanes:
+        return torch.stack([torch.vdot(x.reshape(-1), y.reshape(-1))
+                            for x, y in zip(a, b)]).sum()
+    return torch.stack([(x.flatten(1) * y.flatten(1)).sum(dim=1)
+                        for x, y in zip(a, b)]).sum(dim=0)
 
 
 def tree_axpy(alpha, x, y):
-    """alpha * x + y."""
-    return type(x)(*(alpha * xi + yi for xi, yi in zip(x, y)))
+    """alpha * x + y (``alpha`` a number, or per lane [B])."""
+    return type(x)(*(lane_view(alpha, xi) * xi + yi for xi, yi in zip(x, y)))
 
 
 def tree_scale(alpha, x):
-    return type(x)(*(alpha * xi for xi in x))
+    return type(x)(*(lane_view(alpha, xi) * xi for xi in x))
 
 
 def tree_sub(a, b):

@@ -68,6 +68,16 @@
 //   raocp_sweep_*, which checks them and computes none of them again;
 //   raocp_sweep_smem reports the shared memory of a tile so that the plan
 //   can be held against it.
+// * A batch of B solves sweeps B lanes in one launch set. The arrays are
+//   lane-major (x [B, np_pad, n], u [B, nl_pad, m], x0 [B, n], lanes
+//   sx, su, s0 elements apart) and the lanes share the stage weights, so a
+//   stage launch runs the B * W rows of all lanes as one stage: its global
+//   row r is row r % W of lane r / W, a map applied where a row is loaded
+//   or stored (one 32-bit division a row, outside the FMA loop, and none
+//   for a single lane), and a tile may hold rows of several lanes. The
+//   apex runs a group of lanes a block.
+//   The children of a row stay contiguous inside its lane, so every load
+//   and store keeps its width; one lane is the unbatched apply.
 // Plain FMA in the element type: no tensor cores, no TF32 (the solver
 // needs full float32 to reach its tolerances).
 
@@ -185,26 +195,46 @@ __device__ __forceinline__ void cp_commit_and_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the widest copy (16, 8 or sizeof(T) bytes) that rows of `cols` elements,
-// `ld` elements apart and starting at `p`, are aligned for
+// Where the rows of a stage lie in one array: the stage has W rows in each
+// lane, and its global row r, row i = r % W of lane l = r / W, starts at
+// element l * lane + base + i * step. `lane` is 0 for a single lane, whose
+// rows then need no division.
+struct RowMap {
+  long long base;
+  long long step;
+  long long lane;
+  unsigned W;
+  __device__ __forceinline__ long long at(unsigned r) const {
+    if (lane == 0) return base + (long long)r * step;
+    const unsigned l = r / W;
+    return (long long)l * lane + base + (long long)(r - l * W) * step;
+  }
+};
+
+// the widest copy (16, 8 or sizeof(T) bytes) that every row of `cols`
+// elements of the map, from the array at `p`, is aligned for
 template <typename T>
-__device__ __forceinline__ int copy_bytes(const T* p, long long ld,
+__device__ __forceinline__ int copy_bytes(const T* p, const RowMap& map,
                                           int cols) {
   const unsigned long long bits =
-      (unsigned long long)p | (unsigned long long)(ld * (long long)sizeof(T))
+      (unsigned long long)p
+      | (unsigned long long)(map.base * (long long)sizeof(T))
+      | (unsigned long long)(map.step * (long long)sizeof(T))
+      | (unsigned long long)(map.lane * (long long)sizeof(T))
       | (unsigned long long)((long long)cols * (long long)sizeof(T));
   if (bits % 16 == 0) return 16;
   if (bits % 8 == 0) return 8;
   return (int)sizeof(T);
 }
 
-// dst[r][0..width) <- src[r][0..K) for r < rows_valid, zeros in the columns
-// K .. width and in the rows up to `tile`; dst rows are ld elements apart,
-// src rows K. Every thread of the block copies its share (one division a
-// call, none a copy).
+// dst[r][0..width) <- row r0 + r of the map in src, columns 0..K, for r <
+// rows_valid; zeros in the columns K .. width and in the rows up to
+// `tile`; dst rows are ld elements apart. Every thread of the block copies
+// its share (one division a row, none a copy).
 template <typename T, int BYTES>
 __device__ __forceinline__ void load_rows_w(T* dst, int ld, int width,
-                                            const T* src, int rows_valid,
+                                            const T* src, const RowMap& map,
+                                            unsigned r0, int rows_valid,
                                             int tile, int K) {
   if constexpr (BYTES >= (int)sizeof(T)) {
     constexpr int E = BYTES / (int)sizeof(T);
@@ -214,7 +244,7 @@ __device__ __forceinline__ void load_rows_w(T* dst, int ld, int width,
     const int lr = threadIdx.x / tpr, lj = threadIdx.x - lr * tpr;
     if (lr >= rstep) return;                       // past the last whole row
     for (int r = lr; r < tile; r += rstep) {
-      const T* srow = src + (long long)r * K;
+      const T* srow = r < rows_valid ? src + map.at(r0 + r) : src;
       T* drow = dst + (size_t)r * ld;
       for (int j = lj; j < vpr; j += tpr) {
         const bool ok = r < rows_valid && j * E < K;
@@ -226,14 +256,18 @@ __device__ __forceinline__ void load_rows_w(T* dst, int ld, int width,
 
 template <typename T>
 __device__ __forceinline__ void load_rows(T* dst, int ld, int width,
-                                          const T* src, int rows_valid,
+                                          const T* src, const RowMap& map,
+                                          unsigned r0, int rows_valid,
                                           int tile, int K) {
-  switch (copy_bytes(src, (long long)K, K)) {
-    case 16: load_rows_w<T, 16>(dst, ld, width, src, rows_valid, tile, K);
+  switch (copy_bytes(src, map, K)) {
+    case 16:
+      load_rows_w<T, 16>(dst, ld, width, src, map, r0, rows_valid, tile, K);
       break;
-    case 8: load_rows_w<T, 8>(dst, ld, width, src, rows_valid, tile, K);
+    case 8:
+      load_rows_w<T, 8>(dst, ld, width, src, map, r0, rows_valid, tile, K);
       break;
-    default: load_rows_w<T, 4>(dst, ld, width, src, rows_valid, tile, K);
+    default:
+      load_rows_w<T, 4>(dst, ld, width, src, map, r0, rows_valid, tile, K);
   }
 }
 
@@ -328,9 +362,9 @@ template <typename T>
 struct Stage {
   Product<T> bwd[3];
   Product<T> fwd[2];
-  long long a;        // first row of the stage
-  long long W;        // rows of the stage
+  long long a;        // first row of the stage in a lane
   long long a2;       // first row of the stage below
+  unsigned W;         // rows of the stage in a lane
   int c;
 };
 
@@ -532,7 +566,8 @@ __device__ __forceinline__ void multiply(T (&acc)[TM][4], const T* A, int lda,
   }
 }
 
-// The arrays of one apply.
+// The arrays of one apply, and their lanes: x_in, x_out and q_buf are
+// sx elements apart, u_in, u_out and d_buf su, x0 s0 (all 0 for one lane).
 template <typename T>
 struct Io {
   const T* x_in;
@@ -542,15 +577,34 @@ struct Io {
   T* u_out;
   T* q_buf;
   T* d_buf;
+  long long sx, su, s0;
 };
 
-// One backward step on the rows w0 .. w0 + rows of the stage: reads the
-// children's q from q_child (times sign), x_in and u_in; writes q_buf and
-// d_buf.
+// the maps of a stage's rows: in x (the parents' rows), in u, and of the
+// children's rows as one row of c n
+template <typename T>
+__device__ __forceinline__ RowMap x_rows(const Stage<T>& st, const Io<T>& io,
+                                         int n) {
+  return RowMap{st.a * n, n, io.sx, st.W};
+}
+template <typename T>
+__device__ __forceinline__ RowMap u_rows(const Stage<T>& st, const Io<T>& io,
+                                         int m) {
+  return RowMap{st.a * m, m, io.su, st.W};
+}
+template <typename T>
+__device__ __forceinline__ RowMap child_rows(const Stage<T>& st,
+                                             const Io<T>& io, int n) {
+  return RowMap{st.a2 * n, (long long)st.c * n, io.sx, st.W};
+}
+
+// One backward step on the global rows w0 .. w0 + rows of the stage: reads
+// the children's q from q_child (times sign), x_in and u_in; writes q_buf
+// and d_buf.
 template <typename T, int TM>
 __device__ __forceinline__ void backward_tile(
     T* smem_rows, const Stage<T>& st, int n, int m, int tile, Ring<T>& ring,
-    const Io<T>& io, const T* q_child, T sign, long long w0, int rows) {
+    const Io<T>& io, const T* q_child, T sign, unsigned w0, int rows) {
   const int Nc = st.c * n, F = n + m, m4 = round_up(m, 4);
   const int ldq = lead_dim(Nc), ldn = lead_dim(n), ldm = lead_dim(m);
   const int ldg = lead_dim(2 * m4);
@@ -558,11 +612,10 @@ __device__ __forceinline__ void backward_tile(
   T* const SA = Q + (size_t)tile * ldq;        // x, then sumA'q - x
   T* const Vv = SA + (size_t)tile * ldn;       // u, then v = u - sumB'q
   T* const GD = Vv + (size_t)tile * ldm;       // [g | d], g = d - v
-  const long long row0 = st.a + w0;
 
-  load_rows(Q, ldq, ldq, q_child + (st.a2 + w0 * st.c) * n, rows, tile, Nc);
-  load_rows(SA, ldn, ldn, io.x_in + row0 * n, rows, tile, n);
-  load_rows(Vv, ldm, ldm, io.u_in + row0 * m, rows, tile, m);
+  load_rows(Q, ldq, ldq, q_child, child_rows(st, io, n), w0, rows, tile, Nc);
+  load_rows(SA, ldn, ldn, io.x_in, x_rows(st, io, n), w0, rows, tile, n);
+  load_rows(Vv, ldm, ldm, io.u_in, u_rows(st, io, m), w0, rows, tile, m);
   cp_commit_and_wait();
   sync_multipliers();
 
@@ -611,7 +664,8 @@ __device__ __forceinline__ void backward_tile(
             }
           }
           if (row < rows)
-            store4(io.d_buf + (row0 + row) * m + col0, acc[r], m - col0);
+            store4(io.d_buf + u_rows(st, io, m).at(w0 + row) + col0, acc[r],
+                   m - col0);
         }
       }
     }
@@ -631,7 +685,8 @@ __device__ __forceinline__ void backward_tile(
           for (int j = 0; j < 4; ++j)
             if (col0 + j < n) acc[r][j] += SA[(size_t)row * ldn + col0 + j];
           if (row < rows)
-            store4(io.q_buf + (row0 + row) * n + col0, acc[r], n - col0);
+            store4(io.q_buf + x_rows(st, io, n).at(w0 + row) + col0, acc[r],
+                   n - col0);
         }
       }
     }
@@ -640,20 +695,20 @@ __device__ __forceinline__ void backward_tile(
   sync_multipliers();
 }
 
-// One forward step on the rows w0 .. w0 + rows of the stage: reads the
-// parents' x from x_out and d_buf; writes the parents' u and the
+// One forward step on the global rows w0 .. w0 + rows of the stage: reads
+// the parents' x from x_out and d_buf; writes the parents' u and the
 // children's x.
 template <typename T, int TM>
 __device__ __forceinline__ void forward_tile(
     T* smem_rows, const Stage<T>& st, int n, int m, int tile, Ring<T>& ring,
-    const Io<T>& io, long long w0, int rows) {
+    const Io<T>& io, unsigned w0, int rows) {
   const int Nc = st.c * n, n4 = round_up(n, 4), m4 = round_up(m, 4);
   const int ldx = lead_dim(n4 + m4);
   T* const XU = smem_rows;                     // [x | d, then u]
-  const long long row0 = st.a + w0;
 
-  load_rows(XU, ldx, n4, io.x_out + row0 * n, rows, tile, n);
-  load_rows(XU + n4, ldx, ldx - n4, io.d_buf + row0 * m, rows, tile, m);
+  load_rows(XU, ldx, n4, io.x_out, x_rows(st, io, n), w0, rows, tile, n);
+  load_rows(XU + n4, ldx, ldx - n4, io.d_buf, u_rows(st, io, m), w0, rows,
+            tile, m);
   cp_commit_and_wait();
   sync_multipliers();
 
@@ -677,7 +732,8 @@ __device__ __forceinline__ void forward_tile(
             }
           }
           if (row < rows)
-            store4(io.u_out + (row0 + row) * m + col0, acc[r], m - col0);
+            store4(io.u_out + u_rows(st, io, m).at(w0 + row) + col0, acc[r],
+                   m - col0);
         }
       }
     }
@@ -694,8 +750,8 @@ __device__ __forceinline__ void forward_tile(
         for (int r = 0; r < TM; ++r) {
           const int row = s.rg + r * s.nrg;
           if (row < rows)
-            store4(io.x_out + (st.a2 + (w0 + row) * st.c) * n + col0, acc[r],
-                   Nc - col0);
+            store4(io.x_out + child_rows(st, io, n).at(w0 + row) + col0,
+                   acc[r], Nc - col0);
         }
       }
     }
@@ -704,49 +760,58 @@ __device__ __forceinline__ void forward_tile(
   sync_multipliers();
 }
 
-// The ghost rows of both outputs.
+// The ghost rows of both outputs: nx elements of x from x in every lane
+// (lanes sx apart), nu of u from u (lanes su apart).
 template <typename T>
 struct Ghosts {
   T* x;
-  long long nx;
+  long long nx, sx;
   T* u;
-  long long nu;
+  long long nu, su;
+  int lanes;
 };
 
 template <typename T>
 __device__ __forceinline__ void zero_ghosts(const Ghosts<T>& g) {
   const long long start = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long step = (long long)gridDim.x * kBlock;
-  for (long long i = start; i < g.nx; i += step) g.x[i] = T(0);
-  for (long long i = start; i < g.nu; i += step) g.u[i] = T(0);
+  for (long long i = start; i < g.lanes * g.nx; i += step) {
+    const long long l = g.sx ? i / g.nx : 0;
+    g.x[l * g.sx + (i - l * g.nx)] = T(0);
+  }
+  for (long long i = start; i < g.lanes * g.nu; i += step) {
+    const long long l = g.su ? i / g.nu : 0;
+    g.u[l * g.su + (i - l * g.nu)] = T(0);
+  }
 }
 
-// how many of a stage's tiles are t0, t0 + stride, ...
-__device__ __forceinline__ long long tiles_of(long long W, int tile,
+// how many of the tiles of R rows are t0, t0 + stride, ...
+__device__ __forceinline__ long long tiles_of(long long R, int tile,
                                               long long t0,
                                               long long stride) {
-  const long long tiles = (W + tile - 1) / tile;
+  const long long tiles = (R + tile - 1) / tile;
   return t0 >= tiles ? 0 : (tiles - t0 + stride - 1) / stride;
 }
 
 // The multiplying threads run one step of one stage over the tiles t0,
-// t0 + stride, ... of its rows.
+// t0 + stride, ... of its global rows r_begin .. r_begin + R.
 template <typename T, int TM>
 __device__ __forceinline__ void run_step(
     Ring<T>& ring, const Stage<T>& st, int n, int m, int tile, bool forward,
-    const Io<T>& io, const T* q_child, T sign, long long t0,
-    long long stride) {
+    const Io<T>& io, const T* q_child, T sign, unsigned r_begin, unsigned R,
+    long long t0, long long stride) {
   T* rows_smem = ring.slabs + (size_t)kRing * ring.slab_elems;
-  const long long tiles = (st.W + tile - 1) / tile;
+  const long long tiles = ((long long)R + tile - 1) / tile;
 #pragma unroll 1
   for (long long t = t0; t < tiles; t += stride) {
-    const long long w0 = t * tile;
-    const int rows = (int)(st.W - w0 < tile ? st.W - w0 : tile);
+    const unsigned w = (unsigned)(t * tile);
+    const int rows = (int)(R - w < (unsigned)tile ? R - w : tile);
     if (forward)
-      forward_tile<T, TM>(rows_smem, st, n, m, tile, ring, io, w0, rows);
+      forward_tile<T, TM>(rows_smem, st, n, m, tile, ring, io, r_begin + w,
+                          rows);
     else
       backward_tile<T, TM>(rows_smem, st, n, m, tile, ring, io, q_child,
-                           sign, w0, rows);
+                           sign, r_begin + w, rows);
   }
 }
 
@@ -757,25 +822,27 @@ __host__ __device__ constexpr int min_blocks(int tm, int elem_size) {
 
 // ---------------------------------------------------------------- kernels
 
-// One step of one stage, backward or forward; the blocks walk over its
-// tiles. The last forward launch also zeroes the ghost rows.
+// One step of one stage, backward or forward, over the rows of all
+// `lanes` lanes; the blocks walk over its tiles. The last forward launch
+// also zeroes the ghost rows.
 template <typename T, int TM>
 __global__ void __launch_bounds__(kBlock, min_blocks(TM, sizeof(T)))
 stage_kernel(const __grid_constant__ Stage<T> st, int n, int m, int tile,
-             int forward, Io<T> io, const T* q_child, T sign,
+             int forward, int lanes, Io<T> io, const T* q_child, T sign,
              Ghosts<T> ghosts, int ldb, unsigned smem_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   zero_ghosts(ghosts);
   Ring<T> ring;
   ring_init(ring, smem_raw, smem_bytes, ldb);
+  const unsigned R = (unsigned)lanes * st.W;
   if (threadIdx.x >= kThreads) {
     if (threadIdx.x == kThreads)
       produce(ring, forward ? st.fwd : st.bwd, forward ? 2 : 3,
-              tiles_of(st.W, tile, blockIdx.x, gridDim.x));
+              tiles_of(R, tile, blockIdx.x, gridDim.x));
     return;
   }
-  run_step<T, TM>(ring, st, n, m, tile, forward != 0, io, q_child, sign,
-                  blockIdx.x, gridDim.x);
+  run_step<T, TM>(ring, st, n, m, tile, forward != 0, io, q_child, sign, 0u,
+                  R, blockIdx.x, gridDim.x);
 }
 
 // The stages of the apex launch.
@@ -784,12 +851,14 @@ struct Apex {
   Stage<T> st[kMaxApex];
   int count;
   int leaf_stage;     // the stage whose children are the leaves
+  int lanes;          // lanes a block: block b runs lanes from b * lanes
 };
 
-// The top of the tree in one block: backward steps of stages count-1 .. 0,
-// then forward steps of stages 0 .. count-1. What one step writes to device
-// memory the next reads after the multiplying threads' barrier; the
-// producer runs ahead with the weights of the steps to come.
+// The top of the tree, a group of lanes in each block: backward steps of
+// stages count-1 .. 0, then forward steps of stages 0 .. count-1. What one
+// step writes to device memory the next reads after the multiplying
+// threads' barrier; the producer runs ahead with the weights of the steps
+// to come.
 template <typename T, int TM>
 __global__ void __launch_bounds__(kBlock) apex_kernel(
     const __grid_constant__ Apex<T> ax, int n, int m, int tile, Io<T> io,
@@ -800,23 +869,28 @@ __global__ void __launch_bounds__(kBlock) apex_kernel(
   ring_init(ring, smem_raw, smem_bytes, ldb);
   const bool producer = threadIdx.x >= kThreads;
   if (producer && threadIdx.x != kThreads) return;
+  const unsigned lane0 = blockIdx.x * (unsigned)ax.lanes;
   if (!producer)
-    for (int i = threadIdx.x; i < n; i += kThreads) io.x_out[i] = io.x0[i];
+    for (int i = threadIdx.x; i < ax.lanes * n; i += kThreads) {
+      const int l = i / n, j = i - l * n;
+      io.x_out[(lane0 + l) * io.sx + j] = io.x0[(lane0 + l) * io.s0 + j];
+    }
   // steps 0 .. count-1 go up, steps count .. 2 count - 1 come down again
 #pragma unroll 1
   for (int i = 0; i < 2 * ax.count; ++i) {
     const bool forward = i >= ax.count;
     const int k = forward ? i - ax.count : ax.count - 1 - i;
     const Stage<T>& st = ax.st[k];
+    const unsigned R = (unsigned)ax.lanes * st.W;   // the block's rows
     if (producer) {
       produce(ring, forward ? st.fwd : st.bwd, forward ? 2 : 3,
-              tiles_of(st.W, tile, 0, 1));
+              tiles_of(R, tile, 0, 1));
     } else {
       const bool leaves = (k == ax.leaf_stage);
       sync_multipliers();             // what the step before wrote is there
       run_step<T, TM>(ring, st, n, m, tile, forward, io,
-                      leaves ? io.x_in : io.q_buf, leaves ? T(-1) : T(1), 0,
-                      1);
+                      leaves ? io.x_in : io.q_buf, leaves ? T(-1) : T(1),
+                      lane0 * st.W, R, 0, 1);
     }
   }
 }
@@ -856,8 +930,9 @@ inline bool tile_ok(int tile, int tm) {
 
 template <typename T, int TM>
 cudaError_t launch_stage(const Stage<T>& st, int n, int m, int tile, int grid,
-                         bool forward, cudaStream_t stream, const Io<T>& io,
-                         const T* q_child, T sign, const Ghosts<T>& ghosts) {
+                         bool forward, int lanes, cudaStream_t stream,
+                         const Io<T>& io, const T* q_child, T sign,
+                         const Ghosts<T>& ghosts) {
   static std::atomic<uint64_t> allowed{0};
   const int ldb = slab_cols(forward ? st.fwd : st.bwd, forward ? 2 : 3);
   const size_t bytes = kHeaderBytes
@@ -866,7 +941,7 @@ cudaError_t launch_stage(const Stage<T>& st, int n, int m, int tile, int grid,
   cudaError_t err = allow_smem(stage_kernel<T, TM>, allowed);
   if (err != cudaSuccess) return err;
   stage_kernel<T, TM><<<grid, kBlock, bytes, stream>>>(
-      st, n, m, tile, forward ? 1 : 0, io, q_child, sign, ghosts, ldb,
+      st, n, m, tile, forward ? 1 : 0, lanes, io, q_child, sign, ghosts, ldb,
       (unsigned)bytes);
   return cudaGetLastError();
 }
@@ -879,24 +954,37 @@ cudaError_t launch_stage(const Stage<T>& st, int n, int m, int tile, int grid,
 // product j's packed right operand of stage k (abtq, d, q, u, xc), packed
 // for the thread tile and row tile of the launch that runs it, and
 // products[4 (5 k + j) ..] says how: its Kp, passes, cpp and ks (Product).
+// `lanes` lanes (x, x_out, q_buf sx elements apart, u, u_out, d_buf su,
+// x0 s0) run in every launch, the apex `apex_lanes` of them a block.
 // Error codes besides CUDA's: -2 = the schedule is not one this library
 // can launch (a thread tile it has no kernel for, a tile that is no
-// multiple of it, too many apex stages, no apex stage, or a product whose
-// layout does not fit the tile's row arrays or the block's threads).
+// multiple of it, too many apex stages, no apex stage, lanes that overlap,
+// more rows than a 32-bit index, apex lanes that do not divide the lanes,
+// or a product whose layout does not fit the tile's row arrays or the
+// block's threads).
 template <typename T>
 int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
               T* q_buf, T* d_buf, const void* const* weights,
               const int* products, const long long* stage_start,
-              const long long* stage_child, int num_stages, int n, int m, long long np_pad,
-              long long nl_pad, int apex_stages, int apex_tile,
-              const int* tm, const int* tile, const int* grid,
-              cudaStream_t stream) {
+              const long long* stage_child, int num_stages, int n, int m,
+              long long np_pad, long long nl_pad, int lanes, long long sx,
+              long long su, long long s0, int apex_stages, int apex_tile,
+              int apex_lanes, const int* tm, const int* tile,
+              const int* grid, cudaStream_t stream) {
   const int ns_nl = num_stages - 1;
   const long long N = stage_start[num_stages];
   const long long NL = stage_start[num_stages - 1];
   if (apex_stages < 1 || apex_stages > kMaxApex || apex_stages > ns_nl ||
       !tile_ok(apex_tile, kApexTm))
     return -2;
+  if (lanes < 1 || apex_lanes < 1 || lanes % apex_lanes != 0 ||
+      (lanes > 1 && (sx < np_pad * n || su < nl_pad * m || s0 < n)))
+    return -2;
+  for (int k = 0; k < ns_nl; ++k)
+    if ((long long)lanes * (stage_start[k + 1] - stage_start[k])
+        >= (1LL << 31))
+      return -2;
+  if (lanes == 1) sx = su = s0 = 0;     // one lane: no lane offsets
   const int n4 = round_up(n, 4), m4 = round_up(m, 4);
   // product j of stage k as the caller laid it out, held against what the
   // launch that runs it (row tile, thread tile) needs: Kp rows for the
@@ -919,7 +1007,7 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
   auto stage = [&](int k, int tile_b, int tm_b, int tile_f, int tm_f) {
     Stage<T> st;
     st.a = stage_start[k];
-    st.W = stage_start[k + 1] - st.a;
+    st.W = (unsigned)(stage_start[k + 1] - st.a);
     st.a2 = stage_start[k + 1];
     st.c = (int)stage_child[k];
     st.bwd[0] = product(k, 0, round_up(st.c * n, 4), n + m, tile_b, tm_b);
@@ -929,12 +1017,12 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
     st.fwd[1] = product(k, 4, n4 + m4, st.c * n, tile_f, tm_f);
     return st;
   };
-  const Ghosts<T> ghosts{x_out + N * n, (np_pad - N) * n, u_out + NL * m,
-                         (nl_pad - NL) * m};
-  const Ghosts<T> none{nullptr, 0, nullptr, 0};
+  const Ghosts<T> ghosts{x_out + N * n, (np_pad - N) * n, sx,
+                         u_out + NL * m, (nl_pad - NL) * m, su, lanes};
+  const Ghosts<T> none{nullptr, 0, 0, nullptr, 0, 0, 0};
   cudaError_t err;
 
-  const Io<T> io{x_in, u_in, x0, x_out, u_out, q_buf, d_buf};
+  const Io<T> io{x_in, u_in, x0, x_out, u_out, q_buf, d_buf, sx, su, s0};
   // one launch of stage k in one direction
   auto launch = [&](int k, bool forward) -> int {
     // backward, the last nonleaf stage reads the leaves' q = -x straight
@@ -952,17 +1040,18 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
     switch (tm[e]) {
       case 1:
         return (int)launch_stage<T, 1>(st, n, m, tile[e], grid[e], forward,
-                                       stream, io, q_child, sign, gh);
+                                       lanes, stream, io, q_child, sign, gh);
       case 2:
         return (int)launch_stage<T, 2>(st, n, m, tile[e], grid[e], forward,
-                                       stream, io, q_child, sign, gh);
+                                       lanes, stream, io, q_child, sign, gh);
       case 4:
         return (int)launch_stage<T, 4>(st, n, m, tile[e], grid[e], forward,
-                                       stream, io, q_child, sign, gh);
+                                       lanes, stream, io, q_child, sign, gh);
       case 8:
         if constexpr (sizeof(T) == 4)
           return (int)launch_stage<T, 8>(st, n, m, tile[e], grid[e], forward,
-                                         stream, io, q_child, sign, gh);
+                                         lanes, stream, io, q_child, sign,
+                                         gh);
         return -2;
       default:
         return -2;
@@ -979,6 +1068,7 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
     Apex<T> ax;
     ax.count = apex_stages;
     ax.leaf_stage = ns_nl - 1;
+    ax.lanes = apex_lanes;
     size_t elems = 0;
     int ldb = 0;
     for (int k = 0; k < apex_stages; ++k) {
@@ -999,7 +1089,7 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
     if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
     err = allow_smem(apex_kernel<T, kApexTm>, allowed);
     if (err != cudaSuccess) return (int)err;
-    apex_kernel<T, kApexTm><<<1, kBlock, bytes, stream>>>(
+    apex_kernel<T, kApexTm><<<lanes / apex_lanes, kBlock, bytes, stream>>>(
         ax, n, m, apex_tile, io, apex_stages == ns_nl ? ghosts : none, ldb,
         (unsigned)bytes);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1018,16 +1108,19 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
       const void* x_in, const void* u_in, const void* x0, void* x_out,       \
       void* u_out, void* q_buf, void* d_buf, const void* const* weights,     \
       const int* products, const long long* stage_start,                     \
-      const long long* stage_child, int num_stages, int n, int m, long long np_pad, long long nl_pad,      \
-      int apex_stages, int apex_tile, const int* tm, const int* tile,        \
-      const int* grid, void* stream) {                                       \
+      const long long* stage_child, int num_stages, int n, int m,            \
+      long long np_pad, long long nl_pad, int lanes, long long sx,           \
+      long long su, long long s0, int apex_stages, int apex_tile,            \
+      int apex_lanes, const int* tm, const int* tile, const int* grid,       \
+      void* stream) {                                                        \
     return run_sweep<T>(                                                     \
         static_cast<const T*>(x_in), static_cast<const T*>(u_in),            \
         static_cast<const T*>(x0), static_cast<T*>(x_out),                   \
         static_cast<T*>(u_out), static_cast<T*>(q_buf),                      \
         static_cast<T*>(d_buf), weights, products, stage_start, stage_child, \
-        num_stages, n, m, np_pad, nl_pad, apex_stages, apex_tile, tm, tile,  \
-        grid, static_cast<cudaStream_t>(stream));                            \
+        num_stages, n, m, np_pad, nl_pad, lanes, sx, su, s0, apex_stages,    \
+        apex_tile, apex_lanes, tm, tile, grid,                               \
+        static_cast<cudaStream_t>(stream));                                  \
   }
 
 RAOCP_SWEEP_ENTRY(raocp_sweep_f32, float)

@@ -196,7 +196,9 @@ def soc_network_problem(num_states: int = 20, num_inputs: int = 8,
                         stopping_time: int = 3, alpha: float = 0.95,
                         seed: int = 0):
     """BASELINE config 3: 20-state system, branching-3 tree, horizon 7
-    (~3k nodes), Euclidean-ball (SOC) state-input constraints + AVaR."""
+    (148 nodes at these defaults: three branching stages to the stopping
+    time, then chains), Euclidean-ball (SOC) state-input constraints +
+    AVaR."""
     return random_network_problem(
         num_states=num_states, num_inputs=num_inputs, num_modes=num_modes,
         num_stages=num_stages, stopping_time=stopping_time, alpha=alpha,

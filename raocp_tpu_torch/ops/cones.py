@@ -3,9 +3,10 @@
 
 Elementwise max/clamp for the orthant and box, a select-based three-case
 formula for the second-order cone, and a masked orthant+identity map for the
-(padded) risk ambiguity dual cone. All are safe under padding: zero inputs
-map to zero outputs, and no select branch that is not taken can put a NaN
-into the result.
+(padded) risk ambiguity dual cone. Every projection takes [..., rows, cols]
+(a leading lane axis included) and broadcasts the per-row tables. All are
+safe under padding: zero inputs map to zero outputs, and no select branch
+that is not taken can put a NaN into the result.
 """
 
 import torch
@@ -90,8 +91,8 @@ def risk_dual_project(v, free_rows, zero_rows, soc_rows=None, soc_tail=None):
     if soc_rows is None:
         return rowwise
     x = v * soc_rows                                        # member rows
-    nx = torch.sqrt(torch.sum(x * x, dim=1))                # [NL]
-    t = torch.sum(v * soc_tail, dim=1)                      # [NL] radial
+    nx = torch.sqrt(torch.sum(x * x, dim=-1))               # [..., NL]
+    t = torch.sum(v * soc_tail, dim=-1)                     # radial
     inside = nx <= t
     polar = nx <= -t
     t_half = 0.5 * (nx + t)
@@ -101,5 +102,5 @@ def risk_dual_project(v, free_rows, zero_rows, soc_rows=None, soc_tail=None):
                          torch.where(polar, nil,
                                      t_half / torch.clamp_min(nx, tiny)))
     t_new = torch.where(inside, t, torch.where(polar, nil, t_half))
-    return torch.where(soc_rows, x_coef[:, None] * v,
-                       torch.where(soc_tail, t_new[:, None], rowwise))
+    return torch.where(soc_rows, x_coef[..., None] * v,
+                       torch.where(soc_tail, t_new[..., None], rowwise))

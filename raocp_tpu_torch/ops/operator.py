@@ -3,7 +3,9 @@
 
 Each is one batched computation over the stacked variables: parent
 expansions, stage-stacked mode-block contractions, and child reductions —
-no per-node control flow.
+no per-node control flow. The variables may carry a leading lane axis
+([B, rows, ...], a batch of solves); the problem's tables have none and
+broadcast.
 
 Mathematical definition (per nonleaf node i, child j, leaf l):
   eta1_i = y_i                       eta2_i = s_i - b_i'y_i
@@ -61,95 +63,102 @@ def _child_rel(sp: StackedProblem, a: int, b: int, a2: int, b2: int):
     return torch.clamp(sp.child_idx[a:b] - a2, 0, b2 - a2 - 1)
 
 
-def repad(arr, rows: int):
-    """Pad axis 0 with zeros up to ``rows`` (no-op when already there)."""
-    extra = rows - arr.shape[0]
+def repad(arr, rows: int, dim: int = 0):
+    """Pad axis ``dim`` with zeros up to ``rows`` (no-op when already
+    there)."""
+    extra = rows - arr.shape[dim]
     if extra == 0:
         return arr
-    return torch.cat(
-        [arr, arr.new_zeros((extra,) + tuple(arr.shape[1:]))], dim=0)
+    shape = list(arr.shape)
+    shape[dim] = extra
+    return torch.cat([arr, arr.new_zeros(shape)], dim=dim)
 
 
 def sum_over_children(sp: StackedProblem, w):
-    """[np_pad, ...] child-indexed values -> [nl_pad, ...] sums over each
-    node's children. Uniform stages reshape ``[W, c, ...] -> sum(dim=1)``;
-    ragged stages gather through the padded child table."""
+    """[..., np_pad, F] child-indexed rows -> [..., nl_pad, F] sums over
+    each node's children. Uniform stages reshape ``[..., W, c, F] ->
+    sum(dim=-2)``; ragged stages gather through the padded child table."""
     ss = sp.stage_start
+    lead = tuple(w.shape[:-2])
+    F = w.shape[-1]
     parts = []
     for k0, k1 in stage_groups(sp, _same_child(sp)):
         a, b = ss[k0], ss[k1]
         a2, b2 = ss[k0 + 1], ss[k1 + 1]
-        wk = w[a2:b2]
+        wk = w[..., a2:b2, :]
         c = sp.stage_child[k0]
         if c is not None:
-            parts.append(wk.reshape((b - a, c) + tuple(wk.shape[1:]))
-                         .sum(dim=1))
+            parts.append(wk.reshape(lead + (b - a, c, F)).sum(dim=-2))
         else:                      # single ragged stage (k1 == k0 + 1)
             rel = _child_rel(sp, a, b, a2, b2)
-            mask = sp.child_mask[a:b]
-            mask = mask.reshape(tuple(mask.shape) + (1,) * (wk.dim() - 1))
-            parts.append(torch.sum(wk[rel] * mask, dim=1))
+            mask = sp.child_mask[a:b][..., None]
+            parts.append(torch.sum(wk[..., rel, :] * mask, dim=-2))
     tail = sp.nl_pad - sp.num_nonleaf
     if tail:
-        parts.append(w.new_zeros((tail,) + tuple(w.shape[1:])))
-    return torch.cat(parts, dim=0)
+        parts.append(w.new_zeros(lead + (tail, F)))
+    return torch.cat(parts, dim=-2)
 
 
 def parent_expand(sp: StackedProblem, v, rows: int):
-    """[nonleaf-or-node rows, ...] -> [rows, ...] with out[j] = v[anc(j)]
-    for real non-root nodes j, zero at row 0 and padding."""
+    """[..., nonleaf-or-node rows, F] -> [..., rows, F] with out[j] =
+    v[anc(j)] for real non-root nodes j, zero at row 0 and padding."""
     ss = sp.stage_start
-    parts = [v.new_zeros((1,) + tuple(v.shape[1:]))]
+    lead = tuple(v.shape[:-2])
+    F = v.shape[-1]
+    parts = [v.new_zeros(lead + (1, F))]
     for k0, k1 in stage_groups(sp, _same_child(sp)):
         a, b = ss[k0], ss[k1]
         a2, b2 = ss[k0 + 1], ss[k1 + 1]
         c = sp.stage_child[k0]
         if c is not None:
-            parts.append(torch.repeat_interleave(v[a:b], c, dim=0))
+            parts.append(torch.repeat_interleave(v[..., a:b, :], c, dim=-2))
         else:                      # single ragged stage
-            parts.append(v[sp.anc[a2:b2]])
+            parts.append(v[..., sp.anc[a2:b2], :])
     tail = rows - ss[sp.num_stages]
     if tail:
-        parts.append(v.new_zeros((tail,) + tuple(v.shape[1:])))
-    return torch.cat(parts, dim=0)
+        parts.append(v.new_zeros(lead + (tail, F)))
+    return torch.cat(parts, dim=-2)
 
 
 def ell(sp: StackedProblem, z: Primal) -> Dual:
-    """Apply L: primal -> dual (parity: reference ``operators.py:19-53``)."""
+    """Apply L: primal -> dual (parity: reference ``operators.py:19-53``).
+    Every leaf may carry leading lane dims; the tables broadcast."""
     NL, N, n = sp.num_nonleaf, sp.num_nodes, sp.n
+    lead = tuple(z.x.shape[:-2])
     # one fused [x; u] per nonleaf node feeds the parent-expand, the
     # blockdiag(sqrtQ, sqrtR) matvec, and the constraint rows e7
-    xu = torch.cat([repad(z.x[:NL], sp.nl_pad), z.u], dim=1)
+    xu = torch.cat([repad(z.x[..., :NL, :], sp.nl_pad, -2), z.u], dim=-1)
     e1 = z.y
-    e2 = repad(z.s[:NL], sp.nl_pad) - torch.sum(sp.b_pad * z.y, dim=1)
+    e2 = repad(z.s[..., :NL], sp.nl_pad, -1) \
+        - torch.sum(sp.b_pad * z.y, dim=-1)
     if sp.QRm is not None and any(w is not None for w in sp.qr_fwd):
         # stage-stacked mode blocks: parent-expand + modal matvec + mode
         # select as one contraction per group of stages sharing the block
         ss = sp.stage_start
         F = sp.n + sp.m
-        parts = [xu.new_zeros((1, F))]                     # root row
+        parts = [xu.new_zeros(lead + (1, F))]              # root row
         for k0, k1 in stage_groups(sp, _same_weight(sp.qr_fwd)):
             a, b = ss[k0], ss[k1]
             a2, b2 = ss[k0 + 1], ss[k1 + 1]
             if sp.qr_fwd[k0] is not None:
-                e3d = torch.tensordot(xu[a:b], sp.qr_fwd[k0],
-                                      dims=([1], [0]))     # [W, c, F]
-                parts.append(e3d.reshape(b2 - a2, F))
+                e3d = torch.tensordot(xu[..., a:b, :], sp.qr_fwd[k0],
+                                      dims=([-1], [0]))    # [..., W, c, F]
+                parts.append(e3d.reshape(lead + (b2 - a2, F)))
             else:                  # single non-uniform stage (k1 == k0 + 1)
                 c = sp.stage_child[k0]
-                xu_par = (torch.repeat_interleave(xu[a:b], c, dim=0)
+                xu_par = (torch.repeat_interleave(xu[..., a:b, :], c, dim=-2)
                           if c is not None
-                          else xu[a:b][sp.anc[a2:b2] - a])
+                          else xu[..., sp.anc[a2:b2], :])
                 parts.append(sp.QRm.slice_rows(a2, b2).matvec(xu_par))
         tail = sp.np_pad - N
         if tail:
-            parts.append(xu.new_zeros((tail, F)))
-        e34 = torch.cat(parts, dim=0)
-        e3, e4 = e34[:, :n], e34[:, n:]
+            parts.append(xu.new_zeros(lead + (tail, F)))
+        e34 = torch.cat(parts, dim=-2)
+        e3, e4 = e34[..., :n], e34[..., n:]
     elif sp.QRm is not None:
         xu_parent = parent_expand(sp, xu, sp.np_pad)   # [N, n+m] (row 0 = 0)
         e34 = sp.QRm.matvec(xu_parent)
-        e3, e4 = e34[:, :n], e34[:, n:]
+        e3, e4 = e34[..., :n], e34[..., n:]
     else:
         e3 = sp.sqrtQ.matvec(parent_expand(sp, z.x, sp.np_pad))
         e4 = sp.sqrtR.matvec(parent_expand(sp, z.u, sp.np_pad))
@@ -159,9 +168,9 @@ def ell(sp: StackedProblem, z: Primal) -> Dual:
     e7 = ((xu @ sp.nl_G.T) if sp.nl_G is not None else xu) \
         * sp.nl_active[:, None]
 
-    x_leaf = repad(z.x[NL:N], sp.lf_pad)
+    x_leaf = repad(z.x[..., NL:N, :], sp.lf_pad, -2)
     e11 = sp.sqrtP.matvec(x_leaf)
-    half_s = 0.5 * repad(z.s[NL:N], sp.lf_pad)
+    half_s = 0.5 * repad(z.s[..., NL:N], sp.lf_pad, -1)
     e14 = ((x_leaf @ sp.l_G.T) if sp.l_G is not None else x_leaf) \
         * sp.l_active[:, None]
 
@@ -171,11 +180,12 @@ def ell(sp: StackedProblem, z: Primal) -> Dual:
 
 def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
     """Apply L' (exact adjoint of :func:`ell`; parity: reference
-    ``operators.py:55-94``)."""
+    ``operators.py:55-94``). Every leaf may carry leading lane dims."""
     NL, LF = sp.num_nonleaf, sp.num_leaf
     n = sp.n
+    lead = tuple(eta.e3.shape[:-2])
 
-    y = eta.e1 - sp.b_pad * eta.e2[:, None]
+    y = eta.e1 - sp.b_pad * eta.e2[..., None]
 
     con7 = eta.e7 * sp.nl_active[:, None]
     if sp.nl_G is not None:
@@ -185,51 +195,53 @@ def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
     if sp.QRm is not None and any(w is not None for w in sp.qr_bwd):
         ss = sp.stage_start
         F = sp.n + sp.m
-        e34 = torch.cat([eta.e3, eta.e4], dim=1)
+        e34 = torch.cat([eta.e3, eta.e4], dim=-1)
         parts = []
         for k0, k1 in stage_groups(sp, _same_weight(sp.qr_bwd)):
             a, b = ss[k0], ss[k1]
             a2, b2 = ss[k0 + 1], ss[k1 + 1]
-            blk = e34[a2:b2]
+            blk = e34[..., a2:b2, :]
             c = sp.stage_child[k0]
             if sp.qr_bwd[k0] is not None:
                 parts.append(torch.tensordot(
-                    blk.reshape(b - a, c, F), sp.qr_bwd[k0],
-                    dims=([1, 2], [0, 1])))
+                    blk.reshape(lead + (b - a, c, F)), sp.qr_bwd[k0],
+                    dims=([-2, -1], [0, 1])))
             else:                  # single non-uniform stage (k1 == k0 + 1)
                 w = sp.QRm.slice_rows(a2, b2).rmatvec(blk)
                 if c is not None:
-                    parts.append(w.reshape(b - a, c, F).sum(dim=1))
+                    parts.append(w.reshape(lead + (b - a, c, F)).sum(dim=-2))
                 else:
                     rel = _child_rel(sp, a, b, a2, b2)
                     mask = sp.child_mask[a:b][..., None]
-                    parts.append(torch.sum(w[rel] * mask, dim=1))
+                    parts.append(torch.sum(w[..., rel, :] * mask, dim=-2))
         tail = sp.nl_pad - NL
         if tail:
-            parts.append(e34.new_zeros((tail, F)))
-        s34 = torch.cat(parts, dim=0)
+            parts.append(e34.new_zeros(lead + (tail, F)))
+        s34 = torch.cat(parts, dim=-2)
         xu = con7 + s34
-        x_nl, u = xu[:, :n], xu[:, n:]
+        x_nl, u = xu[..., :n], xu[..., n:]
     elif sp.QRm is not None:
-        w34 = sp.QRm.rmatvec(torch.cat([eta.e3, eta.e4], dim=1))
+        w34 = sp.QRm.rmatvec(torch.cat([eta.e3, eta.e4], dim=-1))
         s34 = sum_over_children(sp, w34)
         xu = con7 + s34
-        x_nl, u = xu[:, :n], xu[:, n:]
+        x_nl, u = xu[..., :n], xu[..., n:]
     else:
         w3 = sp.sqrtQ.rmatvec(eta.e3)                # sqrtQ' e3 per child
         w4 = sp.sqrtR.rmatvec(eta.e4)
-        x_nl = con7[:, :n] + sum_over_children(sp, w3)
-        u = con7[:, n:] + sum_over_children(sp, w4)
+        x_nl = con7[..., :n] + sum_over_children(sp, w3)
+        u = con7[..., n:] + sum_over_children(sp, w4)
 
     con14 = eta.e14 * sp.l_active[:, None]
     if sp.l_G is not None:
         con14 = con14 @ sp.l_G
     x_leaf = sp.sqrtP.rmatvec(eta.e11) + con14
-    x = repad(torch.cat([x_nl[:NL], x_leaf[:LF]], dim=0), sp.np_pad)
+    x = repad(torch.cat([x_nl[..., :NL, :], x_leaf[..., :LF, :]], dim=-2),
+              sp.np_pad, -2)
 
     tau = 0.5 * (eta.e5 + eta.e6) * sp.nz_mask
-    s = repad(torch.cat(
-        [eta.e2[:NL], (0.5 * (eta.e12 + eta.e13))[:LF]], dim=0), sp.np_pad)
+    s = repad(torch.cat([eta.e2[..., :NL],
+                         (0.5 * (eta.e12 + eta.e13))[..., :LF]], dim=-1),
+              sp.np_pad, -1)
 
     return Primal(x=x, u=u, y=y, tau=tau, s=s)
 

@@ -23,6 +23,13 @@ launch in each direction, its rows dealt evenly to one block an SM.
 :func:`sweep_work` counts the operations and the compulsory bytes of one
 apply.
 
+A batch of B solves (``Solver.solve_batch``) hands the sweep x [B, np_pad,
+n], u [B, nl_pad, m] and x0 [B, n], lane-major: the lanes share the stage
+weights, and one apply of all lanes is one launch set, whose stage launches
+run the B * rows rows of a stage (a row's lane and node are recomputed from
+its index where it is loaded or stored) and whose apex runs one block a
+lane.
+
 ``LAUNCHES`` counts the calls that launched the kernel, so a run can show
 that its main path went through it.
 """
@@ -102,7 +109,8 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.raocp_sweep_f32, lib.raocp_sweep_f64):
-            fn.argtypes = [p] * 11 + [i, i, i, ll, ll, i, i, p, p, p, p]
+            fn.argtypes = [p] * 11 + [i, i, i, ll, ll, i, ll, ll, ll, i, i, i,
+                                      p, p, p, p]
             fn.restype = i
         lib.raocp_sweep_smem.argtypes = [i] * 8
         lib.raocp_sweep_smem.restype = ll
@@ -141,19 +149,26 @@ def _problem(sp):
                 raise ValueError(
                     f"the stage weights {name} must be contiguous")
         record = _PROBLEMS[id(sp)] = dict(
-            shapes=((sp.np_pad, sp.n), (sp.nl_pad, sp.m), (1, sp.n)),
-            call=None)
+            shapes=((sp.np_pad, sp.n), (sp.nl_pad, sp.m), (sp.n,)),
+            calls={})
         weakref.finalize(sp, _PROBLEMS.pop, id(sp), None)
     return record
 
 
 def _check(sp, x_in, u_in, x0):
     """Raise on what the kernel does not take; return the wrapper's record
-    of ``sp`` and x0 as [1, n]."""
+    of ``sp``, the lane count (1 without a lane axis) and x0 as [lanes,
+    n]. The iterates are x [np_pad, n], u [nl_pad, m] and x0 [n] (or [1,
+    n]), or x [B, np_pad, n], u [B, nl_pad, m] and x0 [B, n]."""
     record = _problem(sp)
-    x0 = x0.reshape(1, sp.n)
+    batched = x_in.dim() == 3
+    lanes = x_in.shape[0] if batched else 1
+    if not batched and x0.dim() == 2 and x0.shape[0] == 1:
+        x0 = x0[0]
+    lead = (lanes,) if batched else ()
     for name, t, shape in zip(("x", "u", "x0"), (x_in, u_in, x0),
                               record["shapes"]):
+        shape = lead + shape
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -164,14 +179,19 @@ def _check(sp, x_in, u_in, x0):
                              f"{sp.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return record, x0
+    if lanes < 1:
+        raise ValueError("a batch of the sweep needs at least one lane")
+    return record, lanes, x0.reshape(lanes, sp.n)
 
 
-def project_dynamics_sweep(sp, x_in, u_in, x0):
+def project_dynamics_sweep(sp, x_in, u_in, x0, apex_lanes=None):
     """Fused-sweep dynamics projection; same contract as
     :func:`raocp_tpu_torch.ops.prox.project_dynamics` for eligible
-    problems. Returns (x [np_pad, n], u [nl_pad, m])."""
-    record, x0 = _check(sp, x_in, u_in, x0)
+    problems. Returns (x [np_pad, n], u [nl_pad, m]), or with a lane axis
+    (x [B, np_pad, n], u [B, nl_pad, m]): all B lanes in one launch set.
+    ``apex_lanes`` (lanes a block of the apex launch runs) overrides the
+    schedule's rule (:func:`plan_sweep`), for measuring it."""
+    record, lanes, x0 = _check(sp, x_in, u_in, x0)
     device = x_in.device
     if device.type == "cpu":
         return project_dynamics_sweep_ref(sp, x_in, u_in, x0)
@@ -179,13 +199,14 @@ def project_dynamics_sweep(sp, x_in, u_in, x0):
         raise ValueError(f"the sweep kernel runs on CUDA tensors, not on "
                          f"{device}")
     global LAUNCHES
-    call = record["call"]
+    key = (lanes, apex_lanes)
+    call = record["calls"].get(key)
     if call is None:
-        call = record["call"] = _kernel_call(sp)
+        call = record["calls"][key] = _kernel_call(sp, lanes, apex_lanes)
     x_out = torch.empty_like(x_in)
     u_out = torch.empty_like(u_in)
     # q and d of the backward sweep, one allocation: d starts 256-byte
-    # aligned behind q
+    # aligned behind q; each has the lane stride of x or u
     scratch = torch.empty(call["scratch_bytes"], dtype=torch.uint8,
                           device=device)
     q_buf = scratch.data_ptr()
@@ -221,12 +242,12 @@ def _packed(blocks, width, product):
     return mat.reshape(kp, passes, cw).permute(1, 0, 2).contiguous()
 
 
-def _kernel_call(sp):
-    """What a call on ``sp`` hands the library: the entry point, the
-    schedule's arrays, each product's layout and its packed weights (kept
-    alive here)."""
+def _kernel_call(sp, lanes=1, apex_lanes=None):
+    """What a call on ``sp`` with ``lanes`` lanes hands the library: the
+    entry point, the schedule's arrays, each product's layout and its
+    packed weights (kept alive here)."""
     lib = _library()
-    plan = sweep_schedule(sp)
+    plan = sweep_schedule(sp, lanes, apex_lanes)
     n, m = sp.n, sp.m
     ns_nl = sp.num_stages - 1
     esize = _esize(sp.dtype)
@@ -255,13 +276,16 @@ def _kernel_call(sp):
         (ctypes.c_longlong * ns_nl)(*sp.stage_child),
         *plan["c_arrays"])
     addr = [ctypes.addressof(a) for a in held]
-    d_offset = _round_up(sp.np_pad * n * esize, 256)
+    # the lanes of x, u and x0 (contiguous: _check) and of q and d
+    sx, su = sp.np_pad * n, sp.nl_pad * m
+    d_offset = _round_up(lanes * sx * esize, 256)
     return dict(
         fn=lib.raocp_sweep_f32 if esize == 4 else lib.raocp_sweep_f64,
         plan=plan, tensors=tensors, held=held, d_offset=d_offset,
-        scratch_bytes=d_offset + sp.nl_pad * m * esize,
+        scratch_bytes=d_offset + lanes * su * esize,
         static_args=(*addr[:4], sp.num_stages, n, m, sp.np_pad, sp.nl_pad,
-                     plan["apex_stages"], plan["apex_tile"], *addr[4:]))
+                     lanes, sx, su, n, plan["apex_stages"],
+                     plan["apex_tile"], plan["apex_lanes"], *addr[4:]))
 
 
 # ---------------------------------------------------------------- schedule
@@ -290,6 +314,10 @@ MAX_TILE = 128           # most rows of a tile
 # that a launch costs more than its share of a single block's time.
 APEX_ROWS = 4
 APEX_FLOP = 50_000
+# In a batch the apex runs APEX_LANES lanes a block, each block its lanes'
+# top stages under the rule above (PERF.md: measured against all lanes in
+# one block).
+APEX_LANES = 1
 # Below the apex a stage's rows are dealt evenly to one block an SM. The
 # thread tile is tm rows by 4 columns: (least rows a block, tm), the widest
 # that fits first; float64 has no kernel of 8 rows (registers).
@@ -378,25 +406,36 @@ def _largest_tile(tm, n, m, children, esize, directions, most=MAX_TILE):
 
 
 @functools.lru_cache(maxsize=64)
-def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS):
-    """The launches of one apply on a tree whose nonleaf stage k has
-    ``stage_rows[k]`` rows of ``stage_child[k]`` children each, on a card
-    of ``sms`` SMs.
+def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1,
+               apex_lanes=None):
+    """The launches of one apply of ``lanes`` lanes on a tree whose nonleaf
+    stage k has ``stage_rows[k]`` rows of ``stage_child[k]`` children each,
+    on a card of ``sms`` SMs.
 
-    The apex takes the stages from the root down while they are small
-    (``APEX_ROWS``, ``APEX_FLOP``). Every stage below it runs one launch in
-    each direction: its rows are dealt evenly to ``sms`` blocks, in as many
-    rounds as the largest tile that fits in shared memory makes necessary
-    (the blocks then walk over the tiles), and the thread tile follows the
-    rows of a block (``THREAD_TILES``).
+    The apex runs ``apex_lanes`` lanes a block (by default one: a block a
+    lane, as many blocks as lanes; ``lanes`` puts them all in one block)
+    and takes the stages from the root down while a block's rows of them
+    are few (``APEX_ROWS``, ``APEX_FLOP``). Every stage below it runs one
+    launch in each direction over the ``lanes * stage_rows[k]`` rows of
+    all lanes: they are dealt evenly to ``sms`` blocks, in as many rounds
+    as the largest tile that fits in shared memory makes necessary (the
+    blocks then walk over the tiles), and the thread tile follows the rows
+    of a block (``THREAD_TILES``). One lane is the unbatched apply.
 
     Returns a dict: ``apex_stages`` (stages 0 .. apex_stages-1 run in the
-    apex launch), ``apex_tile``, ``launches`` (the launches in order, each
-    a dict with ``kind`` "apex" or "stage", ``direction``, ``stages``,
-    ``tm``, ``tile``, ``grid``, ``smem`` and ``zero_ghosts``),
-    ``launch_count``, and ``c_arrays`` (the per-stage thread tile, row tile
-    and grid as the library takes them)."""
+    apex launch), ``apex_tile``, ``apex_lanes``, ``lanes``, ``launches``
+    (the launches in order, each a dict with ``kind`` "apex" or "stage",
+    ``direction``, ``stages``, ``tm``, ``tile``, ``grid``, ``smem`` and
+    ``zero_ghosts``), ``launch_count``, and ``c_arrays`` (the per-stage
+    thread tile, row tile and grid as the library takes them)."""
     ns_nl = len(stage_rows)
+    apex_lanes = APEX_LANES if apex_lanes is None else apex_lanes
+    if lanes < 1 or not 1 <= apex_lanes <= lanes or lanes % apex_lanes:
+        raise ValueError(f"{apex_lanes} lanes a block of the apex do not "
+                         f"divide {lanes} lanes")
+    if lanes * max(stage_rows) >= 2 ** 31:
+        raise ValueError(f"{lanes} lanes of {max(stage_rows)} rows pass "
+                         "the kernel's 32-bit row index")
 
     def too_wide(c):
         return RuntimeError(
@@ -404,21 +443,22 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS):
             f"{esize}-byte elements) does not fit in the {MAX_SMEM} bytes "
             "of shared memory a block may use")
 
+    apex_rows = [apex_lanes * r for r in stage_rows]    # of one apex block
     apex = 1
     while apex < min(ns_nl, MAX_APEX) and (
-            stage_rows[apex] <= APEX_ROWS or stage_rows[apex]
+            apex_rows[apex] <= APEX_ROWS or apex_rows[apex]
             * _flop_per_row(n, m, stage_child[apex]) <= APEX_FLOP):
         apex += 1
     apex_child = set(stage_child[:apex])
     apex_tile = _largest_tile(APEX_TM, n, m, apex_child, esize, (False, True),
-                              min(MAX_TILE, max(stage_rows[:apex])))
+                              min(MAX_TILE, max(apex_rows[:apex])))
     if not apex_tile:
         raise too_wide(max(apex_child))
     apex_smem = max(smem_bytes(fwd, apex_tile, APEX_TM, n, m, c, esize)
                     for c in apex_child for fwd in (False, True))
 
     def stage_launch(k, forward):
-        rows, c = stage_rows[k], stage_child[k]
+        rows, c = lanes * stage_rows[k], stage_child[k]
         share = -(-rows // sms)             # rows of a block, in one round
         # the widest thread tile the share allows of which a tile fits
         for least, tm in THREAD_TILES[esize]:
@@ -441,8 +481,9 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS):
     launches = [stage_launch(k, False) for k in range(ns_nl - 1, apex - 1, -1)]
     launches.append(dict(kind="apex", direction="both",
                          stages=tuple(range(apex)),
-                         rows=sum(stage_rows[:apex]), tm=APEX_TM,
-                         tile=apex_tile, tiles=None, grid=1, smem=apex_smem,
+                         rows=lanes * sum(stage_rows[:apex]), tm=APEX_TM,
+                         tile=apex_tile, tiles=None,
+                         grid=lanes // apex_lanes, smem=apex_smem,
                          zero_ghosts=apex == ns_nl))
     launches += [stage_launch(k, True) for k in range(apex, ns_nl)]
 
@@ -454,81 +495,85 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS):
             for arr, key in zip(arrays, ("tm", "tile", "grid")):
                 arr[e] = launch[key]
     c_arrays = tuple((ctypes.c_int * (2 * ns_nl))(*arr) for arr in arrays)
-    return dict(apex_stages=apex, apex_tile=apex_tile, launches=launches,
-                launch_count=len(launches), c_arrays=c_arrays)
+    return dict(apex_stages=apex, apex_tile=apex_tile, apex_lanes=apex_lanes,
+                lanes=lanes, launches=launches, launch_count=len(launches),
+                c_arrays=c_arrays)
 
 
 def _esize(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def sweep_schedule(sp):
-    """The launches of one apply on ``sp`` (:func:`plan_sweep`), for the
-    card the problem lies on, or for ``NUM_SMS`` SMs where it lies on
-    none."""
+def sweep_schedule(sp, lanes=1, apex_lanes=None):
+    """The launches of one apply of ``lanes`` lanes on ``sp``
+    (:func:`plan_sweep`), for the card the problem lies on, or for
+    ``NUM_SMS`` SMs where it lies on none."""
     ss = sp.stage_start
     rows = tuple(ss[k + 1] - ss[k] for k in range(sp.num_stages - 1))
     sms = NUM_SMS if sp.device.type != "cuda" else \
         torch.cuda.get_device_properties(sp.device).multi_processor_count
     return plan_sweep(rows, tuple(sp.stage_child), sp.n, sp.m,
-                      _esize(sp.dtype), sms)
+                      _esize(sp.dtype), sms, lanes, apex_lanes)
 
 
-def sweep_work(sp):
-    """The operations and the compulsory bytes of one apply, from the
-    shapes: ``flop`` (:func:`_flop_per_row` per nonleaf node) and
-    ``bytes`` (x, u and x0 read once, the padded x and u written once, each
-    stage's weights read once)."""
+def sweep_work(sp, lanes=1):
+    """The operations and the compulsory bytes of one apply of ``lanes``
+    lanes, from the shapes: ``flop`` (:func:`_flop_per_row` per nonleaf
+    node and lane) and ``bytes`` (each lane's x, u and x0 read once and
+    its padded x and u written once; each stage's weights read once for
+    all lanes)."""
     n, m, ss = sp.n, sp.m, sp.stage_start
     flop = weights = 0
     for k, c in enumerate(sp.stage_child):
         rows = ss[k + 1] - ss[k]
         flop += rows * _flop_per_row(n, m, c)
         weights += 2 * c * n * (n + m) + 2 * m * n + m * m
-    elems = (sp.num_nodes * n + sp.num_nonleaf * m + n
-             + sp.np_pad * n + sp.nl_pad * m + weights)
-    return dict(flop=flop, bytes=elems * _esize(sp.dtype))
+    lane = (sp.num_nodes * n + sp.num_nonleaf * m + n
+            + sp.np_pad * n + sp.nl_pad * m)
+    return dict(flop=lanes * flop,
+                bytes=(lanes * lane + weights) * _esize(sp.dtype))
 
 
 def project_dynamics_sweep_ref(sp, x_in, u_in, x0):
     """The plain torch version of the kernel's math, step for step: the
     backward launches (abtq, d, q per stage) and the forward launches (u and
-    the children's x per stage), then the zeroed ghost rows."""
+    the children's x per stage), then the zeroed ghost rows. Takes the
+    iterates with or without a leading lane axis (x0 [..., n])."""
     ss = sp.stage_start
     ns = sp.num_stages
     n, m = sp.n, sp.m
     N = sp.num_nodes
-    x0 = x0.reshape(1, n)
+    lead = tuple(x_in.shape[:-2])
     x_out = x_in.new_zeros(x_in.shape)
     u_out = u_in.new_zeros(u_in.shape)
     q = x_in.new_zeros(x_in.shape)
     d = u_in.new_zeros(u_in.shape)
     # backward: the last nonleaf stage reads q_leaf = -x_leaf
-    q[ss[ns - 1]:N] = -x_in[ss[ns - 1]:N]
+    q[..., ss[ns - 1]:N, :] = -x_in[..., ss[ns - 1]:N, :]
     for k in range(ns - 2, -1, -1):
         a, b = ss[k], ss[k + 1]
         a2, b2 = ss[k + 1], ss[k + 2]
         c = sp.stage_child[k]
-        qc = q[a2:b2].reshape(b - a, c * n)
+        qc = q[..., a2:b2, :].reshape(lead + (b - a, c * n))
         abtq = qc @ sp.ab_bwd[k].reshape(c * n, n + m)    # [W, n+m]
-        sum_atq, sum_btq = abtq[:, :n], abtq[:, n:]
-        u_k = u_in[a:b]
+        sum_atq, sum_btq = abtq[..., :n], abtq[..., n:]
+        u_k = u_in[..., a:b, :]
         d_k = (u_k - sum_btq) @ sp.rinv_s[k].T
         g = (d_k - u_k) + sum_btq
-        q[a:b] = ((-x_in[a:b] + g @ sp.k_s[k]) + d_k @ sp.sumapb_s[k].T) \
-            + sum_atq
-        d[a:b] = d_k
+        q[..., a:b, :] = ((-x_in[..., a:b, :] + g @ sp.k_s[k])
+                          + d_k @ sp.sumapb_s[k].T) + sum_atq
+        d[..., a:b, :] = d_k
     # forward: parents' x from x0 at the root, else from the stage above
-    x_out[0:1] = x0
+    x_out[..., 0:1, :] = x0.reshape(lead + (1, n))
     for k in range(ns - 1):
         a, b = ss[k], ss[k + 1]
         a2, b2 = ss[k + 1], ss[k + 2]
         c = sp.stage_child[k]
-        x_k = x_out[a:b]
-        u_k = x_k @ sp.k_s[k].T + d[a:b]
-        u_out[a:b] = u_k
-        xu = torch.cat([x_k, u_k], dim=1)                # [W, n+m]
-        x_out[a2:b2] = (xu @ sp.ab_fwd[k].reshape(n + m, c * n)) \
-            .reshape(b2 - a2, n)
+        x_k = x_out[..., a:b, :]
+        u_k = x_k @ sp.k_s[k].T + d[..., a:b, :]
+        u_out[..., a:b, :] = u_k
+        xu = torch.cat([x_k, u_k], dim=-1)               # [W, n+m]
+        x_out[..., a2:b2, :] = (xu @ sp.ab_fwd[k].reshape(n + m, c * n)) \
+            .reshape(lead + (b2 - a2, n))
     # ghost rows past N and NL stay zero (new_zeros above)
     return x_out, u_out

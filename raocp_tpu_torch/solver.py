@@ -6,9 +6,11 @@ is a host Python loop over eager tensor ops; the host reads the device only
 when a residual is checked (every iteration at ``check_every=1``, once per
 period otherwise). Like the JAX package it carries L z and L'eta between
 iterations, so a step costs two operator applies, plus one for the xi_0
-residual at a check. Chunked solves (:func:`_chunked_loop`), the
-accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting helpers
-(``validate``, plots, pgfplots exports) keep the JAX package's semantics.
+residual at a check. Chunked solves (:func:`_chunked_loop`), batch solves
+(:func:`_run_cp_batch`: B initial states, every op on all lanes at once),
+the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
+helpers (``validate``, plots, pgfplots exports) keep the JAX package's
+semantics.
 """
 
 import contextlib
@@ -23,7 +25,8 @@ import torch
 from raocp_tpu_torch.core.spec import RAOCP
 from raocp_tpu_torch.core.stacked import (StackedProblem, _dedup_dynamics,
                                           build_stacked)
-from raocp_tpu_torch.core.variables import (Dual, Primal, tree_add, tree_dot,
+from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
+                                            tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
@@ -129,38 +132,42 @@ def _cp_step(sp: StackedProblem, z, eta, Lz, Lt, alpha1, alpha2, x0,
              shift=None):
     """One Chambolle-Pock step (no residuals); carries L z and L'eta so a
     step costs two operator applies. ``shift`` is
-    :func:`half_shift_dual` (computed here when not given)."""
+    :func:`half_shift_dual` (computed here when not given). In a batch the
+    iterates carry a lane axis, x0 is [B, n] and the step sizes are
+    numbers or per lane [B]."""
     if shift is None:
         shift = half_shift_dual(sp)
     # primal: z+ = prox_f(z - a1 L'eta)
-    z_new = prox_f(sp, Primal(*(zi - alpha1 * ti for zi, ti in zip(z, Lt))),
-                   alpha1, x0)
+    z_new = prox_f(sp, Primal(*(zi - lane_view(alpha1, ti) * ti
+                                for zi, ti in zip(z, Lt))), alpha1, x0)
     Lzn = ell(sp, z_new)
     # dual: eta+ = prox_g*(eta + a2 L(2 z+ - z)) via Moreau
-    mod = Dual(*((e + alpha2 * (2.0 * lzn - lz)) / alpha2 + s
-                 for e, lzn, lz, s in zip(eta, Lzn, Lz, shift)))
+    a2 = [lane_view(alpha2, e) for e in eta]
+    mod = Dual(*((e + a * (2.0 * lzn - lz)) / a + s
+                 for e, a, lzn, lz, s in zip(eta, a2, Lzn, Lz, shift)))
     proj = g_conj_projections(sp, mod)
-    eta_new = Dual(*(alpha2 * (m - p) for m, p in zip(mod, proj)))
+    eta_new = Dual(*(a * (m - p) for a, m, p in zip(a2, mod, proj)))
     Ltn = ell_t(sp, eta_new)
     return z_new, eta_new, Lzn, Ltn
 
 
 def _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha1, alpha2):
     """The xi_0/1/2 and delta_0/1/2 max-norms of one step (reference
-    solver.py:63-95) as two 3-element tensors (no host sync). Costs one
-    extra operator apply (L' of xi_2)."""
-    xi1 = Primal(*((a - b) / alpha1 - (c - d)
+    solver.py:63-95) as two 3-element tensors, or [B, 3] for the lanes of
+    a batch (no host sync). Costs one extra operator apply (L' of xi_2)."""
+    lanes = z.x.dim() == 3
+    xi1 = Primal(*((a - b) / lane_view(alpha1, a) - (c - d)
                    for a, b, c, d in zip(z, zn, Lt, Ltn)))
-    xi2 = Dual(*((a - b) / alpha2 + (c - d)
+    xi2 = Dual(*((a - b) / lane_view(alpha2, a) + (c - d)
                  for a, b, c, d in zip(eta, en, Lzn, Lz)))
     xi0 = tree_add(xi1, ell_t(sp, xi2))
     d1 = tree_sub(zn, z)
     d2 = tree_sub(en, eta)
     d0 = Primal(*(a - (b - c) for a, b, c in zip(d1, Ltn, Lt)))
-    err = torch.stack([tree_inf_norm(xi0), tree_inf_norm(xi1),
-                       tree_inf_norm(xi2)])
-    derr = torch.stack([tree_inf_norm(d0), tree_inf_norm(d1),
-                        tree_inf_norm(d2)])
+    err = torch.stack([tree_inf_norm(xi0, lanes), tree_inf_norm(xi1, lanes),
+                       tree_inf_norm(xi2, lanes)], dim=-1)
+    derr = torch.stack([tree_inf_norm(d0, lanes), tree_inf_norm(d1, lanes),
+                        tree_inf_norm(d2, lanes)], dim=-1)
     return err, derr
 
 
@@ -183,9 +190,10 @@ def _resolve_relax(relax) -> float:
 
 
 def _rebalance(a1, a2, phi, err):
-    """One residual-balancing update of (alpha1, alpha2, phi) (tensors)."""
-    grow = err[1] > _ADAPT_DELTA * err[2]     # primal residual dominates
-    shrink = err[2] > _ADAPT_DELTA * err[1]   # dual residual dominates
+    """One residual-balancing update of (alpha1, alpha2, phi) (tensors; per
+    lane, [B], against err [B, 3] in a batch)."""
+    grow = err[..., 1] > _ADAPT_DELTA * err[..., 2]   # primal dominates
+    shrink = err[..., 2] > _ADAPT_DELTA * err[..., 1]  # dual dominates
     one = torch.ones_like(phi)
     fac = torch.where(grow, 1.0 / (1.0 - phi),
                       torch.where(shrink, 1.0 - phi, one))
@@ -259,6 +267,82 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
                 z, eta, Lz, Lt = zn, en, Lzn, Ltn
         k += unroll
     return z, eta, k, err_np, hist[:k]
+
+
+def _running_lanes(keep, new, old):
+    """``new`` on the lanes that ``keep`` ([B] bool, or None for all) marks
+    running, ``old`` on the others, leaf by leaf."""
+    if keep is None:
+        return new
+    kept = [torch.where(lane_view(keep, o), nw, o) for nw, o in zip(new, old)]
+    return type(old)(*kept) if isinstance(old, (Primal, Dual)) \
+        else tuple(kept)
+
+
+def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
+                  max_iters: int, check_every: int = 1, unroll: int = 1,
+                  adaptive: bool = False, relax: float = 1.0):
+    """The CP loop of :func:`_run_cp` for B lanes at once (the JAX
+    package's ``jax.vmap`` of its loop): the iterates carry a leading lane
+    axis, x0s is [B, n], and every step of every operator is one call for
+    all lanes. Returns (z, eta, iters [B], final errors [B, 3], history
+    [B, max_iters + unroll, 6]).
+
+    Each lane keeps the semantics of its own solve. Its loop condition
+    (``k == 0`` or its last checked residual above ``tol`` and ``k +
+    unroll < max_iters + 2``) is read on the host after every trip, from
+    the one sync a check makes ([B, 6]); once it is false the lane keeps
+    its carry through ``torch.where`` (its steps, with ``adaptive``, too),
+    writes no more history and stops counting, and the loop ends when no
+    lane runs. Lanes are never taken out of the batch: the shapes, and so
+    every lane's arithmetic, stay those of the first step.
+    """
+    if unroll > 1 and check_every % unroll != 0:
+        raise ValueError("unroll must divide check_every")
+    dt, dev = sp.dtype, sp.device
+    lanes = x0s.shape[0]
+    z, eta = Primal(*z0), Dual(*eta0)
+    Lz = ell(sp, z)
+    Lt = ell_t(sp, eta)
+    shift = half_shift_dual(sp)
+    # one step size for all lanes, unless a rebalance gives each its own
+    steps = (lanes,) if adaptive else ()
+    a1 = torch.full(steps, alpha1, dtype=dt, device=dev)
+    a2 = torch.full(steps, alpha2, dtype=dt, device=dev)
+    phi = torch.full(steps, _ADAPT_PHI, dtype=dt, device=dev)
+    hist = np.full((lanes, max_iters + unroll, 6),
+                   0.0 if check_every == 1 else np.nan)
+    err_np = np.full((lanes, 3), np.inf)
+    iters = np.zeros(lanes, dtype=np.int64)
+    running = np.ones(lanes, dtype=bool)
+    k = 0
+    while running.any():
+        keep = None if running.all() else torch.as_tensor(running, device=dev)
+        for i in range(unroll):
+            zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, a1, a2, x0s,
+                                        shift)
+            if check_every == 1 or (k + i + 1) % check_every == 0:
+                err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt,
+                                          Ltn, a1, a2)
+                if adaptive:
+                    a1, a2, phi = _running_lanes(
+                        keep, _rebalance(a1, a2, phi, err), (a1, a2, phi))
+                rows = torch.cat([err, derr], dim=1).cpu().numpy()  # sync
+                hist[running, k + i] = rows[running]
+                err_np[running] = rows[running, :3]
+            if relax != 1.0:
+                new = [type(cur)(*(c + relax * (p - c)
+                                   for c, p in zip(cur, nw)))
+                       for cur, nw in ((z, zn), (eta, en), (Lz, Lzn),
+                                       (Lt, Ltn))]
+            else:
+                new = (zn, en, Lzn, Ltn)
+            z, eta, Lz, Lt = (_running_lanes(keep, nw, cur) for nw, cur
+                              in zip(new, (z, eta, Lz, Lt)))
+        k += unroll
+        iters[running] = k
+        running &= (err_np.max(axis=1) > tol) & (k + unroll < max_iters + 2)
+    return z, eta, iters, err_np, hist
 
 
 def _to_numpy(tree):
@@ -518,8 +602,73 @@ class Solver:
         convergence, 1 otherwise; rich results stay on :attr:`result`."""
         return self.solve(initial_state, max_iters=max_iters, tol=tol).status
 
-    def solve_batch(self, *args, **kwargs):
-        raise _not_ported("solve_batch", 10)
+    def solve_batch(self, initial_states, max_iters: int = 10,
+                    tol: float = 1e-5, alpha: Optional[float] = None,
+                    check_every: int = 1, unroll: int = 1,
+                    step_ratio: float = 1.0, adaptive: bool = False,
+                    relax: float = 1.0) -> list:
+        """Solve the same problem from a batch of initial states
+        ([B, n]) in one loop whose every operation runs on all B lanes at
+        once (:meth:`raocp_tpu.Solver.solve_batch`, which vmaps its loop):
+        on the card a K1 apply of the batch is one launch set.
+
+        Each lane keeps its own solve's semantics: it stops at its own
+        iteration count with its own history, its steps rebalance on their
+        own under ``adaptive`` (:func:`_run_cp_batch`), and a lane that
+        starts from the single solve's initial state repeats that solve's
+        iterations. Takes the plain-CP options of :meth:`solve` (no
+        ``accel``, ``log_every``, ``warm_start`` or ``chunk_iters``).
+        Returns one :class:`SolverResult` a lane, all with the batch's wall
+        time. :attr:`result` is cleared, so a later :meth:`validate` or plot
+        without a result raises; validate a lane with
+        ``solver.validate(results[b])``.
+        """
+        sp = self.__stacked
+        x0s_np = np.asarray(initial_states, dtype=np.float64)
+        if x0s_np.ndim != 2 or x0s_np.shape[1] != sp.n \
+                or x0s_np.shape[0] == 0:
+            raise ValueError(f"initial_states must be [batch, {sp.n}], got "
+                             f"{x0s_np.shape}")
+        batch = x0s_np.shape[0]
+        relax = _resolve_relax(relax)
+        if alpha is None:
+            alpha = 0.999 / self.operator_norm_sq()
+        if step_ratio <= 0.0:
+            raise ValueError(f"step_ratio must be positive, got {step_ratio}")
+        if not 0.0 < relax < 2.0:
+            raise ValueError(f"relax must lie in (0, 2), got {relax}")
+        x0s = torch.as_tensor(x0s_np, dtype=sp.dtype, device=sp.device)
+        z0 = Primal(*(leaf.expand((batch,) + tuple(leaf.shape)).clone()
+                      for leaf in sp.zero_primal()))
+        z0.x[:, 0] = x0s             # reference cache_initial_state
+        eta0 = Dual(*(leaf.expand((batch,) + tuple(leaf.shape)).clone()
+                      for leaf in sp.zero_dual()))
+        if sp.device.type == "cuda":
+            torch.cuda.synchronize(sp.device)
+        tic = time.perf_counter()
+        z, eta, iters, err, hist = _run_cp_batch(
+            sp, z0, eta0, x0s, alpha * step_ratio, alpha / step_ratio, tol,
+            max_iters, check_every, unroll, adaptive, relax)
+        if sp.device.type == "cuda":
+            torch.cuda.synchronize(sp.device)
+        toc = time.perf_counter()
+        z, eta = _to_numpy(z), _to_numpy(eta)
+        self.__result = None     # no single current result after a batch
+        results = []
+        for b in range(batch):
+            nb = int(iters[b])
+            results.append(SolverResult(
+                status=0 if float(err[b].max()) <= tol else 1,
+                num_iters=nb,
+                xi=err[b],
+                xi_history=hist[b, :nb, :3],
+                delta_history=hist[b, :nb, 3:],
+                alpha=float(alpha),
+                solve_time=toc - tic,
+                primal=Primal(*(v[b] for v in z)),
+                dual=Dual(*(v[b] for v in eta)),
+            ))
+        return results
 
     # -- reporting (parity: reference solver.py:173-253) ---------------------
 

@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA sweep kernel against its plain torch version.
+"""K1 on the card: the CUDA sweep kernel against its plain torch version,
+unbatched and batched (B lanes in one launch set).
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -104,7 +105,7 @@ def test_library_refuses_a_layout_that_does_not_fit(cuda, field, value):
             torch.zeros((sp.nl_pad, sp.m), device=cuda),
             torch.as_tensor(x0, dtype=torch.float32, device=cuda))
     sweep.project_dynamics_sweep(sp, *args)
-    call = sweep._problem(sp)["call"]
+    call = sweep._problem(sp)["calls"][1, None]
     # the last stage's first product runs on rows of two or more a thread
     last = [la for la in call["plan"]["launches"] if la["kind"] == "stage"][0]
     assert last["tm"] > 1
@@ -130,3 +131,90 @@ def test_kernel_rejects_cpu_problem_with_cuda_tensors(cuda):
     with pytest.raises(ValueError, match="the problem on"):
         sweep.project_dynamics_sweep(
             sp, x, u, torch.as_tensor(x0, dtype=torch.float32, device=cuda))
+
+
+def _lane_args(sp, x0, lanes, device, seed=1):
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(x0)
+    return tuple(torch.as_tensor(a, dtype=sp.dtype, device=device) for a in (
+        rng.standard_normal((lanes, sp.np_pad, sp.n)),
+        rng.standard_normal((lanes, sp.nl_pad, sp.m)),
+        np.stack([(0.5 + 0.1 * b) * x0 for b in range(lanes)])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,lanes", [
+    ("small", "float64", 3), ("small", "float32", 8),
+    ("headline", "float32", 8), ("headline", "float64", 3),
+    ("odd_width", "float32", 3)])
+@pytest.mark.parametrize("apex_lanes", ["rule", "all"])
+def test_batched_kernel_matches_plain_version(cuda, name, dtype, lanes,
+                                              apex_lanes):
+    """B lanes in one launch set (one count on LAUNCHES) against the
+    batched plain version and, lane by lane, against the unbatched kernel
+    (tiles of other rows: rounding apart, 1e-14 / 1e-6 relative); ghost
+    rows zero in every lane; a second apply bit-identical. Both apex
+    layouts: a block a lane (the rule) and all lanes in one block."""
+    kwargs, pad = FIXTURES[name]
+    spec, x0 = random_network_problem(**kwargs)
+    tdt = getattr(torch, dtype)
+    sp = build_stacked(spec, dtype=tdt, pad_multiple=pad, device=cuda)
+    args = _lane_args(sp, x0, lanes, cuda)
+    over = None if apex_lanes == "rule" else lanes
+    before = sweep.LAUNCHES
+    x, u = sweep.project_dynamics_sweep(sp, *args, apex_lanes=over)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    x_ref, u_ref = sweep.project_dynamics_sweep_ref(sp, *args)
+    scale = max(1.0, float(x_ref.abs().max()), float(u_ref.abs().max()))
+    tol = TOLS.get((name, dtype), TOLS[dtype]) * scale
+    torch.testing.assert_close(x, x_ref, rtol=0, atol=tol)
+    torch.testing.assert_close(u, u_ref, rtol=0, atol=tol)
+    assert torch.all(x[:, sp.num_nodes:] == 0)
+    assert torch.all(u[:, sp.num_nonleaf:] == 0)
+    x2, u2 = sweep.project_dynamics_sweep(sp, *args, apex_lanes=over)
+    assert torch.equal(x2, x) and torch.equal(u2, u)
+    lane_tol = {"float64": 1e-14, "float32": 1e-6}[dtype] * scale
+    for b in range(lanes):
+        xb, ub = sweep.project_dynamics_sweep(sp, args[0][b], args[1][b],
+                                              args[2][b])
+        torch.testing.assert_close(x[b], xb, rtol=0, atol=lane_tol)
+        torch.testing.assert_close(u[b], ub, rtol=0, atol=lane_tol)
+    plan = sweep.sweep_schedule(sp, lanes, over)
+    apex = [la for la in plan["launches"] if la["kind"] == "apex"][0]
+    assert apex["grid"] == (lanes if over is None else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_one_lane_is_the_unbatched_call(cuda, dtype):
+    """A batch of one lane runs the unbatched schedule on the same tiles:
+    the same bits."""
+    kwargs, pad = FIXTURES["headline"]
+    spec, x0 = random_network_problem(**kwargs)
+    sp = build_stacked(spec, dtype=getattr(torch, dtype), pad_multiple=pad,
+                       device=cuda)
+    args = _lane_args(sp, x0, 1, cuda)
+    x, u = sweep.project_dynamics_sweep(sp, *args)
+    x1, u1 = sweep.project_dynamics_sweep(sp, args[0][0], args[1][0],
+                                          args[2][0])
+    assert torch.equal(x[0], x1) and torch.equal(u[0], u1)
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_a_wrong_lane_stride_or_shape(cuda):
+    kwargs, pad = FIXTURES["small"]
+    spec, x0 = random_network_problem(**kwargs)
+    sp = build_stacked(spec, dtype=torch.float32, pad_multiple=pad,
+                       device=cuda)
+    x, u, x0s = _lane_args(sp, x0, 3, cuda)
+    wide = torch.zeros((3, sp.np_pad + 2, sp.n), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.project_dynamics_sweep(sp, wide[:, :sp.np_pad], u, x0s)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.project_dynamics_sweep(
+            sp, x, u, torch.zeros((3, 2 * sp.n), device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="u has shape"):
+        sweep.project_dynamics_sweep(sp, x, u[:2], x0s)
+    with pytest.raises(ValueError, match="x0 has shape"):
+        sweep.project_dynamics_sweep(sp, x, u, x0s[:, :-1])

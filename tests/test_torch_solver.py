@@ -2,7 +2,7 @@
 the 937-iteration demo gate with the JAX step size (Gate A: the same xi
 history to 1e-10) and with the port's own power iteration (Gate B), LQR
 convergence, checkpoints that both packages read, and the options that are
-not ported yet."""
+not ported yet (``tests/test_torch_batch.py`` holds batch solves)."""
 
 import numpy as np
 import pytest
@@ -106,12 +106,14 @@ def test_checkpoints_cross_packages(tmp_path):
 
 
 def test_not_ported_options_raise():
-    """Only batch solves (item 10) and the mesh (item 14) are still not
-    ported; the relax / step_ratio range errors stay."""
+    """Only the mesh (item 14) is still not ported; batch solves (item 10)
+    now run, each lane as its single solve; the relax / step_ratio range
+    errors stay."""
     problem, x0 = port_models.lqr_binary_problem()
     solver = rt.Solver(problem, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        solver.solve_batch(np.stack([x0, x0]))
+    single = solver.solve(x0, max_iters=50, tol=1e-3)
+    batch = solver.solve_batch(np.stack([x0, x0]), max_iters=50, tol=1e-3)
+    assert [r.num_iters for r in batch] == [single.num_iters] * 2
     with pytest.raises(NotImplementedError, match="item 14"):
         rt.Solver(problem, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
