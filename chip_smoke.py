@@ -1,6 +1,6 @@
 """Smoke run of raocp_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # the smoke run (about 3 minutes)
+    python3 chip_smoke.py               # the smoke run (about 6 minutes)
     python3 chip_smoke.py --baseline    # BASELINE configs 3-5 to 1e-3
     python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
 
@@ -9,9 +9,9 @@ Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 card (at the shapes of every path below, BASELINE config 5's width and
 batches of 8 and 3 lanes included; each case with its time, the plain
 version's, the least time the card could take for the same operations and
-bytes, and its launches counted in a profile), times the two layouts of a
-batch's apex, and then drives the port's paths, each with the launch counts
-set to 0 just before it and read just after:
+bytes, and its launches counted in a profile), and then drives the port's
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
 * ``parity_*``: the demo's 937 iterations in float64 on the card, and a
   uniform 121-node tree through K1 against the CPU;
@@ -41,13 +41,11 @@ raises; without a CUDA device it fails before printing anything. It imports
 no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
 config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
 (``--config5-steps``, default 1), and ``scripts/bench_batch.py``'s two
-measurements on the card: eight lanes of the headline and of config 3 to
-1e-3 in one batch against eight sequential solves. ``--profile`` runs 100 CP steps of
-config 5 with ``solve(profile_dir=...)`` and prints, from that trace, the
-card's busy share of the step and its kernels by time. ``--k1-times``
-times K1's unbatched cases through the public wrapper alone, so that the
-script, copied into another checkout's root and run there, times that
-checkout's kernel in the same call.
+measurements on the card: eight lanes of the headline (in float32 and in
+float64) and of config 3 to 1e-3 in one batch against eight sequential
+solves. ``--profile`` runs 100 CP steps of config 5 with
+``solve(profile_dir=...)`` and prints, from that trace, the card's busy
+share of the step and its kernels by time.
 """
 
 import argparse
@@ -98,6 +96,9 @@ PATH_LAUNCHES = {}
 # and bytes/s of device memory
 PEAK_FLOPS = {4: 67e12, 8: 67e12}
 PEAK_BYTES = 3.35e12
+# how far, as a share of its sequential count, a float32 lane's count may
+# be from its sequential solve's to 1e-3 (baseline_batch)
+F32_COUNT_SLACK = 0.1
 
 
 def emit(phase, **fields):
@@ -180,25 +181,33 @@ def _sweep_inputs(kwargs, dtype, pad, lanes=None):
     return sp, x_in, u_in, torch.as_tensor(x0, dtype=dtype, device=DEV)
 
 
-def _k1_profile(fn, applies=1):
+def _k1_profile(fn, applies=1, attempts=3):
     """K1 on the card per call of ``fn``, from a profile of ``applies``
-    calls: the kernels it launches, and their device time in ms."""
+    calls: the kernels it launches, and their device time in ms. ``fn``
+    launches K1 alone, so a trace without any device kernel lost its
+    device events (it happened once on the card, on a launch whose results
+    were right): that profile is taken again, up to ``attempts`` times in
+    all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(applies):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as folder:
-        path = os.path.join(folder, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    k1 = [ev for ev in events if ev.get("cat") == "kernel"
-          and ("stage_kernel" in ev["name"] or "apex_kernel" in ev["name"])]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(applies):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as folder:
+            path = os.path.join(folder, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+        if kernels:
+            break
+    k1 = [ev for ev in kernels
+          if "stage_kernel" in ev["name"] or "apex_kernel" in ev["name"]]
     return len(k1) / applies, 1e-3 * sum(ev["dur"] for ev in k1) / applies
 
 
@@ -231,7 +240,7 @@ def _plan_fields(sp, lanes=1):
     return dict(
         lanes=lanes, launches_per_apply=plan["launch_count"],
         apex_stages=plan["apex_stages"], apex_tile=plan["apex_tile"],
-        apex_grid=lanes // plan["apex_lanes"],
+        apex_grid=lanes,
         stage_launches=" ".join(
             f"{la['direction'][0]}{la['stages'][0]}:tm{la['tm']}"
             f"xt{la['tile']}xg{la['grid']}"
@@ -357,58 +366,6 @@ def phase_kernel():
                   f"K1 {name}: one lane is not the unbatched call")
         out[name] = row
     return out
-
-
-def phase_apex_ab(turns=3):
-    """The two layouts of a batch's apex at the headline, 8 lanes, float32,
-    in turns (a block a lane, all lanes in one block, and back, ``turns``
-    times): each apply's time (CUDA events, the host in it) and its
-    kernels' device time (a profile). The rule (``sweep.APEX_LANES``)
-    keeps the faster."""
-    sp, x_in, u_in, x0 = _sweep_inputs(HEADLINE, torch.float32, 8, 8)
-    layouts = {"block_per_lane": 1, "one_block": 8}
-    times = {k: [] for k in layouts}
-    device = {k: [] for k in layouts}
-    out = {}
-    for key in ("block_per_lane", "one_block", "one_block",
-                "block_per_lane") * turns:
-        def apply(apex=layouts[key]):
-            return sweep.project_dynamics_sweep(sp, x_in, u_in, x0,
-                                                apex_lanes=apex)
-
-        out.setdefault(key, apply())
-        times[key].append(_median_ms(apply))
-        device[key].append(_k1_profile(apply, 20)[1])
-    plans = {k: sweep.sweep_schedule(sp, 8, a) for k, a in layouts.items()}
-    emit("apex_ab_headline_b8_f32", ms=times, device_ms=device,
-         median_ms={k: float(np.median(v)) for k, v in times.items()},
-         median_device_ms={k: float(np.median(v)) for k, v in device.items()},
-         launches_per_apply={k: p["launch_count"] for k, p in plans.items()},
-         apex_stages={k: p["apex_stages"] for k, p in plans.items()},
-         rule_apex_lanes=sweep.APEX_LANES)
-    (xa, ua), (xb, ub) = out.values()
-    rel = max(float((xa - xb).abs().max()), float((ua - ub).abs().max())) \
-        / max(1.0, float(xa.abs().max()), float(ua.abs().max()))
-    check(rel <= 1e-6, f"the two apex layouts differ by {rel}")
-    return dict(ms=times, device_ms=device)
-
-
-def k1_times():
-    """The unbatched cases of the kernel phase, timed through the public
-    wrapper alone (``project_dynamics_sweep``), so that the same script
-    times another checkout's K1: run it from that checkout's root."""
-    cases = (("a_small_f64", SMALL, torch.float64, 4),
-             ("c_headline_f32", HEADLINE, torch.float32, 8),
-             ("f_config5_full_f32", CONFIG5, torch.float32, 1),
-             ("g_headline_f64", HEADLINE, torch.float64, 8))
-    for name, kwargs, dtype, pad in cases:
-        sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad)
-
-        def apply():
-            return sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
-
-        emit("k1_times", case=name, package=os.path.dirname(sweep.__file__),
-             ms=_median_ms(apply), device_ms=_k1_profile(apply, 20)[1])
 
 
 def phase_parity():
@@ -700,27 +657,32 @@ def phase_batch_headline():
           f"by {hist_rel} (relative)")
 
 
-def baseline_batch(names=("batch_config4_f32", "batch_config3_f32")):
+def baseline_batch(names=("batch_config4_f32", "batch_config4_f64",
+                          "batch_config3_f32")):
     """``scripts/bench_batch.py``'s two measurements on the card: eight
     lanes solved to 1e-3 in one batch against eight sequential solves, at
-    the headline (BASELINE config 4) and at config 3
-    (``soc_network_problem()``, ``offline="device"``), float32. Each lane
-    must end as its sequential solve does (converged, or at the cap);
-    the counts, and how far each lane's is from its sequential count
-    (``scripts/bench_batch.py`` allows one check period, 25), are
-    recorded: in float32 the lanes round otherwise than the single solves
-    (other tiles of K1, other GEMM shapes), and where a residual lingers
-    near the tolerance that moves the first check below it."""
+    the headline (BASELINE config 4, in float32 and in float64) and at
+    config 3 (``soc_network_problem()``, ``offline="device"``, float32).
+    Each lane must end as its sequential solve does (converged, or at the
+    cap). In float64 its count must be within one check period (25) of
+    its sequential count, ``scripts/bench_batch.py``'s check. In float32 a
+    lane rounds otherwise than its single solve (other tiles of K1, other
+    GEMM shapes), and where a residual lingers near the tolerance that
+    moves its first check below it: there a lane's count must be within
+    ``F32_COUNT_SLACK`` of its sequential count (PERF.md: a config-4 lane
+    625 iterations, 5.3%, from its count in two float32 runs, and every
+    lane within 25 in float64)."""
     configs = {
         "batch_config4_f32": (lambda: random_network_problem(**HEADLINE),
-                              20000, {}),
-        "batch_config3_f32": (soc_network_problem, 4000,
+                              torch.float32, 20000, {}),
+        "batch_config4_f64": (lambda: random_network_problem(**HEADLINE),
+                              torch.float64, 20000, {}),
+        "batch_config3_f32": (soc_network_problem, torch.float32, 4000,
                               dict(offline="device"))}
     for name in names:
-        make, max_iters, extra = configs[name]
+        make, dtype, max_iters, extra = configs[name]
         problem, x0 = make()
-        solver = rt.Solver(problem, dtype=torch.float32, device=DEV,
-                           **extra)
+        solver = rt.Solver(problem, dtype=dtype, device=DEV, **extra)
         solver.operator_norm_sq()
         x0s = bench_lanes(x0)
         kw = dict(max_iters=max_iters, tol=1e-3, check_every=25, unroll=25)
@@ -734,12 +696,16 @@ def baseline_batch(names=("batch_config4_f32", "batch_config3_f32")):
             bat = solver.solve_batch(x0s, **kw)
             bat_s = time.perf_counter() - tic
         diff = [b.num_iters - a.num_iters for a, b in zip(seq, bat)]
-        emit(name, nodes=solver.stacked.num_nodes, lanes=len(bat),
-             sequential_s=seq_s, batched_s=bat_s, ratio=seq_s / bat_s,
+        slack = [25 if dtype == torch.float64
+                 else max(25, F32_COUNT_SLACK * a.num_iters) for a in seq]
+        emit(name, nodes=solver.stacked.num_nodes, dtype=str(dtype),
+             lanes=len(bat), sequential_s=seq_s, batched_s=bat_s,
+             ratio=seq_s / bat_s,
              sequential_iters=[r.num_iters for r in seq],
              batched_iters=[r.num_iters for r in bat],
              sequential_status=[r.status for r in seq],
              batched_status=[r.status for r in bat], count_diff=diff,
+             count_slack=slack,
              lanes_beyond_one_period=sum(abs(d) > 25 for d in diff),
              sequential_lane_iters_per_second=sum(
                  r.num_iters for r in seq) / seq_s,
@@ -748,6 +714,9 @@ def baseline_batch(names=("batch_config4_f32", "batch_config3_f32")):
              k1_launches=calls["k1"], prox_f_calls=calls["prox_f"])
         check([r.status for r in seq] == [r.status for r in bat],
               f"{name}: a lane ends otherwise than its sequential solve")
+        check(all(abs(d) <= s for d, s in zip(diff, slack)),
+              f"{name}: a lane's count is further from its sequential "
+              f"count than {slack}: {diff}")
         check(not sweep.sweep_eligible(solver.stacked)
               or calls["k1"] == calls["prox_f"] > 0,
               f"{name}: K1 launches {calls['k1']} != prox_f calls "
@@ -842,15 +811,11 @@ def main():
     ap.add_argument("--config5-steps", type=int, default=1)
     ap.add_argument("--profile", action="store_true",
                     help="profile 100 CP steps of config 5 instead")
-    ap.add_argument("--k1-times", action="store_true",
-                    help="time K1's unbatched cases alone instead")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
-    if args.baseline or args.profile or args.k1_times:
-        if args.k1_times:
-            k1_times()
-        elif args.profile:
+    if args.baseline or args.profile:
+        if args.profile:
             profile_config5()
         else:
             baseline(args.config5_steps)
@@ -858,7 +823,6 @@ def main():
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
-    apex_ms = phase_apex_ab()
     phase_matmul_context()
     demo = phase_parity()
     phase_chunked(demo)
@@ -886,7 +850,6 @@ def main():
         "max_rel_err_case": worst["case"],
         **{k: c[k] for k in shape_keys},
         "library_note": "no single PyTorch call computes the sweep",
-        "batch_apex_headline_b8": apex_ms,
         "per_shape": {name: {k: r[k] for k in shape_keys}
                       for name, r in kernel.items()}}]}), flush=True)
     print(smi, flush=True)

@@ -73,11 +73,11 @@
 //   sx, su, s0 elements apart) and the lanes share the stage weights, so a
 //   stage launch runs the B * W rows of all lanes as one stage: its global
 //   row r is row r % W of lane r / W, a map applied where a row is loaded
-//   or stored (one 32-bit division a row, outside the FMA loop, and none
-//   for a single lane), and a tile may hold rows of several lanes. The
-//   apex runs a group of lanes a block.
-//   The children of a row stay contiguous inside its lane, so every load
-//   and store keeps its width; one lane is the unbatched apply.
+//   or stored (one 32-bit division a row, outside the FMA loop), and a tile
+//   may hold rows of several lanes. The apex runs a block a lane. The
+//   children of a row stay contiguous inside its lane, so every load and
+//   store keeps its width. One lane is the unbatched apply, through kernels
+//   built without the map (a template case), so it pays nothing for it.
 // Plain FMA in the element type: no tensor cores, no TF32 (the solver
 // needs full float32 to reach its tolerances).
 
@@ -195,26 +195,30 @@ __device__ __forceinline__ void cp_commit_and_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Where the rows of a stage lie in one array: the stage has W rows in each
-// lane, and its global row r, row i = r % W of lane l = r / W, starts at
-// element l * lane + base + i * step. `lane` is 0 for a single lane, whose
-// rows then need no division.
+// Where the rows of a stage lie in one array: its row r starts at element
+// base + r * step. Batched, the stage has W rows in each lane and its
+// global row r, row i = r % W of lane l = r / W, starts at element
+// l * lane + base + i * step.
+template <bool Batched>
 struct RowMap {
   long long base;
   long long step;
   long long lane;
   unsigned W;
   __device__ __forceinline__ long long at(unsigned r) const {
-    if (lane == 0) return base + (long long)r * step;
-    const unsigned l = r / W;
-    return (long long)l * lane + base + (long long)(r - l * W) * step;
+    if constexpr (Batched) {
+      const unsigned l = r / W;
+      return (long long)l * lane + base + (long long)(r - l * W) * step;
+    } else {
+      return base + (long long)r * step;
+    }
   }
 };
 
 // the widest copy (16, 8 or sizeof(T) bytes) that every row of `cols`
 // elements of the map, from the array at `p`, is aligned for
-template <typename T>
-__device__ __forceinline__ int copy_bytes(const T* p, const RowMap& map,
+template <typename T, typename Map>
+__device__ __forceinline__ int copy_bytes(const T* p, const Map& map,
                                           int cols) {
   const unsigned long long bits =
       (unsigned long long)p
@@ -230,10 +234,10 @@ __device__ __forceinline__ int copy_bytes(const T* p, const RowMap& map,
 // dst[r][0..width) <- row r0 + r of the map in src, columns 0..K, for r <
 // rows_valid; zeros in the columns K .. width and in the rows up to
 // `tile`; dst rows are ld elements apart. Every thread of the block copies
-// its share (one division a row, none a copy).
-template <typename T, int BYTES>
+// its share (batched, one division a row; none a copy).
+template <typename T, int BYTES, typename Map>
 __device__ __forceinline__ void load_rows_w(T* dst, int ld, int width,
-                                            const T* src, const RowMap& map,
+                                            const T* src, const Map& map,
                                             unsigned r0, int rows_valid,
                                             int tile, int K) {
   if constexpr (BYTES >= (int)sizeof(T)) {
@@ -254,9 +258,9 @@ __device__ __forceinline__ void load_rows_w(T* dst, int ld, int width,
   }
 }
 
-template <typename T>
+template <typename T, typename Map>
 __device__ __forceinline__ void load_rows(T* dst, int ld, int width,
-                                          const T* src, const RowMap& map,
+                                          const T* src, const Map& map,
                                           unsigned r0, int rows_valid,
                                           int tile, int K) {
   switch (copy_bytes(src, map, K)) {
@@ -567,7 +571,7 @@ __device__ __forceinline__ void multiply(T (&acc)[TM][4], const T* A, int lda,
 }
 
 // The arrays of one apply, and their lanes: x_in, x_out and q_buf are
-// sx elements apart, u_in, u_out and d_buf su, x0 s0 (all 0 for one lane).
+// sx elements apart, u_in, u_out and d_buf su, x0 s0.
 template <typename T>
 struct Io {
   const T* x_in;
@@ -582,26 +586,26 @@ struct Io {
 
 // the maps of a stage's rows: in x (the parents' rows), in u, and of the
 // children's rows as one row of c n
-template <typename T>
-__device__ __forceinline__ RowMap x_rows(const Stage<T>& st, const Io<T>& io,
-                                         int n) {
-  return RowMap{st.a * n, n, io.sx, st.W};
+template <bool B, typename T>
+__device__ __forceinline__ RowMap<B> x_rows(const Stage<T>& st,
+                                            const Io<T>& io, int n) {
+  return RowMap<B>{st.a * n, n, io.sx, st.W};
 }
-template <typename T>
-__device__ __forceinline__ RowMap u_rows(const Stage<T>& st, const Io<T>& io,
-                                         int m) {
-  return RowMap{st.a * m, m, io.su, st.W};
+template <bool B, typename T>
+__device__ __forceinline__ RowMap<B> u_rows(const Stage<T>& st,
+                                            const Io<T>& io, int m) {
+  return RowMap<B>{st.a * m, m, io.su, st.W};
 }
-template <typename T>
-__device__ __forceinline__ RowMap child_rows(const Stage<T>& st,
-                                             const Io<T>& io, int n) {
-  return RowMap{st.a2 * n, (long long)st.c * n, io.sx, st.W};
+template <bool B, typename T>
+__device__ __forceinline__ RowMap<B> child_rows(const Stage<T>& st,
+                                                const Io<T>& io, int n) {
+  return RowMap<B>{st.a2 * n, (long long)st.c * n, io.sx, st.W};
 }
 
 // One backward step on the global rows w0 .. w0 + rows of the stage: reads
 // the children's q from q_child (times sign), x_in and u_in; writes q_buf
-// and d_buf.
-template <typename T, int TM>
+// and d_buf. B: the rows of several lanes (RowMap).
+template <typename T, int TM, bool B>
 __device__ __forceinline__ void backward_tile(
     T* smem_rows, const Stage<T>& st, int n, int m, int tile, Ring<T>& ring,
     const Io<T>& io, const T* q_child, T sign, unsigned w0, int rows) {
@@ -613,9 +617,9 @@ __device__ __forceinline__ void backward_tile(
   T* const Vv = SA + (size_t)tile * ldn;       // u, then v = u - sumB'q
   T* const GD = Vv + (size_t)tile * ldm;       // [g | d], g = d - v
 
-  load_rows(Q, ldq, ldq, q_child, child_rows(st, io, n), w0, rows, tile, Nc);
-  load_rows(SA, ldn, ldn, io.x_in, x_rows(st, io, n), w0, rows, tile, n);
-  load_rows(Vv, ldm, ldm, io.u_in, u_rows(st, io, m), w0, rows, tile, m);
+  load_rows(Q, ldq, ldq, q_child, child_rows<B>(st, io, n), w0, rows, tile, Nc);
+  load_rows(SA, ldn, ldn, io.x_in, x_rows<B>(st, io, n), w0, rows, tile, n);
+  load_rows(Vv, ldm, ldm, io.u_in, u_rows<B>(st, io, m), w0, rows, tile, m);
   cp_commit_and_wait();
   sync_multipliers();
 
@@ -664,7 +668,7 @@ __device__ __forceinline__ void backward_tile(
             }
           }
           if (row < rows)
-            store4(io.d_buf + u_rows(st, io, m).at(w0 + row) + col0, acc[r],
+            store4(io.d_buf + u_rows<B>(st, io, m).at(w0 + row) + col0, acc[r],
                    m - col0);
         }
       }
@@ -685,7 +689,7 @@ __device__ __forceinline__ void backward_tile(
           for (int j = 0; j < 4; ++j)
             if (col0 + j < n) acc[r][j] += SA[(size_t)row * ldn + col0 + j];
           if (row < rows)
-            store4(io.q_buf + x_rows(st, io, n).at(w0 + row) + col0, acc[r],
+            store4(io.q_buf + x_rows<B>(st, io, n).at(w0 + row) + col0, acc[r],
                    n - col0);
         }
       }
@@ -697,8 +701,8 @@ __device__ __forceinline__ void backward_tile(
 
 // One forward step on the global rows w0 .. w0 + rows of the stage: reads
 // the parents' x from x_out and d_buf; writes the parents' u and the
-// children's x.
-template <typename T, int TM>
+// children's x. B: the rows of several lanes (RowMap).
+template <typename T, int TM, bool B>
 __device__ __forceinline__ void forward_tile(
     T* smem_rows, const Stage<T>& st, int n, int m, int tile, Ring<T>& ring,
     const Io<T>& io, unsigned w0, int rows) {
@@ -706,8 +710,8 @@ __device__ __forceinline__ void forward_tile(
   const int ldx = lead_dim(n4 + m4);
   T* const XU = smem_rows;                     // [x | d, then u]
 
-  load_rows(XU, ldx, n4, io.x_out, x_rows(st, io, n), w0, rows, tile, n);
-  load_rows(XU + n4, ldx, ldx - n4, io.d_buf, u_rows(st, io, m), w0, rows,
+  load_rows(XU, ldx, n4, io.x_out, x_rows<B>(st, io, n), w0, rows, tile, n);
+  load_rows(XU + n4, ldx, ldx - n4, io.d_buf, u_rows<B>(st, io, m), w0, rows,
             tile, m);
   cp_commit_and_wait();
   sync_multipliers();
@@ -732,7 +736,7 @@ __device__ __forceinline__ void forward_tile(
             }
           }
           if (row < rows)
-            store4(io.u_out + u_rows(st, io, m).at(w0 + row) + col0, acc[r],
+            store4(io.u_out + u_rows<B>(st, io, m).at(w0 + row) + col0, acc[r],
                    m - col0);
         }
       }
@@ -750,7 +754,7 @@ __device__ __forceinline__ void forward_tile(
         for (int r = 0; r < TM; ++r) {
           const int row = s.rg + r * s.nrg;
           if (row < rows)
-            store4(io.x_out + child_rows(st, io, n).at(w0 + row) + col0,
+            store4(io.x_out + child_rows<B>(st, io, n).at(w0 + row) + col0,
                    acc[r], Nc - col0);
         }
       }
@@ -795,7 +799,7 @@ __device__ __forceinline__ long long tiles_of(long long R, int tile,
 
 // The multiplying threads run one step of one stage over the tiles t0,
 // t0 + stride, ... of its global rows r_begin .. r_begin + R.
-template <typename T, int TM>
+template <typename T, int TM, bool B>
 __device__ __forceinline__ void run_step(
     Ring<T>& ring, const Stage<T>& st, int n, int m, int tile, bool forward,
     const Io<T>& io, const T* q_child, T sign, unsigned r_begin, unsigned R,
@@ -807,11 +811,11 @@ __device__ __forceinline__ void run_step(
     const unsigned w = (unsigned)(t * tile);
     const int rows = (int)(R - w < (unsigned)tile ? R - w : tile);
     if (forward)
-      forward_tile<T, TM>(rows_smem, st, n, m, tile, ring, io, r_begin + w,
-                          rows);
+      forward_tile<T, TM, B>(rows_smem, st, n, m, tile, ring, io,
+                             r_begin + w, rows);
     else
-      backward_tile<T, TM>(rows_smem, st, n, m, tile, ring, io, q_child,
-                           sign, r_begin + w, rows);
+      backward_tile<T, TM, B>(rows_smem, st, n, m, tile, ring, io, q_child,
+                              sign, r_begin + w, rows);
   }
 }
 
@@ -823,9 +827,9 @@ __host__ __device__ constexpr int min_blocks(int tm, int elem_size) {
 // ---------------------------------------------------------------- kernels
 
 // One step of one stage, backward or forward, over the rows of all
-// `lanes` lanes; the blocks walk over its tiles. The last forward launch
-// also zeroes the ghost rows.
-template <typename T, int TM>
+// `lanes` lanes (B: more than one); the blocks walk over its tiles. The
+// last forward launch also zeroes the ghost rows.
+template <typename T, int TM, bool B>
 __global__ void __launch_bounds__(kBlock, min_blocks(TM, sizeof(T)))
 stage_kernel(const __grid_constant__ Stage<T> st, int n, int m, int tile,
              int forward, int lanes, Io<T> io, const T* q_child, T sign,
@@ -841,8 +845,8 @@ stage_kernel(const __grid_constant__ Stage<T> st, int n, int m, int tile,
               tiles_of(R, tile, blockIdx.x, gridDim.x));
     return;
   }
-  run_step<T, TM>(ring, st, n, m, tile, forward != 0, io, q_child, sign, 0u,
-                  R, blockIdx.x, gridDim.x);
+  run_step<T, TM, B>(ring, st, n, m, tile, forward != 0, io, q_child, sign,
+                     0u, R, blockIdx.x, gridDim.x);
 }
 
 // The stages of the apex launch.
@@ -851,15 +855,14 @@ struct Apex {
   Stage<T> st[kMaxApex];
   int count;
   int leaf_stage;     // the stage whose children are the leaves
-  int lanes;          // lanes a block: block b runs lanes from b * lanes
 };
 
-// The top of the tree, a group of lanes in each block: backward steps of
-// stages count-1 .. 0, then forward steps of stages 0 .. count-1. What one
-// step writes to device memory the next reads after the multiplying
-// threads' barrier; the producer runs ahead with the weights of the steps
-// to come.
-template <typename T, int TM>
+// The top of the tree, block b for lane b (B: more than one lane):
+// backward steps of stages count-1 .. 0, then forward steps of stages
+// 0 .. count-1. What one step writes to device memory the next reads after
+// the multiplying threads' barrier; the producer runs ahead with the
+// weights of the steps to come.
+template <typename T, int TM, bool B>
 __global__ void __launch_bounds__(kBlock) apex_kernel(
     const __grid_constant__ Apex<T> ax, int n, int m, int tile, Io<T> io,
     Ghosts<T> ghosts, int ldb, unsigned smem_bytes) {
@@ -869,28 +872,25 @@ __global__ void __launch_bounds__(kBlock) apex_kernel(
   ring_init(ring, smem_raw, smem_bytes, ldb);
   const bool producer = threadIdx.x >= kThreads;
   if (producer && threadIdx.x != kThreads) return;
-  const unsigned lane0 = blockIdx.x * (unsigned)ax.lanes;
+  const unsigned lane = B ? blockIdx.x : 0u;
   if (!producer)
-    for (int i = threadIdx.x; i < ax.lanes * n; i += kThreads) {
-      const int l = i / n, j = i - l * n;
-      io.x_out[(lane0 + l) * io.sx + j] = io.x0[(lane0 + l) * io.s0 + j];
-    }
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      io.x_out[lane * io.sx + i] = io.x0[lane * io.s0 + i];
   // steps 0 .. count-1 go up, steps count .. 2 count - 1 come down again
 #pragma unroll 1
   for (int i = 0; i < 2 * ax.count; ++i) {
     const bool forward = i >= ax.count;
     const int k = forward ? i - ax.count : ax.count - 1 - i;
     const Stage<T>& st = ax.st[k];
-    const unsigned R = (unsigned)ax.lanes * st.W;   // the block's rows
     if (producer) {
       produce(ring, forward ? st.fwd : st.bwd, forward ? 2 : 3,
-              tiles_of(R, tile, 0, 1));
+              tiles_of(st.W, tile, 0, 1));
     } else {
       const bool leaves = (k == ax.leaf_stage);
       sync_multipliers();             // what the step before wrote is there
-      run_step<T, TM>(ring, st, n, m, tile, forward, io,
-                      leaves ? io.x_in : io.q_buf, leaves ? T(-1) : T(1),
-                      lane0 * st.W, R, 0, 1);
+      run_step<T, TM, B>(ring, st, n, m, tile, forward, io,
+                         leaves ? io.x_in : io.q_buf, leaves ? T(-1) : T(1),
+                         lane * st.W, st.W, 0, 1);
     }
   }
 }
@@ -928,22 +928,49 @@ inline bool tile_ok(int tile, int tm) {
   return tile >= tm && tile % tm == 0 && tile / tm <= kThreads;
 }
 
+template <typename T, int TM, bool B>
+cudaError_t start_stage(const Stage<T>& st, int n, int m, int tile, int grid,
+                        bool forward, int lanes, cudaStream_t stream,
+                        const Io<T>& io, const T* q_child, T sign,
+                        const Ghosts<T>& ghosts, int ldb, size_t bytes) {
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(stage_kernel<T, TM, B>, allowed);
+  if (err != cudaSuccess) return err;
+  stage_kernel<T, TM, B><<<grid, kBlock, bytes, stream>>>(
+      st, n, m, tile, forward ? 1 : 0, lanes, io, q_child, sign, ghosts, ldb,
+      (unsigned)bytes);
+  return cudaGetLastError();
+}
+
+template <typename T, bool B>
+cudaError_t start_apex(const Apex<T>& ax, int n, int m, int tile, int lanes,
+                       cudaStream_t stream, const Io<T>& io,
+                       const Ghosts<T>& ghosts, int ldb, size_t bytes) {
+  static std::atomic<uint64_t> allowed{0};
+  cudaError_t err = allow_smem(apex_kernel<T, kApexTm, B>, allowed);
+  if (err != cudaSuccess) return err;
+  apex_kernel<T, kApexTm, B><<<lanes, kBlock, bytes, stream>>>(
+      ax, n, m, tile, io, ghosts, ldb, (unsigned)bytes);
+  return cudaGetLastError();
+}
+
+// one launch of a stage step: the kernel of one lane, or of a batch
 template <typename T, int TM>
 cudaError_t launch_stage(const Stage<T>& st, int n, int m, int tile, int grid,
                          bool forward, int lanes, cudaStream_t stream,
                          const Io<T>& io, const T* q_child, T sign,
                          const Ghosts<T>& ghosts) {
-  static std::atomic<uint64_t> allowed{0};
   const int ldb = slab_cols(forward ? st.fwd : st.bwd, forward ? 2 : 3);
   const size_t bytes = kHeaderBytes
       + smem_elems(forward, tile, TM, ldb, n, m, st.c, sizeof(T)) * sizeof(T);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(stage_kernel<T, TM>, allowed);
-  if (err != cudaSuccess) return err;
-  stage_kernel<T, TM><<<grid, kBlock, bytes, stream>>>(
-      st, n, m, tile, forward ? 1 : 0, lanes, io, q_child, sign, ghosts, ldb,
-      (unsigned)bytes);
-  return cudaGetLastError();
+  return lanes == 1
+      ? start_stage<T, TM, false>(st, n, m, tile, grid, forward, lanes,
+                                  stream, io, q_child, sign, ghosts, ldb,
+                                  bytes)
+      : start_stage<T, TM, true>(st, n, m, tile, grid, forward, lanes,
+                                 stream, io, q_child, sign, ghosts, ldb,
+                                 bytes);
 }
 
 // The schedule of one apply, planned by the caller: stages 0 .. apex_stages-1
@@ -955,13 +982,12 @@ cudaError_t launch_stage(const Stage<T>& st, int n, int m, int tile, int grid,
 // for the thread tile and row tile of the launch that runs it, and
 // products[4 (5 k + j) ..] says how: its Kp, passes, cpp and ks (Product).
 // `lanes` lanes (x, x_out, q_buf sx elements apart, u, u_out, d_buf su,
-// x0 s0) run in every launch, the apex `apex_lanes` of them a block.
+// x0 s0) run in every launch, the apex a block a lane.
 // Error codes besides CUDA's: -2 = the schedule is not one this library
 // can launch (a thread tile it has no kernel for, a tile that is no
 // multiple of it, too many apex stages, no apex stage, lanes that overlap,
-// more rows than a 32-bit index, apex lanes that do not divide the lanes,
-// or a product whose layout does not fit the tile's row arrays or the
-// block's threads).
+// more rows than a 32-bit index, or a product whose layout does not fit
+// the tile's row arrays or the block's threads).
 template <typename T>
 int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
               T* q_buf, T* d_buf, const void* const* weights,
@@ -969,15 +995,15 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
               const long long* stage_child, int num_stages, int n, int m,
               long long np_pad, long long nl_pad, int lanes, long long sx,
               long long su, long long s0, int apex_stages, int apex_tile,
-              int apex_lanes, const int* tm, const int* tile,
-              const int* grid, cudaStream_t stream) {
+              const int* tm, const int* tile, const int* grid,
+              cudaStream_t stream) {
   const int ns_nl = num_stages - 1;
   const long long N = stage_start[num_stages];
   const long long NL = stage_start[num_stages - 1];
   if (apex_stages < 1 || apex_stages > kMaxApex || apex_stages > ns_nl ||
       !tile_ok(apex_tile, kApexTm))
     return -2;
-  if (lanes < 1 || apex_lanes < 1 || lanes % apex_lanes != 0 ||
+  if (lanes < 1 ||
       (lanes > 1 && (sx < np_pad * n || su < nl_pad * m || s0 < n)))
     return -2;
   for (int k = 0; k < ns_nl; ++k)
@@ -1064,11 +1090,9 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
 
   // the apex: up to the root and down again
   {
-    static std::atomic<uint64_t> allowed{0};
     Apex<T> ax;
     ax.count = apex_stages;
     ax.leaf_stage = ns_nl - 1;
-    ax.lanes = apex_lanes;
     size_t elems = 0;
     int ldb = 0;
     for (int k = 0; k < apex_stages; ++k) {
@@ -1087,12 +1111,13 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
     const size_t bytes = kHeaderBytes + elems * sizeof(T);
     if (!fits) return -2;
     if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-    err = allow_smem(apex_kernel<T, kApexTm>, allowed);
+    const Ghosts<T>& gh = apex_stages == ns_nl ? ghosts : none;
+    err = lanes == 1
+        ? start_apex<T, false>(ax, n, m, apex_tile, lanes, stream, io, gh,
+                               ldb, bytes)
+        : start_apex<T, true>(ax, n, m, apex_tile, lanes, stream, io, gh,
+                              ldb, bytes);
     if (err != cudaSuccess) return (int)err;
-    apex_kernel<T, kApexTm><<<lanes / apex_lanes, kBlock, bytes, stream>>>(
-        ax, n, m, apex_tile, io, apex_stages == ns_nl ? ghosts : none, ldb,
-        (unsigned)bytes);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
   // forward rollout below the apex
@@ -1111,16 +1136,14 @@ int run_sweep(const T* x_in, const T* u_in, const T* x0, T* x_out, T* u_out,
       const long long* stage_child, int num_stages, int n, int m,            \
       long long np_pad, long long nl_pad, int lanes, long long sx,           \
       long long su, long long s0, int apex_stages, int apex_tile,            \
-      int apex_lanes, const int* tm, const int* tile, const int* grid,       \
-      void* stream) {                                                        \
+      const int* tm, const int* tile, const int* grid, void* stream) {       \
     return run_sweep<T>(                                                     \
         static_cast<const T*>(x_in), static_cast<const T*>(u_in),            \
         static_cast<const T*>(x0), static_cast<T*>(x_out),                   \
         static_cast<T*>(u_out), static_cast<T*>(q_buf),                      \
         static_cast<T*>(d_buf), weights, products, stage_start, stage_child, \
         num_stages, n, m, np_pad, nl_pad, lanes, sx, su, s0, apex_stages,    \
-        apex_tile, apex_lanes, tm, tile, grid,                               \
-        static_cast<cudaStream_t>(stream));                                  \
+        apex_tile, tm, tile, grid, static_cast<cudaStream_t>(stream));       \
   }
 
 RAOCP_SWEEP_ENTRY(raocp_sweep_f32, float)

@@ -109,7 +109,7 @@ def _library():
         lib = ctypes.CDLL(str(build_library()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.raocp_sweep_f32, lib.raocp_sweep_f64):
-            fn.argtypes = [p] * 11 + [i, i, i, ll, ll, i, ll, ll, ll, i, i, i,
+            fn.argtypes = [p] * 11 + [i, i, i, ll, ll, i, ll, ll, ll, i, i,
                                       p, p, p, p]
             fn.restype = i
         lib.raocp_sweep_smem.argtypes = [i] * 8
@@ -184,13 +184,11 @@ def _check(sp, x_in, u_in, x0):
     return record, lanes, x0.reshape(lanes, sp.n)
 
 
-def project_dynamics_sweep(sp, x_in, u_in, x0, apex_lanes=None):
+def project_dynamics_sweep(sp, x_in, u_in, x0):
     """Fused-sweep dynamics projection; same contract as
     :func:`raocp_tpu_torch.ops.prox.project_dynamics` for eligible
     problems. Returns (x [np_pad, n], u [nl_pad, m]), or with a lane axis
-    (x [B, np_pad, n], u [B, nl_pad, m]): all B lanes in one launch set.
-    ``apex_lanes`` (lanes a block of the apex launch runs) overrides the
-    schedule's rule (:func:`plan_sweep`), for measuring it."""
+    (x [B, np_pad, n], u [B, nl_pad, m]): all B lanes in one launch set."""
     record, lanes, x0 = _check(sp, x_in, u_in, x0)
     device = x_in.device
     if device.type == "cpu":
@@ -199,10 +197,9 @@ def project_dynamics_sweep(sp, x_in, u_in, x0, apex_lanes=None):
         raise ValueError(f"the sweep kernel runs on CUDA tensors, not on "
                          f"{device}")
     global LAUNCHES
-    key = (lanes, apex_lanes)
-    call = record["calls"].get(key)
+    call = record["calls"].get(lanes)
     if call is None:
-        call = record["calls"][key] = _kernel_call(sp, lanes, apex_lanes)
+        call = record["calls"][lanes] = _kernel_call(sp, lanes)
     x_out = torch.empty_like(x_in)
     u_out = torch.empty_like(u_in)
     # q and d of the backward sweep, one allocation: d starts 256-byte
@@ -242,12 +239,12 @@ def _packed(blocks, width, product):
     return mat.reshape(kp, passes, cw).permute(1, 0, 2).contiguous()
 
 
-def _kernel_call(sp, lanes=1, apex_lanes=None):
+def _kernel_call(sp, lanes=1):
     """What a call on ``sp`` with ``lanes`` lanes hands the library: the
     entry point, the schedule's arrays, each product's layout and its
     packed weights (kept alive here)."""
     lib = _library()
-    plan = sweep_schedule(sp, lanes, apex_lanes)
+    plan = sweep_schedule(sp, lanes)
     n, m = sp.n, sp.m
     ns_nl = sp.num_stages - 1
     esize = _esize(sp.dtype)
@@ -285,7 +282,7 @@ def _kernel_call(sp, lanes=1, apex_lanes=None):
         scratch_bytes=d_offset + lanes * su * esize,
         static_args=(*addr[:4], sp.num_stages, n, m, sp.np_pad, sp.nl_pad,
                      lanes, sx, su, n, plan["apex_stages"],
-                     plan["apex_tile"], plan["apex_lanes"], *addr[4:]))
+                     plan["apex_tile"], *addr[4:]))
 
 
 # ---------------------------------------------------------------- schedule
@@ -314,10 +311,8 @@ MAX_TILE = 128           # most rows of a tile
 # that a launch costs more than its share of a single block's time.
 APEX_ROWS = 4
 APEX_FLOP = 50_000
-# In a batch the apex runs APEX_LANES lanes a block, each block its lanes'
-# top stages under the rule above (PERF.md: measured against all lanes in
-# one block).
-APEX_LANES = 1
+# In a batch the apex runs a block a lane, each block its lane's top stages
+# under the rule above (PERF.md: measured against all lanes in one block).
 # Below the apex a stage's rows are dealt evenly to one block an SM. The
 # thread tile is tm rows by 4 columns: (least rows a block, tm), the widest
 # that fits first; float64 has no kernel of 8 rows (registers).
@@ -406,33 +401,29 @@ def _largest_tile(tm, n, m, children, esize, directions, most=MAX_TILE):
 
 
 @functools.lru_cache(maxsize=64)
-def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1,
-               apex_lanes=None):
+def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1):
     """The launches of one apply of ``lanes`` lanes on a tree whose nonleaf
     stage k has ``stage_rows[k]`` rows of ``stage_child[k]`` children each,
     on a card of ``sms`` SMs.
 
-    The apex runs ``apex_lanes`` lanes a block (by default one: a block a
-    lane, as many blocks as lanes; ``lanes`` puts them all in one block)
-    and takes the stages from the root down while a block's rows of them
-    are few (``APEX_ROWS``, ``APEX_FLOP``). Every stage below it runs one
-    launch in each direction over the ``lanes * stage_rows[k]`` rows of
-    all lanes: they are dealt evenly to ``sms`` blocks, in as many rounds
-    as the largest tile that fits in shared memory makes necessary (the
-    blocks then walk over the tiles), and the thread tile follows the rows
-    of a block (``THREAD_TILES``). One lane is the unbatched apply.
+    The apex runs a block a lane and takes the stages from the root down
+    while a lane's rows of them are few (``APEX_ROWS``, ``APEX_FLOP``).
+    Every stage below it runs one launch in each direction over the
+    ``lanes * stage_rows[k]`` rows of all lanes: they are dealt evenly to
+    ``sms`` blocks, in as many rounds as the largest tile that fits in
+    shared memory makes necessary (the blocks then walk over the tiles),
+    and the thread tile follows the rows of a block (``THREAD_TILES``).
+    One lane is the unbatched apply.
 
     Returns a dict: ``apex_stages`` (stages 0 .. apex_stages-1 run in the
-    apex launch), ``apex_tile``, ``apex_lanes``, ``lanes``, ``launches``
+    apex launch), ``apex_tile``, ``lanes``, ``launches``
     (the launches in order, each a dict with ``kind`` "apex" or "stage",
     ``direction``, ``stages``, ``tm``, ``tile``, ``grid``, ``smem`` and
     ``zero_ghosts``), ``launch_count``, and ``c_arrays`` (the per-stage
     thread tile, row tile and grid as the library takes them)."""
     ns_nl = len(stage_rows)
-    apex_lanes = APEX_LANES if apex_lanes is None else apex_lanes
-    if lanes < 1 or not 1 <= apex_lanes <= lanes or lanes % apex_lanes:
-        raise ValueError(f"{apex_lanes} lanes a block of the apex do not "
-                         f"divide {lanes} lanes")
+    if lanes < 1:
+        raise ValueError(f"a sweep needs at least one lane, not {lanes}")
     if lanes * max(stage_rows) >= 2 ** 31:
         raise ValueError(f"{lanes} lanes of {max(stage_rows)} rows pass "
                          "the kernel's 32-bit row index")
@@ -443,15 +434,14 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1,
             f"{esize}-byte elements) does not fit in the {MAX_SMEM} bytes "
             "of shared memory a block may use")
 
-    apex_rows = [apex_lanes * r for r in stage_rows]    # of one apex block
     apex = 1
     while apex < min(ns_nl, MAX_APEX) and (
-            apex_rows[apex] <= APEX_ROWS or apex_rows[apex]
+            stage_rows[apex] <= APEX_ROWS or stage_rows[apex]
             * _flop_per_row(n, m, stage_child[apex]) <= APEX_FLOP):
         apex += 1
     apex_child = set(stage_child[:apex])
     apex_tile = _largest_tile(APEX_TM, n, m, apex_child, esize, (False, True),
-                              min(MAX_TILE, max(apex_rows[:apex])))
+                              min(MAX_TILE, max(stage_rows[:apex])))
     if not apex_tile:
         raise too_wide(max(apex_child))
     apex_smem = max(smem_bytes(fwd, apex_tile, APEX_TM, n, m, c, esize)
@@ -483,7 +473,7 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1,
                          stages=tuple(range(apex)),
                          rows=lanes * sum(stage_rows[:apex]), tm=APEX_TM,
                          tile=apex_tile, tiles=None,
-                         grid=lanes // apex_lanes, smem=apex_smem,
+                         grid=lanes, smem=apex_smem,
                          zero_ghosts=apex == ns_nl))
     launches += [stage_launch(k, True) for k in range(apex, ns_nl)]
 
@@ -495,8 +485,8 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1,
             for arr, key in zip(arrays, ("tm", "tile", "grid")):
                 arr[e] = launch[key]
     c_arrays = tuple((ctypes.c_int * (2 * ns_nl))(*arr) for arr in arrays)
-    return dict(apex_stages=apex, apex_tile=apex_tile, apex_lanes=apex_lanes,
-                lanes=lanes, launches=launches, launch_count=len(launches),
+    return dict(apex_stages=apex, apex_tile=apex_tile, lanes=lanes,
+                launches=launches, launch_count=len(launches),
                 c_arrays=c_arrays)
 
 
@@ -504,7 +494,7 @@ def _esize(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def sweep_schedule(sp, lanes=1, apex_lanes=None):
+def sweep_schedule(sp, lanes=1):
     """The launches of one apply of ``lanes`` lanes on ``sp``
     (:func:`plan_sweep`), for the card the problem lies on, or for
     ``NUM_SMS`` SMs where it lies on none."""
@@ -513,7 +503,7 @@ def sweep_schedule(sp, lanes=1, apex_lanes=None):
     sms = NUM_SMS if sp.device.type != "cuda" else \
         torch.cuda.get_device_properties(sp.device).multi_processor_count
     return plan_sweep(rows, tuple(sp.stage_child), sp.n, sp.m,
-                      _esize(sp.dtype), sms, lanes, apex_lanes)
+                      _esize(sp.dtype), sms, lanes)
 
 
 def sweep_work(sp, lanes=1):

@@ -187,14 +187,13 @@ def test_batched_schedule_and_work_at_the_headline():
     """K1 at the headline (per lane 1, 3, 9, ..., 2,187 rows a stage, n=50,
     m=20, c=3) with B = 8 lanes, by hand. The apex runs a block a lane on
     the stages of at most 4 rows a lane, so the launches are the unbatched
-    13; every other stage runs the 8 lanes' rows as one stage. All lanes in
-    one block would keep the root's 8 rows alone: 15 launches. The work is
+    13; every other stage runs the 8 lanes' rows as one stage. The work is
     8 times the operations and the node bytes, and the weights once."""
     rows = tuple(3 ** k for k in range(8))
     plan = sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132, 8)
     assert (plan["launch_count"], plan["apex_stages"]) == (13, 2)
     apex = [la for la in plan["launches"] if la["kind"] == "apex"][0]
-    assert (apex["grid"], apex["rows"], plan["apex_lanes"]) == (8, 32, 1)
+    assert (apex["grid"], apex["rows"], plan["lanes"]) == (8, 32, 8)
     assert plan["apex_tile"] == 3 == sweep.plan_sweep(
         rows, (3,) * 8, 50, 20, 4, 132)["apex_tile"]
     stage = {(la["direction"], la["stages"][0]): la
@@ -209,15 +208,11 @@ def test_batched_schedule_and_work_at_the_headline():
         # 8 x 9 = 72 rows: one row a block, split K
         assert (stage[direction, 2]["rows"], stage[direction, 2]["tm"],
                 stage[direction, 2]["grid"]) == (72, 1, 72)
-    one_block = sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132, 8, 8)
-    assert (one_block["launch_count"], one_block["apex_stages"]) == (15, 1)
-    assert [la["grid"] for la in one_block["launches"]
-            if la["kind"] == "apex"] == [1]
     # one lane is the unbatched plan
     assert sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132, 1)["launches"] \
         == sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132)["launches"]
-    with pytest.raises(ValueError, match="divide"):
-        sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132, 8, 3)
+    with pytest.raises(ValueError, match="at least one lane"):
+        sweep.plan_sweep(rows, (3,) * 8, 50, 20, 4, 132, 0)
 
     spec, _ = port_models.random_network_problem(
         num_states=3, num_inputs=2, num_modes=3, num_stages=8,

@@ -105,7 +105,7 @@ def test_library_refuses_a_layout_that_does_not_fit(cuda, field, value):
             torch.zeros((sp.nl_pad, sp.m), device=cuda),
             torch.as_tensor(x0, dtype=torch.float32, device=cuda))
     sweep.project_dynamics_sweep(sp, *args)
-    call = sweep._problem(sp)["calls"][1, None]
+    call = sweep._problem(sp)["calls"][1]
     # the last stage's first product runs on rows of two or more a thread
     last = [la for la in call["plan"]["launches"] if la["kind"] == "stage"][0]
     assert last["tm"] > 1
@@ -147,22 +147,19 @@ def _lane_args(sp, x0, lanes, device, seed=1):
     ("small", "float64", 3), ("small", "float32", 8),
     ("headline", "float32", 8), ("headline", "float64", 3),
     ("odd_width", "float32", 3)])
-@pytest.mark.parametrize("apex_lanes", ["rule", "all"])
-def test_batched_kernel_matches_plain_version(cuda, name, dtype, lanes,
-                                              apex_lanes):
-    """B lanes in one launch set (one count on LAUNCHES) against the
-    batched plain version and, lane by lane, against the unbatched kernel
-    (tiles of other rows: rounding apart, 1e-14 / 1e-6 relative); ghost
-    rows zero in every lane; a second apply bit-identical. Both apex
-    layouts: a block a lane (the rule) and all lanes in one block."""
+def test_batched_kernel_matches_plain_version(cuda, name, dtype, lanes):
+    """B lanes in one launch set (one count on LAUNCHES, the apex a block
+    a lane) against the batched plain version and, lane by lane, against
+    the unbatched kernel (tiles of other rows: rounding apart, 1e-14 / 1e-6
+    relative); ghost rows zero in every lane; a second apply
+    bit-identical."""
     kwargs, pad = FIXTURES[name]
     spec, x0 = random_network_problem(**kwargs)
     tdt = getattr(torch, dtype)
     sp = build_stacked(spec, dtype=tdt, pad_multiple=pad, device=cuda)
     args = _lane_args(sp, x0, lanes, cuda)
-    over = None if apex_lanes == "rule" else lanes
     before = sweep.LAUNCHES
-    x, u = sweep.project_dynamics_sweep(sp, *args, apex_lanes=over)
+    x, u = sweep.project_dynamics_sweep(sp, *args)
     torch.cuda.synchronize()
     assert sweep.LAUNCHES == before + 1
     x_ref, u_ref = sweep.project_dynamics_sweep_ref(sp, *args)
@@ -172,7 +169,7 @@ def test_batched_kernel_matches_plain_version(cuda, name, dtype, lanes,
     torch.testing.assert_close(u, u_ref, rtol=0, atol=tol)
     assert torch.all(x[:, sp.num_nodes:] == 0)
     assert torch.all(u[:, sp.num_nonleaf:] == 0)
-    x2, u2 = sweep.project_dynamics_sweep(sp, *args, apex_lanes=over)
+    x2, u2 = sweep.project_dynamics_sweep(sp, *args)
     assert torch.equal(x2, x) and torch.equal(u2, u)
     lane_tol = {"float64": 1e-14, "float32": 1e-6}[dtype] * scale
     for b in range(lanes):
@@ -180,9 +177,9 @@ def test_batched_kernel_matches_plain_version(cuda, name, dtype, lanes,
                                               args[2][b])
         torch.testing.assert_close(x[b], xb, rtol=0, atol=lane_tol)
         torch.testing.assert_close(u[b], ub, rtol=0, atol=lane_tol)
-    plan = sweep.sweep_schedule(sp, lanes, over)
+    plan = sweep.sweep_schedule(sp, lanes)
     apex = [la for la in plan["launches"] if la["kind"] == "apex"][0]
-    assert apex["grid"] == (lanes if over is None else 1)
+    assert apex["grid"] == lanes
 
 
 @pytest.mark.cuda
