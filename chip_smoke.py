@@ -3,6 +3,7 @@
     python3 chip_smoke.py               # the smoke run (about 6 minutes)
     python3 chip_smoke.py --baseline    # BASELINE configs 3-5 to 1e-3
     python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
+    python3 chip_smoke.py --mesh        # the partitioned phases alone
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
@@ -32,7 +33,21 @@ after:
   headline from ``scripts/bench_batch.py``'s eight initial states, capped
   at 2,500 iterations: one K1 launch set per ``prox_f`` call, lane 0's
   history against a single card solve, and the batch's rate beside the
-  single solve's.
+  single solve's;
+* ``mesh_demo_f64`` and ``mesh_config5_f32``: the subtree partition
+  (``Solver(mesh=...)``) over two gloo ranks that share the card (NCCL
+  refuses two ranks on one device). The script starts itself twice as the
+  ranks (``--rank r --world 2 --port p``); each places itself on card
+  ``rank % device_count``, runs the demo in float64 with the default options
+  (937 iterations) and one closed-loop step of BASELINE config 5 at full
+  size (88,573 nodes) capped at 500 iterations, and writes what it got; the
+  script holds the ranks against each other and against single-card runs
+  of the same (made here, before the ranks start): the demo's iterates to
+  1e-12, config 5's within three times the single card's own float32
+  rounding (its distance to the same step in float64). A rank that fails,
+  or a group that times out, fails the run. The partitioned sweep runs the torch
+  stage path with the frontier all-reduce, as the JAX package's partition
+  does (no Pallas kernel there): 0 K1 launches.
 
 It prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line
@@ -99,6 +114,16 @@ PEAK_BYTES = 3.35e12
 # how far, as a share of its sequential count, a float32 lane's count may
 # be from its sequential solve's to 1e-3 (baseline_batch)
 F32_COUNT_SLACK = 0.1
+# config 5's partitioned float32 step against the single card's, on each
+# iterate leaf relative to that leaf's inf-norm: within this many times the
+# single card's own float32 rounding of the leaf (its distance to the same
+# step in float64), plus 1e-6. After 500 unconverged steps the leaf SOC
+# duals e11-e13 carry 7-10% of float32 rounding on either layout, the other
+# leaves at most 1.3e-4; the partition's gap measured 0.53-1.5 times the
+# single card's own (PERF.md, the partition's findings)
+MESH_CONFIG5_ROUNDING = 3.0
+# and the applied input, relative to its largest entry (measured 1.6e-4)
+MESH_CONFIG5_INPUT_TOL = 1e-3
 
 
 def emit(phase, **fields):
@@ -157,6 +182,304 @@ def phase_build():
          seconds=time.perf_counter() - tic)
 
 
+# -- the subtree partition over two gloo ranks on the card ----------------
+
+MESH_WORLD = 2
+# every collective's bound (seconds) inside the ranks, and the ranks' whole
+# run's bound
+MESH_GROUP_TIMEOUT = 120
+MESH_TIMEOUT = 900
+# BASELINE config 5's partitioned step: the closed loop's options, capped
+MESH_CONFIG5_RUN = dict(num_steps=1, initial_mode=0, max_iters=500,
+                        check_every=25, unroll=5, relax="auto")
+
+
+def _mesh_counters():
+    from raocp_tpu_torch.parallel import sharding
+    torch.cuda.synchronize()
+    sharding.ALL_REDUCES = sharding.ALL_REDUCE_BYTES = 0
+    sharding.ALL_REDUCE_SECONDS = 0.0
+    sweep.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _mesh_read(stp, iters):
+    """What a rank's run exchanged and held: all-reduces, their bytes and
+    host ms per CP step, K1 launches, peak memory, and its block."""
+    from raocp_tpu_torch.parallel import sharding
+    torch.cuda.synchronize()
+    ids = stp.plan.np_ids
+    return dict(
+        frontier=stp.frontier, local_rows=stp.plan.l_np,
+        spine_rows=stp.sp.stage_start[stp.frontier],
+        ghost_rows_this_rank=int((ids[stp.rank] < 0).sum()),
+        ghost_rows_all_ranks=int((ids < 0).sum()),
+        all_reduces=sharding.ALL_REDUCES,
+        all_reduces_per_step=sharding.ALL_REDUCES / iters,
+        all_reduce_bytes_per_step=sharding.ALL_REDUCE_BYTES / iters,
+        all_reduce_ms_per_step=1e3 * sharding.ALL_REDUCE_SECONDS / iters,
+        k1_launches=sweep.LAUNCHES,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+def _save_result(path, res):
+    arrays = {"xi_history": res.xi_history, "delta_history": res.delta_history}
+    for tree in (res.primal, res.dual):
+        arrays.update({k: np.asarray(v) for k, v in tree._asdict().items()})
+    np.savez(path, **arrays)
+
+
+def rank_main(args):
+    """One rank of the partitioned phases: a gloo group on localhost, a
+    CUDA mesh, the demo in float64 and config 5's capped step; each
+    phase's numbers to ``out/{phase}.rank{r}.json``, its iterates to
+    ``.npz``."""
+    from raocp_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed("gloo",
+                           init_method=f"tcp://127.0.0.1:{args.port}",
+                           world_size=args.world, rank=args.rank,
+                           timeout=MESH_GROUP_TIMEOUT)
+    mesh = make_mesh("cuda")
+    base = os.path.join(args.out, "{}.rank%d" % args.rank)
+
+    problem, x0 = demo_problem()
+    solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh)
+    solver.operator_norm_sq()
+    _mesh_counters()
+    res = solver.solve(x0, max_iters=2000, tol=1e-3)
+    out = dict(_mesh_read(solver.subtree, res.num_iters),
+               device=str(solver.subtree.sp.device), iters=res.num_iters,
+               converged=res.converged, xi=res.xi.tolist(), alpha=res.alpha,
+               ms_per_step=1e3 * res.solve_time / res.num_iters,
+               validate=max(solver.validate(res).values()))
+    _save_result(base.format("mesh_demo_f64") + ".npz", res)
+    with open(base.format("mesh_demo_f64") + ".json", "w") as fh:
+        json.dump(out, fh)
+
+    tic = time.perf_counter()
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
+                                            mesh=mesh)
+    solver, _ = controller.solver_for_mode(0)
+    solver.operator_norm_sq()
+    setup_s = time.perf_counter() - tic
+    _mesh_counters()
+    run = controller.run(x0, **MESH_CONFIG5_RUN)
+    res = solver.result
+    out = dict(_mesh_read(solver.subtree, res.num_iters),
+               nodes=solver.stacked.num_nodes, dtype=str(
+                   solver.subtree.sp.dtype), setup_s=setup_s,
+               power_iterations=solver.power_iterations,
+               iters=res.num_iters, xi=res.xi.tolist(), alpha=res.alpha,
+               ms_per_step=1e3 * res.solve_time / res.num_iters,
+               inputs=run.inputs.tolist(), states=run.states.tolist())
+    _save_result(base.format("mesh_config5_f32") + ".npz", res)
+    with open(base.format("mesh_config5_f32") + ".json", "w") as fh:
+        json.dump(out, fh)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(out):
+    """Start the ranks and wait for them; a rank that fails, or the run
+    passing ``MESH_TIMEOUT``, kills the others and raises with the logs."""
+    port = _free_port()
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w+")
+            for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(MESH_WORLD), "--port", str(port), "--out", out],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MESH_WORLD)]
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * MESH_WORLD:
+        for r, fh in enumerate(logs):
+            fh.seek(0)
+            sys.stderr.write(f"--- rank {r} (exit {codes[r]}) ---\n"
+                             + fh.read()[-8000:])
+        raise AssertionError(f"the mesh ranks exited with {codes}")
+    for fh in logs:
+        fh.close()
+
+
+def _load_ranks(out, phase):
+    got = []
+    for r in range(MESH_WORLD):
+        path = os.path.join(out, f"{phase}.rank{r}")
+        with open(path + ".json") as fh:
+            got.append((json.load(fh), dict(np.load(path + ".npz"))))
+    return got
+
+
+def _leaf_diffs(arrays, res, rel=False):
+    """max |arrays[leaf] - res's leaf| for every iterate leaf (over the
+    leaf's own inf-norm in ``res`` with ``rel``)."""
+    out = {}
+    for tree in (res.primal, res.dual):
+        for k, v in tree._asdict().items():
+            v = np.asarray(v, dtype=np.float64)
+            d = float(np.abs(np.asarray(arrays[k], dtype=np.float64)
+                             - v).max(initial=0.0))
+            if rel:
+                d /= max(float(np.abs(v).max(initial=0.0)), 1e-30)
+            out[k] = d
+    return out
+
+
+def _ranks_agree(ranks, skip=("ghost_rows_this_rank",)):
+    """Both ranks returned the same arrays, bit for bit, and the same
+    numbers (their own timings, memory and ghost rows aside)."""
+    mine = ("ms_per_step", "all_reduce_ms_per_step", "setup_s",
+            "max_memory_allocated_bytes") + skip
+    (a, arr_a), (b, arr_b) = ranks[0], ranks[1]
+    same = all(np.array_equal(arr_a[k], arr_b[k], equal_nan=True)
+               for k in arr_a)
+    return same and {k: v for k, v in a.items() if k not in mine} \
+        == {k: v for k, v in b.items() if k not in mine}
+
+
+def phase_mesh(demo):
+    """``mesh_demo_f64`` and ``mesh_config5_f32`` (module docstring). The
+    single-card runs they are held against: ``demo`` (phase_parity's card
+    solve) and config 5's capped step, made here before the ranks start."""
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device")
+    solver, _ = controller.solver_for_mode(0)
+    solver.operator_norm_sq()
+    torch.cuda.reset_peak_memory_stats()
+    with counted() as calls:
+        run = controller.run(x0, **MESH_CONFIG5_RUN)
+    single = solver.result
+    single_peak = torch.cuda.max_memory_allocated()
+    # the yardstick of float32's own rounding: the same step in float64
+    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
+                                            dtype=torch.float64)
+    controller.run(x0, **MESH_CONFIG5_RUN)
+    single64 = controller.solver_for_mode(0)[0].result
+    del controller, solver
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        tic = time.perf_counter()
+        _run_ranks(out)
+        ranks_s = time.perf_counter() - tic
+        demo_ranks = _load_ranks(out, "mesh_demo_f64")
+        c5_ranks = _load_ranks(out, "mesh_config5_f32")
+
+    got, arrays = demo_ranks[0]
+    it_diff = max(_leaf_diffs(arrays, demo).values())
+    hist = demo.xi_history
+    hist_diff = float(np.abs(arrays["xi_history"] - hist).max()) \
+        if arrays["xi_history"].shape == hist.shape else float("inf")
+    agree = _ranks_agree(demo_ranks)
+    emit("mesh_demo_f64", ranks=MESH_WORLD, backend="gloo",
+         **{k: got[k] for k in ("device", "iters", "xi", "alpha", "validate",
+                                "frontier", "local_rows", "spine_rows",
+                                "ghost_rows_all_ranks", "all_reduces",
+                                "all_reduces_per_step",
+                                "all_reduce_bytes_per_step", "k1_launches")},
+         ms_per_step=[r["ms_per_step"] for r, _ in demo_ranks],
+         all_reduce_ms_per_step=[r["all_reduce_ms_per_step"]
+                                 for r, _ in demo_ranks],
+         single_card_ms_per_step=1e3 * demo.solve_time / demo.num_iters,
+         single_card_alpha=demo.alpha,
+         max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
+                                     for r, _ in demo_ranks],
+         iterate_max_diff=it_diff, xi_history_max_diff=hist_diff,
+         xi_history_scale=float(np.abs(hist).max()), ranks_agree=agree,
+         ranks_s=ranks_s)
+    check(got["converged"] and got["iters"] == 937,
+          f"partitioned demo took {got['iters']} iterations, not 937")
+    check(np.allclose(got["xi"], [9.9508e-4, 9.4106e-4, 9.5599e-4],
+                      rtol=1e-3, atol=0), f"partitioned demo xi {got['xi']}")
+    # the partitioned power iteration's step size differs from the single
+    # card's in the last bits (2e-13 relative on the CPU), and xi divides
+    # iterate differences by it: the history is held to 1e-12 of its
+    # largest entry, the iterates to 1e-12
+    check(it_diff <= 1e-12, f"partitioned demo iterates {it_diff} from the "
+                            "single card's")
+    check(hist_diff <= 1e-12 * float(np.abs(hist).max()),
+          f"partitioned demo history {hist_diff} from the single card's")
+    check(agree, "the two ranks' demo results differ")
+    check(got["validate"] < 1e-10, f"partitioned demo validate "
+                                   f"{got['validate']}")
+    check(got["k1_launches"] == 0, "K1 ran on the partitioned demo")
+
+    got, arrays = c5_ranks[0]
+    by_leaf = _leaf_diffs(arrays, single, rel=True)
+    it_rel = max(by_leaf.values())
+    single_to_64 = _leaf_diffs(single.primal._asdict()
+                               | single.dual._asdict(), single64, rel=True)
+    part_to_64 = _leaf_diffs(arrays, single64, rel=True)
+    ratio = {k: by_leaf[k] / max(single_to_64[k], 1e-30) for k in by_leaf}
+    u_single = np.asarray(run.inputs)
+    u_rel = float(np.abs(np.asarray(got["inputs"]) - u_single).max()
+                  / np.abs(u_single).max())
+    agree = _ranks_agree(c5_ranks)
+    finite = all(np.isfinite(arrays[k]).all() for k in by_leaf)
+    emit("mesh_config5_f32", ranks=MESH_WORLD, backend="gloo",
+         **{k: got[k] for k in ("nodes", "dtype", "iters", "xi", "alpha",
+                                "power_iterations", "frontier", "local_rows",
+                                "spine_rows", "ghost_rows_all_ranks",
+                                "all_reduces", "all_reduces_per_step",
+                                "all_reduce_bytes_per_step", "k1_launches")},
+         ghost_rows_per_rank=[r["ghost_rows_this_rank"]
+                              for r, _ in c5_ranks],
+         setup_s=[r["setup_s"] for r, _ in c5_ranks],
+         ms_per_step=[r["ms_per_step"] for r, _ in c5_ranks],
+         all_reduce_ms_per_step=[r["all_reduce_ms_per_step"]
+                                 for r, _ in c5_ranks],
+         single_card_ms_per_step=1e3 * single.solve_time / single.num_iters,
+         single_card_iters=single.num_iters, single_card_alpha=single.alpha,
+         single_card_k1_launches=calls["k1"],
+         single_card_max_memory_allocated_bytes=single_peak,
+         max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
+                                     for r, _ in c5_ranks],
+         iterate_max_rel_diff=it_rel, input_max_rel_diff=u_rel,
+         rounding_ratio_by_leaf=ratio,
+         iterate_rel_diff_by_leaf=by_leaf,
+         single_f32_to_f64_rel_by_leaf=single_to_64,
+         partitioned_f32_to_f64_rel_by_leaf=part_to_64,
+         single_f64_iters=single64.num_iters,
+         rounding_bound=MESH_CONFIG5_ROUNDING,
+         input_tol=MESH_CONFIG5_INPUT_TOL, ranks_agree=agree,
+         ranks_s=ranks_s)
+    check(got["nodes"] == 88573, "config 5 is not the 88,573-node tree")
+    check(finite and np.isfinite(got["xi"]).all(),
+          "partitioned config 5 not finite")
+    check(got["iters"] == single.num_iters,
+          f"partitioned config 5 ran {got['iters']} iterations, the single "
+          f"card {single.num_iters}")
+    check(agree, "the two ranks' config-5 results differ")
+    beyond = {k: d for k, d in by_leaf.items()
+              if d > MESH_CONFIG5_ROUNDING * single_to_64[k] + 1e-6}
+    check(not beyond, f"partitioned config 5 leaves {beyond} from the "
+                      f"single card's, beyond {MESH_CONFIG5_ROUNDING} times "
+                      f"its own float32 rounding {single_to_64}")
+    check(u_rel <= MESH_CONFIG5_INPUT_TOL,
+          f"partitioned config 5 input {u_rel} from the single card's")
+    check(got["k1_launches"] == 0, "K1 ran on the partitioned config 5")
+
+
 def bench_lanes(x0, lanes=8):
     """``scripts/bench_batch.py``'s initial states: (0.5 + r) x0, r from
     ``numpy.random.default_rng(0)``."""
@@ -181,20 +504,26 @@ def _sweep_inputs(kwargs, dtype, pad, lanes=None):
     return sp, x_in, u_in, torch.as_tensor(x0, dtype=dtype, device=DEV)
 
 
-def _k1_profile(fn, applies=1, attempts=3):
+def _k1_profile(fn, applies, planned, attempts=3):
     """K1 on the card per call of ``fn``, from a profile of ``applies``
-    calls: the kernels it launches, and their device time in ms. ``fn``
-    launches K1 alone, so a trace without any device kernel lost its
-    device events (it happened once on the card, on a launch whose results
-    were right): that profile is taken again, up to ``attempts`` times in
-    all."""
+    calls: the kernels it launches, their device time in ms, and the
+    profiles taken. ``fn`` launches the same ``planned`` kernels on every
+    call, so a profile holding fewer lost device events: it happened on
+    the card twice, on launches whose results were right, once losing all
+    of a trace's kernels and once one of 60. Each profile first puts a
+    marker kernel on the card and waits for it, so that the tracer is
+    recording before K1 launches; a profile that still holds fewer K1
+    kernels than planned is taken again, up to ``attempts`` times in all.
+    A profile with more is never retaken."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=DEV).add_(1)
+            torch.cuda.synchronize()
             for _ in range(applies):
                 fn()
             torch.cuda.synchronize()
@@ -203,12 +532,13 @@ def _k1_profile(fn, applies=1, attempts=3):
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
-        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
-        if kernels:
+        k1 = [ev for ev in events if ev.get("cat") == "kernel"
+              and ("stage_kernel" in ev["name"]
+                   or "apex_kernel" in ev["name"])]
+        if len(k1) >= planned * applies:
             break
-    k1 = [ev for ev in kernels
-          if "stage_kernel" in ev["name"] or "apex_kernel" in ev["name"]]
-    return len(k1) / applies, 1e-3 * sum(ev["dur"] for ev in k1) / applies
+    return (len(k1) / applies, 1e-3 * sum(ev["dur"] for ev in k1) / applies,
+            attempt)
 
 
 def _median_ms(fn, runs=50):
@@ -323,8 +653,10 @@ def phase_kernel():
                    ref_inf_norm=scale, rel_err=err / scale, tol=tol,
                    ghost_rows_zero=ghosts_zero, second_apply_same=same_bits,
                    **_plan_fields(sp, lanes or 1))
-        row["device_launches_per_apply"], row["device_ms"] = _k1_profile(
-            lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0), 20)
+        (row["device_launches_per_apply"], row["device_ms"],
+         row["profiles_taken"]) = _k1_profile(
+            lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0), 20,
+            row["launches_per_apply"])
         if lanes is not None:
             lane_err = 0.0
             for b in range(lanes):
@@ -811,9 +1143,25 @@ def main():
     ap.add_argument("--config5-steps", type=int, default=1)
     ap.add_argument("--profile", action="store_true",
                     help="profile 100 CP steps of config 5 instead")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the partitioned phases alone")
+    # one rank of the partitioned phases (the script starts itself so)
+    ap.add_argument("--rank", type=int)
+    ap.add_argument("--world", type=int)
+    ap.add_argument("--port", type=int)
+    ap.add_argument("--out")
     args = ap.parse_args()
+    if args.rank is not None:
+        return rank_main(args)
     smi = phase_device()
     phase_build()
+    if args.mesh:
+        problem, x0 = demo_problem()
+        demo = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
+            x0, max_iters=2000, tol=1e-3)
+        phase_mesh(demo)
+        print(smi, flush=True)
+        return 0
     if args.baseline or args.profile:
         if args.profile:
             profile_config5()
@@ -831,6 +1179,7 @@ def main():
     phase_accel()
     phase_batch_demo()
     phase_batch_headline()
+    phase_mesh(demo)
     # the kernel's own numbers are the headline's (the first K1 path); every
     # timed shape stands beside it, config 5's full size included
     c = kernel["c_headline_f32"]

@@ -9,8 +9,10 @@ torch tensors on the device given to :class:`Solver` (``device="cuda"``
 on a GPU). The dynamics-projection sweep of ``prox_f`` is a hand-written
 CUDA kernel (:mod:`raocp_tpu_torch.ops.sweep`). The accelerated loops
 (:mod:`raocp_tpu_torch.accel`), closed-loop MPC (:mod:`raocp_tpu_torch.mpc`)
-and the NumPy reporting helpers (:mod:`raocp_tpu_torch.utils`) sit on top.
-This package imports no JAX.
+and the NumPy reporting helpers (:mod:`raocp_tpu_torch.utils`) sit on top;
+:mod:`raocp_tpu_torch.parallel` runs a solve partitioned over
+``torch.distributed`` ranks (``Solver(mesh=...)``). This package imports no
+JAX.
 """
 
 from raocp_tpu_torch.core.tree import (ScenarioTree,

@@ -36,7 +36,7 @@ Tensor = torch.Tensor
 # the fields that are Python ints / tuples, not tensors
 STATIC_FIELDS = ("n", "m", "num_nodes", "num_nonleaf", "num_leaf", "d_max",
                  "num_stages", "stage_start", "stage_child", "np_pad",
-                 "nl_pad", "lf_pad", "y_dim")
+                 "nl_pad", "lf_pad", "y_dim", "frontier", "spmd_ndev")
 # the per-nonleaf-stage tuples of (tensor or None)
 STAGE_FIELDS = ("ab_fwd", "ab_bwd", "qr_fwd", "qr_bwd", "k_s", "rinv_s",
                 "sumapb_s", "k_ms", "rinv_ms", "sumapb_ms")
@@ -46,7 +46,8 @@ MODAL_FIELDS = ("Am", "Bm", "ABm", "sqrtQ", "sqrtR", "QRm", "sqrtP")
 @dataclasses.dataclass(frozen=True)
 class StackedProblem:
     """All tensors + static metadata of one RAOCP instance (field for field
-    the JAX package's ``StackedProblem``, minus the multi-device fields)."""
+    the JAX package's ``StackedProblem``; ``spmd_group`` stands for its
+    ``spmd_axis``)."""
 
     # -- static metadata ---------------------------------------------------
     n: int
@@ -124,9 +125,20 @@ class StackedProblem:
     sumAPB: Optional[Tensor]
     Pi: Tensor              # [nl_pad, D, D] kernel projectors (padded)
 
+    # -- subtree-partition metadata (set only by
+    #    parallel.subtree.build_subtree_problem) ---------------------------
+    # The tensors are then ONE rank's block of a replicated-spine subtree
+    # partition: stages [0, frontier) are replicated on every rank, stages
+    # >= frontier are split evenly (each rank owns complete subtrees; uneven
+    # stages carry interior ghost rows that stay zero). The ops run
+    # rank-locally except at the frontier crossing, where the child
+    # reductions complete with an all-reduce over ``spmd_group``
+    # (ops.operator._frontier_psum).
+    frontier: Optional[int] = None
+    spmd_group: Optional[object] = None     # torch.distributed ProcessGroup
+    spmd_ndev: Optional[int] = None
     # 1.0 on real rows of the all-node / leaf space (None: real rows are a
-    # prefix). Kept so the ghost-row masking of the ops matches the
-    # reference when a problem with interior ghost rows is carried over.
+    # prefix): the interior ghost rows of a partition's block
     node_mask: Optional[Tensor] = None
     lf_half_mask: Optional[Tensor] = None
 
@@ -1004,9 +1016,10 @@ def from_numpy(leaves: dict, static: dict, device="cuda",
     example of a problem stacked by the JAX package). Float leaves become
     ``dtype`` tensors on ``device``, integer leaves ``int64``, bool leaves
     stay bool. Identical per-stage blocks share one tensor, so the
-    stage-grouped contractions group as in :func:`build_stacked`. Static
-    fields this package does not model (the multi-device ones) must be
-    None."""
+    stage-grouped contractions group as in :func:`build_stacked`. A
+    partitioned problem (``frontier`` or an SPMD field set) is refused: it
+    holds one device's block, so carry the global problem and partition it
+    with :func:`raocp_tpu_torch.parallel.build_subtree_problem`."""
     device = torch.device(device)
     dtype = default_dtype(device) if dtype is None else _torch_dtype(dtype)
     names = {f.name for f in dataclasses.fields(StackedProblem)}
@@ -1023,12 +1036,16 @@ def from_numpy(leaves: dict, static: dict, device="cuda",
 
     kw = {}
     for name, v in static.items():
+        if name in ("frontier", "spmd_axis", "spmd_group", "spmd_ndev") \
+                and v is not None:
+            raise ValueError(
+                f"static field {name}={v!r}: a partitioned problem cannot be "
+                "carried across; carry the global problem and partition it "
+                "with raocp_tpu_torch.parallel.build_subtree_problem")
         if name in names:
             kw[name] = tuple(v) if isinstance(v, (list, tuple)) else v
         elif v is not None:
-            raise NotImplementedError(
-                f"static field {name}={v!r} (a multi-device layout) is not "
-                "ported yet: ROADMAP.md queue 1 item 14")
+            raise ValueError(f"unknown stacked-problem static field '{name}'")
     for name, v in leaves.items():
         if name not in names:
             if v is not None:

@@ -15,7 +15,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from raocp_tpu_torch.core.spec import RAOCP
-from raocp_tpu_torch.solver import Solver, SolverResult, _not_ported
+from raocp_tpu_torch.solver import Solver, SolverResult
 
 __all__ = ["ClosedLoopResult", "RiskAverseMPC"]
 
@@ -61,16 +61,21 @@ class RiskAverseMPC:
     :param dtype: forwarded to :class:`~raocp_tpu_torch.solver.Solver`.
     :param offline: forwarded to :class:`~raocp_tpu_torch.solver.Solver`
         (a fully tabled tree takes the host stage tables either way).
-    :param mesh: multi-device runs are not ported yet and raise.
-    :param device: the device of every cached per-mode solver.
+    :param mesh: optional 1-D ``DeviceMesh``
+        (:func:`raocp_tpu_torch.parallel.make_mesh`) forwarded to every
+        cached per-mode :class:`~raocp_tpu_torch.Solver`: each per-step
+        solve then runs partitioned over the ranks (BASELINE config 5's
+        "partitioned across 2+ hosts"), every rank running the same closed
+        loop and applying the same controls.
+    :param device: the device of every cached per-mode solver (on a mesh,
+        the mesh's).
     """
 
     def __init__(self, problem_factory: Callable[[np.ndarray], RAOCP],
                  transition_matrix, plant_dynamics: Optional[Sequence] = None,
                  dtype=None, offline: str = "host", mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise _not_ported("a multi-device mesh", 14)
+        self.__mesh = mesh
         self.__factory = problem_factory
         self.__p = np.asarray(transition_matrix, dtype=np.float64)
         if self.__p.ndim != 2 or self.__p.shape[0] != self.__p.shape[1]:
@@ -97,6 +102,7 @@ class RiskAverseMPC:
             problem = self.__factory(self.__p[mode].copy())
             self.__solvers[mode] = (Solver(problem, dtype=self.__dtype,
                                            offline=self.__offline,
+                                           mesh=self.__mesh,
                                            device=self.__device),
                                     problem)
         return self.__solvers[mode]

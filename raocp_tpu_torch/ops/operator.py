@@ -17,9 +17,11 @@ and ell_t is the exact adjoint.
 """
 
 import torch
+import torch.distributed as dist
 
 from raocp_tpu_torch.core.stacked import StackedProblem
 from raocp_tpu_torch.core.variables import Dual, Primal
+from raocp_tpu_torch.parallel.sharding import all_reduce
 
 __all__ = ["ell", "ell_t", "flat_linops", "sum_over_children",
            "parent_expand", "repad", "stage_groups"]
@@ -53,6 +55,22 @@ def _same_child(sp: StackedProblem):
     """Group predicate: stages have the same uniform child count."""
     return lambda k0, k: (sp.stage_child[k0] is not None
                           and sp.stage_child[k] == sp.stage_child[k0])
+
+
+def _frontier_psum(sp: StackedProblem, k0: int, part):
+    """Complete a child reduction across the subtree-partition frontier
+    (JAX ``ops/operator.py:63``).
+
+    Under the replicated-spine partition (parallel.subtree) the children of
+    stage ``frontier - 1`` are split over the ranks, so a per-parent child
+    reduction computed on a rank is partial (each rank adds the children it
+    owns; its mask is zero on the others): one all-reduce over the group
+    completes it, the same on every rank. Every other stage reduces
+    rank-locally. The identity outside a partition."""
+    if sp.spmd_group is not None and k0 == sp.frontier - 1:
+        return all_reduce(part.contiguous(), dist.ReduceOp.SUM,
+                          sp.spmd_group)
+    return part
 
 
 def _child_rel(sp: StackedProblem, a: int, b: int, a2: int, b2: int):
@@ -92,7 +110,8 @@ def sum_over_children(sp: StackedProblem, w):
         else:                      # single ragged stage (k1 == k0 + 1)
             rel = _child_rel(sp, a, b, a2, b2)
             mask = sp.child_mask[a:b][..., None]
-            parts.append(torch.sum(wk[..., rel, :] * mask, dim=-2))
+            parts.append(_frontier_psum(
+                sp, k0, torch.sum(wk[..., rel, :] * mask, dim=-2)))
     tail = sp.nl_pad - sp.num_nonleaf
     if tail:
         parts.append(w.new_zeros(lead + (tail, F)))
@@ -209,11 +228,12 @@ def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
             else:                  # single non-uniform stage (k1 == k0 + 1)
                 w = sp.QRm.slice_rows(a2, b2).rmatvec(blk)
                 if c is not None:
-                    parts.append(w.reshape(lead + (b - a, c, F)).sum(dim=-2))
+                    part = w.reshape(lead + (b - a, c, F)).sum(dim=-2)
                 else:
                     rel = _child_rel(sp, a, b, a2, b2)
                     mask = sp.child_mask[a:b][..., None]
-                    parts.append(torch.sum(w[..., rel, :] * mask, dim=-2))
+                    part = torch.sum(w[..., rel, :] * mask, dim=-2)
+                parts.append(_frontier_psum(sp, k0, part))
         tail = sp.nl_pad - NL
         if tail:
             parts.append(e34.new_zeros(lead + (tail, F)))

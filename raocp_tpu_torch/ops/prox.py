@@ -7,7 +7,10 @@ the projection of (y, tau+, s+) onto the risk-recursion kernel (one
 precomputed-projector batched matmul). On trees whose every nonleaf stage is
 stage-constant the sweep goes to the hand-written sweep kernel
 (:mod:`raocp_tpu_torch.ops.sweep`); other trees take the torch branches
-below, as they take the XLA path in the JAX package.
+below, as they take the XLA path in the JAX package. So does a rank's block
+of the subtree partition: its frontier stage has no stage-stacked block,
+and the sweep completes the frontier parents' sums with an all-reduce, as
+the JAX package's partition takes no Pallas kernel (ROADMAP.md item 16c).
 
 prox_g* — reference ``cache.py:321-393`` — is computed via the Moreau
 identity: scale, epigraph half-shifts, batched cone/box projections, and the
@@ -25,8 +28,8 @@ from raocp_tpu_torch.core.stacked import StackedProblem
 from raocp_tpu_torch.core.variables import Dual, Primal, lane_view
 from raocp_tpu_torch.ops.cones import (constraint_project, nonneg_project,
                                        risk_dual_project, soc_project_parts)
-from raocp_tpu_torch.ops.operator import (_child_rel, _same_child,
-                                          stage_groups)
+from raocp_tpu_torch.ops.operator import (_child_rel, _frontier_psum,
+                                          _same_child, stage_groups)
 from raocp_tpu_torch.ops.sweep import project_dynamics_sweep, sweep_eligible
 
 __all__ = ["prox_f", "prox_g_conj", "project_dynamics", "project_kernel",
@@ -99,6 +102,7 @@ def project_dynamics(sp: StackedProblem, x_in, u_in, x0):
                 rel = _child_rel(sp, a, b, a2, b2)
                 mask = sp.child_mask[a:b][..., None]
                 abtq = torch.sum(w[..., rel, :] * mask, dim=-2)
+            abtq = _frontier_psum(sp, k, abtq)
         sum_atq, sum_btq = abtq[..., :n], abtq[..., n:]
         if sp.rinv_s[k] is not None:
             # stage-constant Riccati: matmuls against one tiny matrix
@@ -183,7 +187,8 @@ def _gather_child_slots(sp: StackedProblem, v):
                                 dim=-1)
             parts.append(blk)
         else:                      # single ragged stage
-            parts.append(v[..., sp.child_idx[a:b]] * sp.child_mask[a:b])
+            parts.append(_frontier_psum(
+                sp, k0, v[..., sp.child_idx[a:b]] * sp.child_mask[a:b]))
     tail = sp.nl_pad - sp.num_nonleaf
     if tail:
         parts.append(v.new_zeros(lead + (tail, d)))

@@ -10,21 +10,26 @@ residual at a check. Chunked solves (:func:`_chunked_loop`), batch solves
 (:func:`_run_cp_batch`: B initial states, every op on all lanes at once),
 the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
 helpers (``validate``, plots, pgfplots exports) keep the JAX package's
-semantics.
+semantics. Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
+one process a rank, on the replicated-spine subtree partition
+(:mod:`raocp_tpu_torch.parallel.subtree`).
 """
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raocp_tpu_torch.core.spec import RAOCP
 from raocp_tpu_torch.core.stacked import (StackedProblem, _dedup_dynamics,
-                                          build_stacked)
+                                          _torch_dtype, build_stacked,
+                                          default_dtype)
 from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
                                             tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
@@ -32,6 +37,9 @@ from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
                                       prox_f)
 from raocp_tpu_torch.ops.sweep import DeviceFault
+from raocp_tpu_torch.parallel.sharding import all_reduce, mesh_device
+from raocp_tpu_torch.parallel.subtree import (build_subtree_problem,
+                                              choose_frontier)
 
 __all__ = ["Solver", "SolverResult", "pin_full_precision"]
 
@@ -44,7 +52,7 @@ _DEVICE_FAULTS = tuple(c for c in (DeviceFault,
                        if c is not None)
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to raocp_tpu_torch yet: ROADMAP.md queue 1 "
         f"item {item}")
@@ -107,23 +115,45 @@ def _normalise(z, norm):
     return type(z)(*(v / norm for v in z))
 
 
+def _sp_primal_dot(sp: StackedProblem, a, b):
+    """<a, b> over primal trees, also under the subtree partition (JAX
+    ``solver.py:113``): there the spine rows [0, stage_start[frontier]) of
+    every leaf are replicated on all ranks, so the global inner product is
+    the all-reduced sum of the local ones with the spine rows weighted by
+    1/D. :func:`tree_dot` outside a partition."""
+    if sp.spmd_group is None:
+        return tree_dot(a, b)
+    spine = sp.stage_start[sp.frontier]
+    scale = 1.0 - 1.0 / sp.spmd_ndev
+    local = torch.stack([
+        torch.vdot(x.reshape(-1), y.reshape(-1))
+        - scale * torch.vdot(x[:spine].reshape(-1), y[:spine].reshape(-1))
+        for x, y in zip(a, b)]).sum()
+    return all_reduce(local.reshape(1), dist.ReduceOp.SUM,
+                      sp.spmd_group)[0]
+
+
 def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
                      rel_tol: float = 1e-12):
     """lambda_max(L'L) by power iteration on the primal space, started from
     ``numpy.random.default_rng(0)`` normals (one draw per leaf, in leaf
-    order). Returns (lambda as float, iterations)."""
+    order). Returns (lambda as float, iterations). Under the subtree
+    partition every rank draws the same normals for its local shapes, so
+    the replicated spine rows start alike, and the convergence test reads
+    an all-reduced value, the same on every rank."""
     rng = np.random.default_rng(0)
     z = Primal(*(torch.as_tensor(rng.standard_normal(tuple(l.shape)),
                                  dtype=sp.dtype, device=sp.device)
                  for l in sp.zero_primal()))
-    z = _normalise(z, torch.sqrt(tree_dot(z, z)))
+    z = _normalise(z, torch.sqrt(_sp_primal_dot(sp, z, z)))
     lam, lam_prev = 0.0, -1.0
     k = 0
     while (k < 2 or abs(lam - lam_prev) > rel_tol * abs(lam)) \
             and k < max_iters:
         w = ell_t(sp, ell(sp, z))
-        lam_prev, lam = lam, float(tree_dot(z, w))   # Rayleigh quotient
-        z = _normalise(w, torch.sqrt(tree_dot(w, w)))
+        # Rayleigh quotient
+        lam_prev, lam = lam, float(_sp_primal_dot(sp, z, w))
+        z = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
         k += 1
     return lam, k
 
@@ -168,6 +198,13 @@ def _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha1, alpha2):
                        tree_inf_norm(xi2, lanes)], dim=-1)
     derr = torch.stack([tree_inf_norm(d0, lanes), tree_inf_norm(d1, lanes),
                         tree_inf_norm(d2, lanes)], dim=-1)
+    if sp.spmd_group is not None:
+        # subtree partition: local max-norms -> global (spine rows are
+        # replicated and ghost rows zero, so a max is exact); one
+        # all-reduce for all six norms
+        both = all_reduce(torch.cat([err, derr]), dist.ReduceOp.MAX,
+                          sp.spmd_group)
+        err, derr = both[:3], both[3:]
     return err, derr
 
 
@@ -217,7 +254,9 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
     ``log_every=j`` prints the last checked residuals after every step
     whose loop index is a multiple of j (JAX ``solver.py:442``), with the
     index offset by ``k0`` (the iterations of earlier chunks); it reads
-    nothing from the device beyond the checks.
+    nothing from the device beyond the checks. Under the subtree partition
+    the residuals are all-reduced, the same on every rank, and only rank 0
+    prints.
 
     ``check_every=k`` evaluates the residuals (and the stopping test) only
     at every k-th iteration; unchecked history rows are NaN (all rows are
@@ -242,6 +281,8 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
     hist = np.full((max_iters + unroll, 6),
                    0.0 if check_every == 1 else np.nan)
     err_np = np.full(3, np.inf)
+    if sp.spmd_group is not None and dist.get_rank(sp.spmd_group) != 0:
+        log_every = None
     k = 0
     while k == 0 or (err_np.max() > tol and k + unroll < max_iters + 2):
         for i in range(unroll):
@@ -412,10 +453,22 @@ def _write_iterate_npz(z_np, eta_np, num_iters, path):
     np.savez(path, num_iters=num_iters, **primal, **dual)
 
 
+def _write_global_checkpoint(stp, z_np, eta_np, num_iters, path):
+    """A partitioned solve's fault checkpoint: every rank's block gathered
+    to the global node layout (so any partition, or none, resumes from it),
+    written by rank 0 while the others wait at a barrier."""
+    z = stp.primal_to_global(z_np)
+    eta = stp.dual_to_global(eta_np)
+    if stp.rank == 0:
+        _write_iterate_npz(z, eta, num_iters, path)
+    dist.barrier(stp.group)
+
+
 @contextlib.contextmanager
-def _profiled(profile_dir: Optional[str], device: torch.device):
+def _profiled(profile_dir: Optional[str], device: torch.device,
+              name: str = "trace.json"):
     """``torch.profiler`` around the solve (CUDA activity only on a CUDA
-    device), its Chrome trace written to ``profile_dir/trace.json``."""
+    device), its Chrome trace written to ``profile_dir/name``."""
     if not profile_dir:
         yield
         return
@@ -427,7 +480,7 @@ def _profiled(profile_dir: Optional[str], device: torch.device):
     with profile(activities=activities) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    prof.export_chrome_trace(os.path.join(profile_dir, name))
 
 
 def _host(v):
@@ -446,20 +499,76 @@ class Solver:
     ``device`` defaults to the card (``"cuda"``); without one the call
     raises, and nothing carries on on the CPU unless ``device="cpu"`` is
     passed. ``dtype`` defaults to float64 on the CPU and float32 on a GPU.
-    ``mesh`` (multi-device runs) is not ported yet.
+
+    :param mesh: a 1-D ``DeviceMesh`` over every rank
+        (:func:`raocp_tpu_torch.parallel.make_mesh`), for a solve that runs
+        SPMD: every rank builds the same Solver, holds its own block and
+        returns the same global results. The device is the mesh's
+        (``cuda:{current device}`` on a CUDA mesh); a ``device`` that
+        names another raises.
+    :param partition: the multi-rank layout (JAX ``solver.py:489``):
+
+        * ``"subtree"``: the replicated-spine subtree partition
+          (:mod:`raocp_tpu_torch.parallel.subtree`); needs a mesh of more
+          than one rank and uniform branching below some stage.
+        * ``"auto"`` (default): the subtree partition on a mesh of more
+          than one rank; a one-rank mesh runs the single-device path.
+        * ``"flat"``: the flat node split, not ported (ROADMAP.md item
+          14b): with a mesh it raises, as ``"auto"`` does on a tree with no
+          frontier or with ``pad_multiple`` on a mesh of several ranks.
     """
 
     def __init__(self, problem_spec: RAOCP, dtype=None,
                  pad_multiple: Optional[int] = None, offline: str = "host",
-                 mesh=None, device="cuda"):
+                 mesh=None, partition: str = "auto", device="cuda"):
+        if partition not in ("auto", "subtree", "flat"):
+            raise ValueError(f"unknown partition '{partition}'")
+        if mesh is not None and partition == "flat":
+            raise _not_ported("the flat node partition", "14b")
+        ranks = 1 if mesh is None else mesh.size()
+        if partition == "subtree" and ranks < 2:
+            raise ValueError(
+                "partition='subtree' needs a mesh with more than one "
+                "device (raocp_tpu_torch.parallel.make_mesh); otherwise the "
+                "solve would silently run the single-device path")
+        if partition == "subtree" and pad_multiple not in (None, 1):
+            raise ValueError(
+                "pad_multiple applies to the flat node layout only; the "
+                "subtree partition pads stages to the device count "
+                "internally — drop the argument")
+        self.__subtree = None
         if mesh is not None:
-            raise _not_ported("a multi-device mesh", 14)
+            device = mesh_device(mesh, device)
+            if ranks > 1:
+                if pad_multiple is not None:
+                    raise _not_ported("the flat node partition "
+                                      "(pad_multiple on a mesh)", "14b")
+                if choose_frontier(problem_spec.tree, ranks) is None:
+                    if partition == "subtree":
+                        raise ValueError(
+                            "partition='subtree' needs uniform branching "
+                            "below some stage; this tree is ragged "
+                            "everywhere")
+                    raise _not_ported("the flat node partition (a tree "
+                                      "with no subtree frontier)", "14b")
         pin_full_precision()
         self.__spec = problem_spec
-        self.__stacked = build_stacked(
-            problem_spec, dtype=dtype,
-            pad_multiple=1 if pad_multiple is None else pad_multiple,
-            offline=offline, device=device)
+        if ranks > 1:
+            # the global problem stays on the host; only this rank's block
+            # goes to the device
+            dtype = default_dtype(device) if dtype is None \
+                else _torch_dtype(dtype)
+            self.__stacked = build_stacked(
+                problem_spec, dtype=dtype, pad_multiple=1, offline=offline,
+                device="cpu")
+            self.__subtree = build_subtree_problem(
+                problem_spec, mesh, dtype=dtype, offline=offline,
+                prebuilt=self.__stacked)
+        else:
+            self.__stacked = build_stacked(
+                problem_spec, dtype=dtype,
+                pad_multiple=1 if pad_multiple is None else pad_multiple,
+                offline=offline, device=device)
         self.__result: Optional[SolverResult] = None
         self.__lambda_max: Optional[float] = None
         self.__validate_plan: Optional[dict] = None
@@ -468,13 +577,23 @@ class Solver:
     def operator_norm_sq(self) -> float:
         """lambda_max(L'L), memoised per Solver."""
         if self.__lambda_max is None:
-            lam, self.power_iterations = _power_iteration(self.__stacked)
+            lam, self.power_iterations = _power_iteration(
+                self.__stacked if self.__subtree is None
+                else self.__subtree.sp)
             self.__lambda_max = float(lam)
         return self.__lambda_max
 
     @property
     def stacked(self) -> StackedProblem:
+        """The stacked problem; under the subtree partition the global one,
+        on the host (:attr:`subtree` holds this rank's block)."""
         return self.__stacked
+
+    @property
+    def subtree(self):
+        """The :class:`~raocp_tpu_torch.parallel.subtree.SubtreeProblem`
+        when the solver runs the subtree partition, else None."""
+        return self.__subtree
 
     @property
     def spec(self) -> RAOCP:
@@ -535,6 +654,13 @@ class Solver:
             raise ValueError(f"relax must lie in (0, 2), got {relax}")
         if accel not in (None, "anderson", "supermann", "broyden", "lbfgs"):
             raise ValueError(f"unknown accel '{accel}'")
+        stp = self.__subtree
+        if stp is not None:
+            if accel is not None:
+                raise ValueError(
+                    "accelerated loops are not supported under the subtree "
+                    "partition (ROADMAP.md item 14b)")
+            sp = stp.sp
         x0 = torch.as_tensor(x0_np, dtype=sp.dtype, device=sp.device)
         if alpha is None:
             alpha = 0.999 / self.operator_norm_sq()
@@ -547,30 +673,44 @@ class Solver:
                 dtype=sp.dtype, device=sp.device) for v in tree))
 
         if warm_start is None:
+            # the root is local row 0 (on every rank of a partition)
             z0 = sp.zero_primal()
             z0.x[0] = x0             # reference cache_initial_state
             eta0 = sp.zero_dual()
+        elif stp is not None:
+            # warm starts are in the global layout, whatever the partition
+            z0 = conv(stp.primal_to_local(warm_start[0]), Primal)
+            eta0 = conv(stp.dual_to_local(warm_start[1]), Dual)
         else:
             z0 = conv(warm_start[0], Primal)
             eta0 = conv(warm_start[1], Dual)
+        if stp is None:
+            run_cp = functools.partial(_run_cp, sp)
+            write_checkpoint = _write_iterate_npz
+            trace = "trace.json"
+        else:
+            run_cp = stp.run_cp
+            write_checkpoint = functools.partial(_write_global_checkpoint,
+                                                 stp)
+            trace = f"trace.rank{stp.rank}.json"
         if sp.device.type == "cuda":
             torch.cuda.synchronize(sp.device)
         tic = time.perf_counter()
-        with _profiled(profile_dir, sp.device):
+        with _profiled(profile_dir, sp.device, trace):
             if accel is None and chunk_iters is not None:
                 def run_chunk(zc, ec, iters_done):
-                    return _run_cp(
-                        sp, conv(zc, Primal), conv(ec, Dual), x0,
+                    return run_cp(
+                        conv(zc, Primal), conv(ec, Dual), x0,
                         alpha * step_ratio, alpha / step_ratio, tol,
                         int(chunk_iters), check_every, unroll, adaptive,
                         relax, log_every, k0=iters_done)
 
                 z, eta, iters, err, hist = _chunked_loop(
                     run_chunk, z0, eta0, tol, max_iters,
-                    checkpoint_on_fault, _write_iterate_npz)
+                    checkpoint_on_fault, write_checkpoint)
             elif accel is None:
-                z, eta, iters, err, hist = _run_cp(
-                    sp, z0, eta0, x0, alpha * step_ratio, alpha / step_ratio,
+                z, eta, iters, err, hist = run_cp(
+                    z0, eta0, x0, alpha * step_ratio, alpha / step_ratio,
                     tol, max_iters, check_every, unroll, adaptive, relax,
                     log_every)
             else:
@@ -591,8 +731,8 @@ class Solver:
             delta_history=hist[:, 3:],
             alpha=float(alpha),
             solve_time=toc - tic,
-            primal=_to_numpy(z),
-            dual=_to_numpy(eta),
+            primal=_to_numpy(z) if stp is None else stp.primal_to_global(z),
+            dual=_to_numpy(eta) if stp is None else stp.dual_to_global(eta),
         )
         return self.__result
 
@@ -623,6 +763,9 @@ class Solver:
         without a result raises; validate a lane with
         ``solver.validate(results[b])``.
         """
+        if self.__subtree is not None:
+            raise ValueError("solve_batch is not supported under the "
+                             "subtree partition (ROADMAP.md item 14b)")
         sp = self.__stacked
         x0s_np = np.asarray(initial_states, dtype=np.float64)
         if x0s_np.ndim != 2 or x0s_np.shape[1] != sp.n \

@@ -1,5 +1,6 @@
 """K1 on the card: the CUDA sweep kernel against its plain torch version,
-unbatched and batched (B lanes in one launch set).
+unbatched and batched (B lanes in one launch set); and the subtree partition
+on two gloo ranks that share the card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -215,3 +216,35 @@ def test_wrapper_refuses_a_wrong_lane_stride_or_shape(cuda):
         sweep.project_dynamics_sweep(sp, x, u[:2], x0s)
     with pytest.raises(ValueError, match="x0 has shape"):
         sweep.project_dynamics_sweep(sp, x, u, x0s[:, :-1])
+
+
+@pytest.mark.cuda
+def test_partitioned_demo_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device) run 200 iterations of the demo in float64 partitioned: the
+    single-card solve's iterates to 1e-12, and its xi history to 1e-12 of
+    its largest entry (the two power iterations' step sizes differ in the
+    last bits), the same on both ranks."""
+    import test_torch_subtree as worker
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.models import demo_problem
+
+    ranks = worker.run_world(2, ("cuda_demo",), str(tmp_path),
+                             device_type="cuda")
+    problem, x0 = demo_problem()
+    single = rt.Solver(problem, dtype=torch.float64, device=cuda).solve(
+        x0, max_iters=200, tol=1e-3)
+    (res, arrays), (res1, arrays1) = ranks
+    assert res["cuda_demo"]["device"].startswith("cuda")
+    assert res["cuda_demo"]["iters"] == single.num_iters == 201
+    assert res["cuda_demo"]["alpha"] == pytest.approx(single.alpha,
+                                                      rel=1e-10)
+    for tree in (single.primal, single.dual):
+        for k, v in tree._asdict().items():
+            np.testing.assert_allclose(arrays[f"cuda_demo/{k}"], v, rtol=0,
+                                       atol=1e-12, err_msg=k)
+    hist = single.xi_history
+    assert np.abs(arrays["cuda_demo/xi_history"] - hist).max() \
+        <= 1e-12 * np.abs(hist).max()
+    for k in arrays:
+        np.testing.assert_array_equal(arrays1[k], arrays[k], err_msg=k)

@@ -78,7 +78,8 @@ def test_example_families_match_jax(name, kwargs):
 
 
 def test_port_never_imports_jax():
-    """A fresh process imports the port (accel, mpc and utils included),
+    """A fresh process imports the port (accel, mpc, parallel and utils
+    included),
     builds, steps and validates the demo, and finds no JAX module loaded,
     and no matplotlib either (only the plotting functions import it)."""
     code = (
@@ -86,6 +87,7 @@ def test_port_never_imports_jax():
         "torch.set_num_threads(1)\n"
         "import raocp_tpu_torch as r\n"
         "import raocp_tpu_torch.accel, raocp_tpu_torch.mpc\n"
+        "import raocp_tpu_torch.parallel\n"
         "import raocp_tpu_torch.utils.evaluate, raocp_tpu_torch.utils.plots\n"
         "from raocp_tpu_torch.models import demo_problem\n"
         "problem, x0 = demo_problem()\n"
@@ -146,3 +148,16 @@ def test_solver_without_a_device_raises_without_a_card():
         rt.Solver(problem)
     assert rt.Solver(problem, device="cpu").solve(
         x0, max_iters=2, tol=1e-3).num_iters >= 2
+
+
+def test_flat_partition_on_a_mesh_raises_naming_14b(tmp_path):
+    """On a real 2-rank gloo mesh (two processes on the CPU), what is not
+    ported raises naming ROADMAP item 14b: ``partition="flat"``, and under
+    ``"auto"`` a tree with no subtree frontier or ``pad_multiple``."""
+    import test_torch_subtree as worker
+
+    (res, _), _ = worker.run_world(2, ("misconfig",), str(tmp_path))
+    for case in ("flat", "ragged_auto", "pad_auto"):
+        got = res["misconfig"][case]
+        assert got.startswith("NotImplementedError") and "item 14b" in got, \
+            got

@@ -133,9 +133,11 @@ def test_from_numpy_of_jax_leaves(fixture):
 
 
 def test_from_numpy_rejects_multi_device_layouts():
+    """A partitioned problem holds one device's block: it is not carried
+    across (the global problem is, and the port partitions it itself)."""
     _, ref = _pair("lqr_binary_problem", {}, 1)
     leaves, static = to_numpy(dataclasses.replace(ref, frontier=1))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="partitioned problem"):
         from_numpy(leaves, static, device="cpu")
 
 
