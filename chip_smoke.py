@@ -1,9 +1,10 @@
 """Smoke run of raocp_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # the smoke run (about 6 minutes)
+    python3 chip_smoke.py               # the smoke run (about 8 minutes)
     python3 chip_smoke.py --baseline    # BASELINE configs 3-5 to 1e-3
     python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
     python3 chip_smoke.py --mesh        # the partitioned phases alone
+                                        # (subtree and flat)
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
@@ -40,14 +41,27 @@ after:
   ranks (``--rank r --world 2 --port p``); each places itself on card
   ``rank % device_count``, runs the demo in float64 with the default options
   (937 iterations) and one closed-loop step of BASELINE config 5 at full
-  size (88,573 nodes) capped at 500 iterations, and writes what it got; the
+  size (88,573 nodes) capped at 250 iterations, and writes what it got; the
   script holds the ranks against each other and against single-card runs
   of the same (made here, before the ranks start): the demo's iterates to
   1e-12, config 5's within three times the single card's own float32
   rounding (its distance to the same step in float64). A rank that fails,
   or a group that times out, fails the run. The partitioned sweep runs the torch
   stage path with the frontier all-reduce, as the JAX package's partition
-  does (no Pallas kernel there): 0 K1 launches.
+  does (no Pallas kernel there): 0 K1 launches;
+* ``mesh_flat_demo_f64`` and ``mesh_flat_headline_f64``: the flat node
+  partition (``partition="flat"``) in the same two ranks, after the subtree
+  phases: the demo in float64 (937 iterations, iterates within 1e-12 of the
+  single card's), the ragged 3-stage demo under "auto" (flat), three lanes
+  in one ``solve_batch`` (lane 0: 937) and an Anderson window against the
+  single card; then BASELINE config 4 at full width (9,841 nodes, not cut)
+  in float64, plain CP capped at 500 iterations and SuperMann at 100, each
+  at the single card's step size and held against the same runs on the
+  single card (K1 there; iterates and histories within 1e-9 relative).
+  Each prints its ms a step beside the single card's, its exchanges and
+  all-reduces a step, the bytes a rank sends, the host ms in them with the
+  wait for the stream apart, and each rank's peak memory. The flat sweep
+  runs the torch stage path with its halo exchanges: 0 K1 launches.
 
 It prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line
@@ -57,10 +71,11 @@ no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
 config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
 (``--config5-steps``, default 1), and ``scripts/bench_batch.py``'s two
 measurements on the card: eight lanes of the headline (in float32 and in
-float64) and of config 3 to 1e-3 in one batch against eight sequential
-solves. ``--profile`` runs 100 CP steps of config 5 with
-``solve(profile_dir=...)`` and prints, from that trace, the card's busy
-share of the step and its kernels by time.
+float64) and of ``soc_network_problem()`` with its defaults (the SOC
+network, 148 nodes; not BASELINE config 3's 3,280) to 1e-3 in one batch
+against eight sequential solves. ``--profile`` runs 100 CP steps of
+config 5 with ``solve(profile_dir=...)`` and prints, from that trace, the
+card's busy share of the step and its kernels by time.
 """
 
 import argparse
@@ -117,12 +132,14 @@ F32_COUNT_SLACK = 0.1
 # config 5's partitioned float32 step against the single card's, on each
 # iterate leaf relative to that leaf's inf-norm: within this many times the
 # single card's own float32 rounding of the leaf (its distance to the same
-# step in float64), plus 1e-6. After 500 unconverged steps the leaf SOC
-# duals e11-e13 carry 7-10% of float32 rounding on either layout, the other
-# leaves at most 1.3e-4; the partition's gap measured 0.53-1.5 times the
-# single card's own (PERF.md, the partition's findings)
+# step in float64), plus 1e-6. After 500 unconverged steps (the cap until
+# the flat phases joined the run) the leaf SOC duals e11-e13 carried 7-10%
+# of float32 rounding on either layout, the other leaves at most 1.3e-4;
+# the partition's gap measured 0.53-1.5 times the single card's own
+# (PERF.md, the partition's findings)
 MESH_CONFIG5_ROUNDING = 3.0
-# and the applied input, relative to its largest entry (measured 1.6e-4)
+# and the applied input, relative to its largest entry (measured 1.6e-4
+# after 500 steps)
 MESH_CONFIG5_INPUT_TOL = 1e-3
 
 
@@ -182,7 +199,7 @@ def phase_build():
          seconds=time.perf_counter() - tic)
 
 
-# -- the subtree partition over two gloo ranks on the card ----------------
+# -- the partitions over two gloo ranks on the card -------------------------
 
 MESH_WORLD = 2
 # every collective's bound (seconds) inside the ranks, and the ranks' whole
@@ -190,59 +207,119 @@ MESH_WORLD = 2
 MESH_GROUP_TIMEOUT = 120
 MESH_TIMEOUT = 900
 # BASELINE config 5's partitioned step: the closed loop's options, capped
-MESH_CONFIG5_RUN = dict(num_steps=1, initial_mode=0, max_iters=500,
+# (at 250 iterations, from 500, to keep the smoke near 8 minutes with the
+# flat phases)
+MESH_CONFIG5_RUN = dict(num_steps=1, initial_mode=0, max_iters=250,
                         check_every=25, unroll=5, relax="auto")
+# the flat partition's runs: the demo with its default options (and its
+# three lanes, an Anderson window, the ragged tree with no subtree
+# frontier); the headline's plain CP and SuperMann, capped
+FLAT_DEMO = dict(max_iters=2000, tol=1e-3)
+FLAT_BATCH_SCALES = (1.0, 0.5, -0.3)
+FLAT_ANDERSON_WINDOW = 60
+RAGGED = dict(num_stages=3, stopping_time=3)
+FLAT_HEADLINE_CP = dict(max_iters=500, tol=1e-3, check_every=25, unroll=25)
+FLAT_HEADLINE_SUPERMANN = dict(max_iters=100, tol=1e-3, accel="supermann",
+                               accel_memory=5)
+# the flat headline against the single card in float64: K1 against the
+# torch sweep and other summation orders alone, so every iterate leaf
+# within this much of its inf-norm, the histories of their largest entry.
+# A leaf below FLAT_NOISE_FLOOR of the iterate's largest entry holds
+# rounding noise alone (SuperMann's e7 on the headline: 5e-18 against 11,
+# its constraints far from binding), so it is measured against that floor
+FLAT_HEADLINE_REL = 1e-9
+FLAT_NOISE_FLOOR = 1e-6
+
+
+@contextlib.contextmanager
+def _t_evals():
+    """Count ``prox_f`` calls (the T evaluations) while a solve runs,
+    leaving the K1 launch count alone."""
+    calls = {"prox_f": 0}
+    real = solver_mod.prox_f
+
+    def counting(*args, **kwargs):
+        calls["prox_f"] += 1
+        return real(*args, **kwargs)
+
+    solver_mod.prox_f = counting
+    try:
+        yield calls
+    finally:
+        solver_mod.prox_f = real
 
 
 def _mesh_counters():
     from raocp_tpu_torch.parallel import sharding
     torch.cuda.synchronize()
-    sharding.ALL_REDUCES = sharding.ALL_REDUCE_BYTES = 0
-    sharding.ALL_REDUCE_SECONDS = 0.0
+    sharding.reset_counters()
     sweep.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
 
 
-def _mesh_read(stp, iters):
-    """What a rank's run exchanged and held: all-reduces, their bytes and
-    host ms per CP step, K1 launches, peak memory, and its block."""
-    from raocp_tpu_torch.parallel import sharding
+def _collective_read(iters):
+    """What a rank's run exchanged, per CP step (per iteration of an
+    accelerated run): all-reduces and halo exchanges, the bytes in them
+    (an exchange: what this rank sends), the host ms in the collectives and,
+    apart, in the wait for the rank's own stream before each; K1 launches
+    and peak memory."""
+    from raocp_tpu_torch.parallel import sharding as sh
     torch.cuda.synchronize()
-    ids = stp.plan.np_ids
     return dict(
-        frontier=stp.frontier, local_rows=stp.plan.l_np,
-        spine_rows=stp.sp.stage_start[stp.frontier],
-        ghost_rows_this_rank=int((ids[stp.rank] < 0).sum()),
-        ghost_rows_all_ranks=int((ids < 0).sum()),
-        all_reduces=sharding.ALL_REDUCES,
-        all_reduces_per_step=sharding.ALL_REDUCES / iters,
-        all_reduce_bytes_per_step=sharding.ALL_REDUCE_BYTES / iters,
-        all_reduce_ms_per_step=1e3 * sharding.ALL_REDUCE_SECONDS / iters,
+        all_reduces=sh.ALL_REDUCES,
+        all_reduces_per_step=sh.ALL_REDUCES / iters,
+        all_reduce_bytes_per_step=sh.ALL_REDUCE_BYTES / iters,
+        all_reduce_ms_per_step=1e3 * sh.ALL_REDUCE_SECONDS / iters,
+        all_reduce_wait_ms_per_step=1e3 * sh.ALL_REDUCE_WAIT_SECONDS / iters,
+        exchanges=sh.EXCHANGES,
+        exchanges_per_step=sh.EXCHANGES / iters,
+        exchange_bytes_per_step=sh.EXCHANGE_BYTES / iters,
+        exchange_ms_per_step=1e3 * sh.EXCHANGE_SECONDS / iters,
+        exchange_wait_ms_per_step=1e3 * sh.EXCHANGE_WAIT_SECONDS / iters,
         k1_launches=sweep.LAUNCHES,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
-def _save_result(path, res):
-    arrays = {"xi_history": res.xi_history, "delta_history": res.delta_history}
+def _mesh_read(stp, iters):
+    """A subtree rank's collectives (:func:`_collective_read`) and its
+    block."""
+    ids = stp.plan.np_ids
+    return dict(
+        _collective_read(iters), frontier=stp.frontier,
+        local_rows=stp.plan.l_np,
+        spine_rows=stp.sp.stage_start[stp.frontier],
+        ghost_rows_this_rank=int((ids[stp.rank] < 0).sum()),
+        ghost_rows_all_ranks=int((ids < 0).sum()))
+
+
+def _flat_read(fp, iters):
+    """A flat rank's collectives (:func:`_collective_read`) and its
+    blocks: rows a block of each node space, and its real rows."""
+    sp = fp.sp
+    return dict(_collective_read(iters),
+                blocks=[sp.np_pad, sp.nl_pad, sp.lf_pad],
+                real_rows=[hi - lo for lo, hi in (fp.plan.real["np"],
+                                                  fp.plan.real["nl"],
+                                                  fp.plan.real["lf"])])
+
+
+def _result_arrays(res, prefix=""):
+    arrays = {f"{prefix}xi_history": res.xi_history,
+              f"{prefix}delta_history": res.delta_history}
     for tree in (res.primal, res.dual):
-        arrays.update({k: np.asarray(v) for k, v in tree._asdict().items()})
-    np.savez(path, **arrays)
+        arrays.update({f"{prefix}{k}": np.asarray(v)
+                       for k, v in tree._asdict().items()})
+    return arrays
 
 
-def rank_main(args):
-    """One rank of the partitioned phases: a gloo group on localhost, a
-    CUDA mesh, the demo in float64 and config 5's capped step; each
-    phase's numbers to ``out/{phase}.rank{r}.json``, its iterates to
-    ``.npz``."""
-    from raocp_tpu_torch.parallel import initialize_distributed, make_mesh
+def _save_phase(base, phase, out, arrays):
+    np.savez(base.format(phase) + ".npz", **arrays)
+    with open(base.format(phase) + ".json", "w") as fh:
+        json.dump(out, fh)
 
-    initialize_distributed("gloo",
-                           init_method=f"tcp://127.0.0.1:{args.port}",
-                           world_size=args.world, rank=args.rank,
-                           timeout=MESH_GROUP_TIMEOUT)
-    mesh = make_mesh("cuda")
-    base = os.path.join(args.out, "{}.rank%d" % args.rank)
 
+def _rank_subtree(mesh, base):
+    """``mesh_demo_f64`` and ``mesh_config5_f32`` on this rank."""
     problem, x0 = demo_problem()
     solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh)
     solver.operator_norm_sq()
@@ -253,9 +330,7 @@ def rank_main(args):
                converged=res.converged, xi=res.xi.tolist(), alpha=res.alpha,
                ms_per_step=1e3 * res.solve_time / res.num_iters,
                validate=max(solver.validate(res).values()))
-    _save_result(base.format("mesh_demo_f64") + ".npz", res)
-    with open(base.format("mesh_demo_f64") + ".json", "w") as fh:
-        json.dump(out, fh)
+    _save_phase(base, "mesh_demo_f64", out, _result_arrays(res))
 
     tic = time.perf_counter()
     controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
@@ -273,10 +348,103 @@ def rank_main(args):
                iters=res.num_iters, xi=res.xi.tolist(), alpha=res.alpha,
                ms_per_step=1e3 * res.solve_time / res.num_iters,
                inputs=run.inputs.tolist(), states=run.states.tolist())
-    _save_result(base.format("mesh_config5_f32") + ".npz", res)
-    with open(base.format("mesh_config5_f32") + ".json", "w") as fh:
-        json.dump(out, fh)
+    _save_phase(base, "mesh_config5_f32", out, _result_arrays(res))
+
+
+def _rank_flat_demo(mesh, base, refs):
+    """``mesh_flat_demo_f64`` on this rank: the demo on the flat layout
+    (its collectives read over the plain solve), the ragged tree under
+    "auto", three lanes in one batch, an Anderson window at the single
+    card's step size."""
+    problem, x0 = demo_problem()
+    sweep.LAUNCHES = 0
+    solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh,
+                       partition="flat")
+    solver.operator_norm_sq()
+    launches = sweep.LAUNCHES
+    _mesh_counters()
+    res = solver.solve(x0, **FLAT_DEMO)
+    out = dict(_flat_read(solver.flat, res.num_iters),
+               device=str(solver.flat.sp.device), iters=res.num_iters,
+               converged=res.converged, xi=res.xi.tolist(), alpha=res.alpha,
+               ms_per_step=1e3 * res.solve_time / res.num_iters,
+               validate=max(solver.validate(res).values()))
+    arrays = _result_arrays(res)
+    launches += sweep.LAUNCHES
+    sweep.LAUNCHES = 0
+    ragged, rx0 = demo_problem(**RAGGED)
+    rsolver = rt.Solver(ragged, dtype=torch.float64, mesh=mesh)
+    rres = rsolver.solve(rx0, **FLAT_DEMO)
+    x0 = np.asarray(x0)
+    lanes = solver.solve_batch(np.stack([s * x0 for s in FLAT_BATCH_SCALES]),
+                               **FLAT_DEMO)
+    with _t_evals() as calls:
+        anderson = solver.solve(x0, max_iters=FLAT_ANDERSON_WINDOW,
+                                tol=1e-12, alpha=refs["demo_alpha"],
+                                accel="anderson")
+    out.update(ragged_flat=rsolver.flat is not None,
+               ragged_subtree=rsolver.subtree is not None,
+               ragged_iters=rres.num_iters,
+               batch_iters=[r.num_iters for r in lanes],
+               batch_converged=[r.converged for r in lanes],
+               batch_s=lanes[0].solve_time,
+               anderson_iters=anderson.num_iters,
+               anderson_t_evals=calls["prox_f"],
+               k1_launches_phase=launches + sweep.LAUNCHES)
+    arrays.update(_result_arrays(rres, "ragged/"))
+    arrays.update(_result_arrays(lanes[0], "lane0/"))
+    arrays.update(_result_arrays(anderson, "anderson/"))
+    _save_phase(base, "mesh_flat_demo_f64", out, arrays)
+
+
+def _rank_flat_headline(mesh, base, refs):
+    """``mesh_flat_headline_f64`` on this rank: BASELINE config 4 at full
+    width on the flat layout, plain CP and SuperMann, capped, at the
+    single card's step size."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    tic = time.perf_counter()
+    solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh,
+                       partition="flat")
+    setup_s = time.perf_counter() - tic
+    fp = solver.flat
+    alpha = refs["headline_alpha"]
+    _mesh_counters()
+    cp = solver.solve(x0, alpha=alpha, **FLAT_HEADLINE_CP)
+    out = dict(_flat_read(fp, cp.num_iters), nodes=solver.stacked.num_nodes,
+               device=str(fp.sp.device), setup_s=setup_s,
+               iters=cp.num_iters, xi=cp.xi.tolist(),
+               ms_per_step=1e3 * cp.solve_time / cp.num_iters)
+    arrays = _result_arrays(cp, "cp/")
+    _mesh_counters()
+    with _t_evals() as calls:
+        sm = solver.solve(x0, alpha=alpha, **FLAT_HEADLINE_SUPERMANN)
+    out["supermann"] = dict(
+        _flat_read(fp, sm.num_iters), iters=sm.num_iters,
+        t_evals=calls["prox_f"], xi=sm.xi.tolist(),
+        ms_per_iter=1e3 * sm.solve_time / sm.num_iters)
+    arrays.update(_result_arrays(sm, "supermann/"))
+    _save_phase(base, "mesh_flat_headline_f64", out, arrays)
+
+
+def rank_main(args):
+    """One rank of the partitioned phases: a gloo group on localhost, a
+    CUDA mesh; the subtree phases, then the flat ones (the single card's
+    step sizes from ``out/refs.json``); each phase's numbers to
+    ``out/{phase}.rank{r}.json``, its iterates to ``.npz``."""
     import torch.distributed as dist
+    from raocp_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed("gloo",
+                           init_method=f"tcp://127.0.0.1:{args.port}",
+                           world_size=args.world, rank=args.rank,
+                           timeout=MESH_GROUP_TIMEOUT)
+    mesh = make_mesh("cuda")
+    base = os.path.join(args.out, "{}.rank%d" % args.rank)
+    with open(os.path.join(args.out, "refs.json")) as fh:
+        refs = json.load(fh)
+    _rank_subtree(mesh, base)
+    _rank_flat_demo(mesh, base, refs)
+    _rank_flat_headline(mesh, base, refs)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -331,37 +499,98 @@ def _load_ranks(out, phase):
     return got
 
 
-def _leaf_diffs(arrays, res, rel=False):
-    """max |arrays[leaf] - res's leaf| for every iterate leaf (over the
-    leaf's own inf-norm in ``res`` with ``rel``)."""
+def _leaf_diffs(arrays, res, rel=False, prefix="", floor=0.0):
+    """max |arrays[prefix + leaf] - res's leaf| for every iterate leaf (over
+    the leaf's own inf-norm in ``res`` with ``rel``, or over ``floor``
+    times the iterate's largest entry where that is more), on the rows of
+    ``arrays`` (a flat result holds real rows, a padded one more)."""
+    leaves = {k: np.asarray(v, dtype=np.float64)
+              for tree in (res.primal, res.dual)
+              for k, v in tree._asdict().items()}
+    scale = floor * max(float(np.abs(v).max(initial=0.0))
+                        for v in leaves.values())
     out = {}
-    for tree in (res.primal, res.dual):
-        for k, v in tree._asdict().items():
-            v = np.asarray(v, dtype=np.float64)
-            d = float(np.abs(np.asarray(arrays[k], dtype=np.float64)
-                             - v).max(initial=0.0))
-            if rel:
-                d /= max(float(np.abs(v).max(initial=0.0)), 1e-30)
-            out[k] = d
+    for k, v in leaves.items():
+        got = np.asarray(arrays[prefix + k], dtype=np.float64)
+        v = v[:got.shape[0]]
+        d = float(np.abs(got - v).max(initial=0.0))
+        if rel:
+            d /= max(float(np.abs(v).max(initial=0.0)), scale, 1e-30)
+        out[k] = d
     return out
 
 
-def _ranks_agree(ranks, skip=("ghost_rows_this_rank",)):
+def _hist_rel(arrays, key, res_hist):
+    """max |history difference| over the history's largest entry (inf when
+    the shapes or the unchecked rows differ)."""
+    got = arrays[key]
+    if got.shape != res_hist.shape \
+            or not np.array_equal(np.isnan(got), np.isnan(res_hist)):
+        return float("inf")
+    return float(np.nanmax(np.abs(got - res_hist), initial=0.0)
+                 / np.nanmax(np.abs(res_hist)))
+
+
+def _ranks_agree(ranks, keys):
     """Both ranks returned the same arrays, bit for bit, and the same
-    numbers (their own timings, memory and ghost rows aside)."""
-    mine = ("ms_per_step", "all_reduce_ms_per_step", "setup_s",
-            "max_memory_allocated_bytes") + skip
+    ``keys`` (their own timings, bytes, memory and rows aside)."""
     (a, arr_a), (b, arr_b) = ranks[0], ranks[1]
-    same = all(np.array_equal(arr_a[k], arr_b[k], equal_nan=True)
-               for k in arr_a)
-    return same and {k: v for k, v in a.items() if k not in mine} \
-        == {k: v for k, v in b.items() if k not in mine}
+    same = arr_a.keys() == arr_b.keys() and all(
+        np.array_equal(arr_a[k], arr_b[k], equal_nan=True) for k in arr_a)
+    return same and all(a[k] == b[k] for k in keys)
+
+
+def _per_rank(ranks, *keys):
+    """{key: [rank 0's, rank 1's]} of a phase's numbers."""
+    return {k: [r[k] for r, _ in ranks] for k in keys}
+
+
+_COLLECTIVE_KEYS = ("all_reduce_ms_per_step", "all_reduce_wait_ms_per_step",
+                    "exchange_ms_per_step", "exchange_wait_ms_per_step",
+                    "exchange_bytes_per_step", "max_memory_allocated_bytes",
+                    "ms_per_step")
+
+
+def _flat_references(demo):
+    """The single card's runs the flat phases are held against (made
+    before the ranks start): the ragged demo, an Anderson window on the
+    demo at its step size, and the headline in float64, plain CP and
+    SuperMann, capped."""
+    ragged, rx0 = demo_problem(**RAGGED)
+    refs = {"ragged": rt.Solver(ragged, dtype=torch.float64,
+                                device=DEV).solve(rx0, **FLAT_DEMO)}
+    problem, x0 = demo_problem()
+    with _t_evals() as calls:
+        refs["anderson"] = rt.Solver(
+            problem, dtype=torch.float64, device=DEV).solve(
+            x0, max_iters=FLAT_ANDERSON_WINDOW, tol=1e-12, alpha=demo.alpha,
+            accel="anderson")
+    refs["anderson_t_evals"] = calls["prox_f"]
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem, dtype=torch.float64, device=DEV)
+    refs["headline_alpha"] = 0.999 / solver.operator_norm_sq()
+    torch.cuda.reset_peak_memory_stats()
+    with counted() as calls:
+        refs["headline_cp"] = solver.solve(x0, alpha=refs["headline_alpha"],
+                                           **FLAT_HEADLINE_CP)
+    refs["headline_cp_k1"] = calls["k1"]
+    refs["headline_cp_prox_f"] = calls["prox_f"]
+    refs["headline_peak"] = torch.cuda.max_memory_allocated()
+    with _t_evals() as calls:
+        refs["headline_sm"] = solver.solve(
+            x0, alpha=refs["headline_alpha"], **FLAT_HEADLINE_SUPERMANN)
+    refs["headline_sm_t_evals"] = calls["prox_f"]
+    refs["headline_nodes"] = solver.stacked.num_nodes
+    del solver
+    torch.cuda.empty_cache()
+    return refs
 
 
 def phase_mesh(demo):
-    """``mesh_demo_f64`` and ``mesh_config5_f32`` (module docstring). The
-    single-card runs they are held against: ``demo`` (phase_parity's card
-    solve) and config 5's capped step, made here before the ranks start."""
+    """The partitioned phases (module docstring). The single-card runs they
+    are held against: ``demo`` (phase_parity's card solve), config 5's
+    capped step, and :func:`_flat_references`, made here before the ranks
+    start."""
     controller, x0 = network_mpc_controller(**CONFIG5, offline="device")
     solver, _ = controller.solver_for_mode(0)
     solver.operator_norm_sq()
@@ -377,33 +606,39 @@ def phase_mesh(demo):
     single64 = controller.solver_for_mode(0)[0].result
     del controller, solver
     torch.cuda.empty_cache()
+    refs = _flat_references(demo)
 
     with tempfile.TemporaryDirectory() as out:
+        with open(os.path.join(out, "refs.json"), "w") as fh:
+            json.dump({"demo_alpha": demo.alpha,
+                       "headline_alpha": refs["headline_alpha"]}, fh)
         tic = time.perf_counter()
         _run_ranks(out)
         ranks_s = time.perf_counter() - tic
         demo_ranks = _load_ranks(out, "mesh_demo_f64")
         c5_ranks = _load_ranks(out, "mesh_config5_f32")
+        flat_ranks = _load_ranks(out, "mesh_flat_demo_f64")
+        head_ranks = _load_ranks(out, "mesh_flat_headline_f64")
 
     got, arrays = demo_ranks[0]
     it_diff = max(_leaf_diffs(arrays, demo).values())
     hist = demo.xi_history
     hist_diff = float(np.abs(arrays["xi_history"] - hist).max()) \
         if arrays["xi_history"].shape == hist.shape else float("inf")
-    agree = _ranks_agree(demo_ranks)
+    agree = _ranks_agree(demo_ranks, ("iters", "xi", "alpha", "validate",
+                                      "all_reduces", "k1_launches"))
+    PATH_LAUNCHES["mesh_demo_f64"] = got["k1_launches"]
     emit("mesh_demo_f64", ranks=MESH_WORLD, backend="gloo",
          **{k: got[k] for k in ("device", "iters", "xi", "alpha", "validate",
                                 "frontier", "local_rows", "spine_rows",
                                 "ghost_rows_all_ranks", "all_reduces",
                                 "all_reduces_per_step",
                                 "all_reduce_bytes_per_step", "k1_launches")},
-         ms_per_step=[r["ms_per_step"] for r, _ in demo_ranks],
-         all_reduce_ms_per_step=[r["all_reduce_ms_per_step"]
-                                 for r, _ in demo_ranks],
+         **_per_rank(demo_ranks, "ms_per_step", "all_reduce_ms_per_step",
+                     "all_reduce_wait_ms_per_step",
+                     "max_memory_allocated_bytes"),
          single_card_ms_per_step=1e3 * demo.solve_time / demo.num_iters,
          single_card_alpha=demo.alpha,
-         max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
-                                     for r, _ in demo_ranks],
          iterate_max_diff=it_diff, xi_history_max_diff=hist_diff,
          xi_history_scale=float(np.abs(hist).max()), ranks_agree=agree,
          ranks_s=ranks_s)
@@ -434,8 +669,10 @@ def phase_mesh(demo):
     u_single = np.asarray(run.inputs)
     u_rel = float(np.abs(np.asarray(got["inputs"]) - u_single).max()
                   / np.abs(u_single).max())
-    agree = _ranks_agree(c5_ranks)
+    agree = _ranks_agree(c5_ranks, ("iters", "xi", "alpha", "inputs",
+                                    "states", "all_reduces", "k1_launches"))
     finite = all(np.isfinite(arrays[k]).all() for k in by_leaf)
+    PATH_LAUNCHES["mesh_config5_f32"] = got["k1_launches"]
     emit("mesh_config5_f32", ranks=MESH_WORLD, backend="gloo",
          **{k: got[k] for k in ("nodes", "dtype", "iters", "xi", "alpha",
                                 "power_iterations", "frontier", "local_rows",
@@ -444,16 +681,13 @@ def phase_mesh(demo):
                                 "all_reduce_bytes_per_step", "k1_launches")},
          ghost_rows_per_rank=[r["ghost_rows_this_rank"]
                               for r, _ in c5_ranks],
-         setup_s=[r["setup_s"] for r, _ in c5_ranks],
-         ms_per_step=[r["ms_per_step"] for r, _ in c5_ranks],
-         all_reduce_ms_per_step=[r["all_reduce_ms_per_step"]
-                                 for r, _ in c5_ranks],
+         **_per_rank(c5_ranks, "setup_s", "ms_per_step",
+                     "all_reduce_ms_per_step", "all_reduce_wait_ms_per_step",
+                     "max_memory_allocated_bytes"),
          single_card_ms_per_step=1e3 * single.solve_time / single.num_iters,
          single_card_iters=single.num_iters, single_card_alpha=single.alpha,
          single_card_k1_launches=calls["k1"],
          single_card_max_memory_allocated_bytes=single_peak,
-         max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
-                                     for r, _ in c5_ranks],
          iterate_max_rel_diff=it_rel, input_max_rel_diff=u_rel,
          rounding_ratio_by_leaf=ratio,
          iterate_rel_diff_by_leaf=by_leaf,
@@ -478,6 +712,152 @@ def phase_mesh(demo):
     check(u_rel <= MESH_CONFIG5_INPUT_TOL,
           f"partitioned config 5 input {u_rel} from the single card's")
     check(got["k1_launches"] == 0, "K1 ran on the partitioned config 5")
+
+    _check_flat_demo(flat_ranks, demo, refs)
+    _check_flat_headline(head_ranks, refs)
+
+
+def _check_flat_demo(ranks, demo, refs):
+    """``mesh_flat_demo_f64``: the demo on the flat layout against the
+    single card (937 iterations, iterates to 1e-12), the ragged tree under
+    "auto" (flat; the single card's count, iterates to 1e-12), three lanes
+    (lane 0: 937, the single card's iterates), an Anderson window (the
+    single card's T evaluations, iterates to 1e-10)."""
+    got, arrays = ranks[0]
+    it_diff = max(_leaf_diffs(arrays, demo).values())
+    hist_rel = _hist_rel(arrays, "xi_history", demo.xi_history)
+    ragged = refs["ragged"]
+    ragged_diff = max(_leaf_diffs(arrays, ragged, prefix="ragged/").values())
+    lane0_diff = max(_leaf_diffs(arrays, demo, prefix="lane0/").values())
+    anderson = refs["anderson"]
+    anderson_diff = max(_leaf_diffs(arrays, anderson,
+                                    prefix="anderson/").values())
+    agree = _ranks_agree(ranks, ("iters", "xi", "alpha", "validate",
+                                 "exchanges", "all_reduces", "ragged_iters",
+                                 "batch_iters", "anderson_iters",
+                                 "anderson_t_evals", "k1_launches_phase"))
+    PATH_LAUNCHES["mesh_flat_demo_f64"] = got["k1_launches_phase"]
+    emit("mesh_flat_demo_f64", ranks=MESH_WORLD, backend="gloo",
+         **{k: got[k] for k in (
+             "device", "iters", "xi", "alpha", "validate", "exchanges",
+             "exchanges_per_step", "all_reduces", "all_reduces_per_step",
+             "all_reduce_bytes_per_step", "k1_launches_phase",
+             "ragged_flat", "ragged_subtree", "ragged_iters", "batch_iters",
+             "batch_converged", "anderson_iters", "anderson_t_evals")},
+         **_per_rank(ranks, "blocks", "real_rows", "batch_s",
+                     *_COLLECTIVE_KEYS),
+         single_card_ms_per_step=1e3 * demo.solve_time / demo.num_iters,
+         single_card_alpha=demo.alpha, iterate_max_diff=it_diff,
+         xi_history_max_rel=hist_rel, ragged_single_iters=ragged.num_iters,
+         ragged_iterate_max_diff=ragged_diff,
+         lane0_iterate_max_diff=lane0_diff,
+         anderson_single_iters=anderson.num_iters,
+         anderson_single_t_evals=refs["anderson_t_evals"],
+         anderson_iterate_max_diff=anderson_diff, ranks_agree=agree)
+    check(got["converged"] and got["iters"] == 937,
+          f"flat demo took {got['iters']} iterations, not 937")
+    check(np.allclose(got["xi"], [9.9508e-4, 9.4106e-4, 9.5599e-4],
+                      rtol=1e-3, atol=0), f"flat demo xi {got['xi']}")
+    check(it_diff <= 1e-12 and hist_rel <= 1e-12,
+          f"flat demo iterates {it_diff}, history {hist_rel} (relative) "
+          "from the single card's")
+    check(got["validate"] < 1e-10, f"flat demo validate {got['validate']}")
+    check(got["ragged_flat"] and not got["ragged_subtree"]
+          and got["ragged_iters"] == ragged.num_iters
+          and ragged_diff <= 1e-12,
+          f"ragged demo under 'auto': flat {got['ragged_flat']}, "
+          f"{got['ragged_iters']} iterations (single card "
+          f"{ragged.num_iters}), iterates {ragged_diff} apart")
+    check(got["batch_iters"][0] == 937 and all(got["batch_converged"])
+          and lane0_diff <= 1e-12,
+          f"flat batch: {got['batch_iters']}, lane 0 {lane0_diff} from "
+          "the single card's demo")
+    check(got["anderson_t_evals"] == refs["anderson_t_evals"]
+          and got["anderson_iters"] == anderson.num_iters
+          and anderson_diff <= 1e-10,
+          f"flat Anderson window: {got['anderson_t_evals']} T evaluations "
+          f"(single card {refs['anderson_t_evals']}), iterates "
+          f"{anderson_diff} apart")
+    check(agree, "the two ranks' flat demo results differ")
+    check(got["k1_launches_phase"] == 0, "K1 ran on the flat demo")
+
+
+def _check_flat_headline(ranks, refs):
+    """``mesh_flat_headline_f64``: BASELINE config 4 (9,841 nodes) on the
+    flat layout, plain CP capped at 500 iterations and SuperMann at 100,
+    each within FLAT_HEADLINE_REL of the single card's (K1 there)."""
+    got, arrays = ranks[0]
+    cp, sm = refs["headline_cp"], refs["headline_sm"]
+    cp_leaf = _leaf_diffs(arrays, cp, rel=True, prefix="cp/",
+                          floor=FLAT_NOISE_FLOOR)
+    sm_leaf = _leaf_diffs(arrays, sm, rel=True, prefix="supermann/",
+                          floor=FLAT_NOISE_FLOOR)
+    cp_hist = _hist_rel(arrays, "cp/xi_history", cp.xi_history)
+    sm_hist = _hist_rel(arrays, "supermann/xi_history", sm.xi_history)
+    finite = all(np.isfinite(arrays[run + k]).all()
+                 for run in ("cp/", "supermann/") for k in cp_leaf)
+    gsm = got["supermann"]
+    agree = _ranks_agree(ranks, ("iters", "xi", "exchanges", "all_reduces",
+                                 "k1_launches")) \
+        and ranks[0][0]["supermann"]["t_evals"] \
+        == ranks[1][0]["supermann"]["t_evals"]
+    PATH_LAUNCHES["mesh_flat_headline_f64"] = got["k1_launches"] \
+        + gsm["k1_launches"]
+    emit("mesh_flat_headline_f64", ranks=MESH_WORLD, backend="gloo",
+         nodes=got["nodes"], dtype="torch.float64",
+         **{k: got[k] for k in (
+             "device", "iters", "xi", "exchanges", "exchanges_per_step",
+             "all_reduces", "all_reduces_per_step",
+             "all_reduce_bytes_per_step", "k1_launches")},
+         **_per_rank(ranks, "blocks", "real_rows", "setup_s",
+                     *_COLLECTIVE_KEYS),
+         single_card_ms_per_step=1e3 * cp.solve_time / cp.num_iters,
+         single_card_iters=cp.num_iters,
+         single_card_k1_launches=refs["headline_cp_k1"],
+         single_card_prox_f_calls=refs["headline_cp_prox_f"],
+         single_card_max_memory_allocated_bytes=refs["headline_peak"],
+         iterate_rel_diff_by_leaf=cp_leaf, xi_history_max_rel=cp_hist,
+         supermann=dict(
+             iters=gsm["iters"], t_evals=gsm["t_evals"], xi=gsm["xi"],
+             exchanges_per_iter=gsm["exchanges_per_step"],
+             all_reduces_per_iter=gsm["all_reduces_per_step"],
+             k1_launches=gsm["k1_launches"],
+             ms_per_iter=[r["supermann"]["ms_per_iter"] for r, _ in ranks],
+             exchange_ms_per_iter=[r["supermann"]["exchange_ms_per_step"]
+                                   for r, _ in ranks],
+             exchange_wait_ms_per_iter=[
+                 r["supermann"]["exchange_wait_ms_per_step"]
+                 for r, _ in ranks],
+             single_card_iters=sm.num_iters,
+             single_card_t_evals=refs["headline_sm_t_evals"],
+             single_card_ms_per_iter=1e3 * sm.solve_time / sm.num_iters,
+             iterate_rel_diff_by_leaf=sm_leaf, xi_history_max_rel=sm_hist),
+         rel_bound=FLAT_HEADLINE_REL, noise_floor=FLAT_NOISE_FLOOR,
+         ranks_agree=agree)
+    check(got["nodes"] == refs["headline_nodes"] == 9841,
+          "the flat headline is not the 9,841-node tree")
+    check(finite and np.isfinite(got["xi"]).all(),
+          "flat headline not finite")
+    check(got["iters"] == cp.num_iters,
+          f"flat headline ran {got['iters']} iterations, the single card "
+          f"{cp.num_iters}")
+    check(max(cp_leaf.values()) <= FLAT_HEADLINE_REL
+          and cp_hist <= FLAT_HEADLINE_REL,
+          f"flat headline CP: iterates {cp_leaf}, history {cp_hist} "
+          "(relative) from the single card's")
+    check(gsm["iters"] == sm.num_iters
+          and gsm["t_evals"] == refs["headline_sm_t_evals"]
+          and max(sm_leaf.values()) <= FLAT_HEADLINE_REL
+          and sm_hist <= FLAT_HEADLINE_REL,
+          f"flat headline SuperMann: {gsm['iters']} iterations and "
+          f"{gsm['t_evals']} T evaluations (single card {sm.num_iters}, "
+          f"{refs['headline_sm_t_evals']}), iterates {sm_leaf}, history "
+          f"{sm_hist} from the single card's")
+    check(refs["headline_cp_k1"] == refs["headline_cp_prox_f"] > 0,
+          "K1 not launched once per prox_f on the single card's headline")
+    check(agree, "the two ranks' flat headline results differ")
+    check(got["k1_launches"] == 0 and gsm["k1_launches"] == 0,
+          "K1 ran on the flat headline")
 
 
 def bench_lanes(x0, lanes=8):
@@ -990,11 +1370,12 @@ def phase_batch_headline():
 
 
 def baseline_batch(names=("batch_config4_f32", "batch_config4_f64",
-                          "batch_config3_f32")):
+                          "batch_socnet148_f32")):
     """``scripts/bench_batch.py``'s two measurements on the card: eight
     lanes solved to 1e-3 in one batch against eight sequential solves, at
     the headline (BASELINE config 4, in float32 and in float64) and at
-    config 3 (``soc_network_problem()``, ``offline="device"``, float32).
+    the SOC network (``soc_network_problem()`` with its defaults: 148
+    nodes, not BASELINE config 3's 3,280; ``offline="device"``, float32).
     Each lane must end as its sequential solve does (converged, or at the
     cap). In float64 its count must be within one check period (25) of
     its sequential count, ``scripts/bench_batch.py``'s check. In float32 a
@@ -1009,7 +1390,7 @@ def baseline_batch(names=("batch_config4_f32", "batch_config4_f64",
                               torch.float32, 20000, {}),
         "batch_config4_f64": (lambda: random_network_problem(**HEADLINE),
                               torch.float64, 20000, {}),
-        "batch_config3_f32": (soc_network_problem, torch.float32, 4000,
+        "batch_socnet148_f32": (soc_network_problem, torch.float32, 4000,
                               dict(offline="device"))}
     for name in names:
         make, dtype, max_iters, extra = configs[name]
@@ -1144,7 +1525,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="profile 100 CP steps of config 5 instead")
     ap.add_argument("--mesh", action="store_true",
-                    help="run the partitioned phases alone")
+                    help="run the partitioned phases alone (subtree, flat)")
     # one rank of the partitioned phases (the script starts itself so)
     ap.add_argument("--rank", type=int)
     ap.add_argument("--world", type=int)

@@ -32,15 +32,22 @@ try, plus the read of each residual check as in the plain loop. Each read
 waits for the device to drain its queue. Every read goes through
 :func:`_read`, which counts it in :data:`HOST_READS` and marks it as a
 ``raocp.accel.host_read`` span in a ``torch.profiler`` trace.
+
+On a rank's block of the flat partition every norm and inner product that
+a host branch reads (safeguards, line search, restarts) sums over all
+ranks with one all-reduce (:func:`_allsum`), so every rank takes the same
+branches; the residual checks are all-reduced in ``_cp_residuals``.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raocp_tpu_torch.core.stacked import StackedProblem
 from raocp_tpu_torch.core.variables import Dual, Primal
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import half_shift_dual
+from raocp_tpu_torch.parallel.sharding import all_reduce
 from raocp_tpu_torch.solver import _cp_residuals, _cp_step
 
 __all__ = ["run_cp_anderson", "run_cp_supermann", "HOST_READS"]
@@ -81,10 +88,24 @@ def _sub(a, b):
     return tuple(x - y for x, y in zip(a, b))
 
 
-def _norm(W):
+def _allsum(sp, t):
+    """``t`` summed over the ranks of the flat partition (itself on one
+    device)."""
+    if sp.flat is None:
+        return t
+    return all_reduce(t.reshape(-1).contiguous(), dist.ReduceOp.SUM,
+                      sp.spmd_group).reshape(t.shape)
+
+
+def _sq(sp, W):
+    """<W, W> over the (z, eta) leaves (a 0-d tensor)."""
+    return _allsum(sp, torch.stack([torch.vdot(v.reshape(-1), v.reshape(-1))
+                                    for v in W[:_TRUE]]).sum())
+
+
+def _norm(sp, W):
     """Euclidean norm of the (z, eta) leaves (a 0-d tensor)."""
-    return torch.sqrt(torch.stack([torch.vdot(v.reshape(-1), v.reshape(-1))
-                                   for v in W[:_TRUE]]).sum())
+    return torch.sqrt(_sq(sp, W))
 
 
 def _h_zeros(template, memory):
@@ -97,10 +118,11 @@ def _h_set(hist, slot, row):
         h[slot].copy_(r)
 
 
-def _h_dot(hist, vec):
+def _h_dot(sp, hist, vec):
     """[memory] inner products <row_m, v> over the (z, eta) leaves."""
-    return torch.stack([h.reshape(h.shape[0], -1) @ v.reshape(-1)
-                        for h, v in zip(hist[:_TRUE], vec[:_TRUE])]).sum(0)
+    return _allsum(sp, torch.stack([
+        h.reshape(h.shape[0], -1) @ v.reshape(-1)
+        for h, v in zip(hist[:_TRUE], vec[:_TRUE])]).sum(0))
 
 
 def _h_combo(hist, gamma):
@@ -156,13 +178,14 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     while k == 0 or (err.max() > tol and k < max_iters + 1):
         valid = (slots < pushes).to(dt)
         Gm = G * (valid[:, None] * valid[None, :]) + reg_eye
-        b = _h_dot(dR, R) * valid
+        b = _h_dot(sp, dR, R) * valid
         gamma = torch.linalg.solve(Gm, b) * valid
         W_cand = _sub(_add(W, R), _add(_h_combo(dW, gamma),
                                        _h_combo(dR, gamma)))
         T_cand = _t_ext(sp, W_cand, a, x0, shift)
         R_cand = _sub(T_cand, W_cand)
-        if pushes > 0 and bool(_read(_norm(R_cand) <= theta * _norm(R))):
+        if pushes > 0 and bool(_read(_norm(sp, R_cand)
+                                     <= theta * _norm(sp, R))):
             W_new, R_new = W_cand, R_cand
             evals += 1
         else:
@@ -178,7 +201,7 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         row = _sub(R_new, R)
         _h_set(dR, slot, row)
         _h_set(dW, slot, _sub(W_new, W))
-        g_row = _h_dot(dR, row)              # fills the slot's row + column
+        g_row = _h_dot(sp, dR, row)          # fills the slot's row + column
         G[slot, :] = g_row
         G[:, slot] = g_row
         W, R = W_new, R_new
@@ -209,7 +232,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
     R = _sub(W, T)                          # R(w) = w - T(w), extended
     err = _residual_row(sp, W, T, a)[:3]
-    nr0 = float(_read(_norm(R)))
+    nr0 = float(_read(_norm(sp, R)))
     U = _h_zeros(W, memory)                 # Broyden vectors u_i
     Y = _h_zeros(W, memory)                 # y_i = r_{i+1} - r_i
     valid = torch.zeros((memory,), dtype=dt, device=dev)
@@ -218,7 +241,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     slot, k, evals = 0, 0, 1
 
     def apply_h(V):
-        w = _h_dot(Y, V) * valid
+        w = _h_dot(sp, Y, V) * valid
         return _add(V, _h_combo(U, w))
 
     def plain_step(j):
@@ -226,7 +249,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         return W_p, _sub(W_p, _t_ext(sp, W_p, a, x0, shift)), j + 1
 
     while k == 0 or (err.max() > tol and k < max_iters + 1):
-        norm_r = float(_read(_norm(R)))
+        norm_r = float(_read(_norm(sp, R)))
         d = tuple(-v for v in apply_h(R))
         if norm_r <= c0 * eta_safe:
             # K0: accept w + d without a test; eta_safe tightens
@@ -240,7 +263,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             while not ok and j < ls_max:
                 W_c = _add(W, tuple(tau * v for v in d))
                 R_c = _sub(W_c, _t_ext(sp, W_c, a, x0, shift))
-                norm_c = float(_read(_norm(R_c)))
+                norm_c = float(_read(_norm(sp, R_c)))
                 ok = norm_c <= c1 * norm_r
                 tau *= beta
                 j += 1
@@ -255,8 +278,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         # Broyden push: u = (s - H y) / (y.y); degenerate pairs are masked
         s = _sub(W_n, W)
         y = _sub(R_n, R)
-        yy = torch.stack([torch.vdot(v.reshape(-1), v.reshape(-1))
-                          for v in y[:_TRUE]]).sum()
+        yy = _sq(sp, y)
         good = yy > 1e-30
         denom = torch.where(good, yy, torch.ones_like(yy))
         gz = good.to(dt)

@@ -148,6 +148,15 @@ class StackedProblem:
     sumapb_ms: Tuple[Optional[Tensor], ...] = ()  # [M, n, m]
     riccati_cls: Optional[Tensor] = None          # [np_pad] int64
 
+    # -- flat-partition metadata (set only by
+    #    parallel.sharding.shard_problem) -------------------------------------
+    # The tensors are then ONE rank's even row block of every node-,
+    # nonleaf- and leaf-leading field (np_pad / nl_pad / lf_pad are the
+    # block's rows; num_nodes, stage_start, ... stay global), and ``flat``
+    # is the rank's exchange plan (parallel.flat.FlatPlan): the ops read the
+    # rows other ranks own through its planned halo exchanges.
+    flat: Optional[object] = None
+
     # -- convenience ---------------------------------------------------------
 
     @property
@@ -1036,8 +1045,8 @@ def from_numpy(leaves: dict, static: dict, device="cuda",
 
     kw = {}
     for name, v in static.items():
-        if name in ("frontier", "spmd_axis", "spmd_group", "spmd_ndev") \
-                and v is not None:
+        if name in ("frontier", "spmd_axis", "spmd_group", "spmd_ndev",
+                    "flat") and v is not None:
             raise ValueError(
                 f"static field {name}={v!r}: a partitioned problem cannot be "
                 "carried across; carry the global problem and partition it "

@@ -65,8 +65,9 @@ class RiskAverseMPC:
         (:func:`raocp_tpu_torch.parallel.make_mesh`) forwarded to every
         cached per-mode :class:`~raocp_tpu_torch.Solver`: each per-step
         solve then runs partitioned over the ranks (BASELINE config 5's
-        "partitioned across 2+ hosts"), every rank running the same closed
-        loop and applying the same controls.
+        "partitioned across 2+ hosts"; the subtree layout where the tree
+        admits a frontier, the flat one otherwise), every rank running the
+        same closed loop and applying the same controls.
     :param device: the device of every cached per-mode solver (on a mesh,
         the mesh's).
     """

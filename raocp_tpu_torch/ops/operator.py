@@ -67,7 +67,7 @@ def _frontier_psum(sp: StackedProblem, k0: int, part):
     owns; its mask is zero on the others): one all-reduce over the group
     completes it, the same on every rank. Every other stage reduces
     rank-locally. The identity outside a partition."""
-    if sp.spmd_group is not None and k0 == sp.frontier - 1:
+    if sp.frontier is not None and k0 == sp.frontier - 1:
         return all_reduce(part.contiguous(), dist.ReduceOp.SUM,
                           sp.spmd_group)
     return part
@@ -141,7 +141,10 @@ def parent_expand(sp: StackedProblem, v, rows: int):
 
 def ell(sp: StackedProblem, z: Primal) -> Dual:
     """Apply L: primal -> dual (parity: reference ``operators.py:19-53``).
-    Every leaf may carry leading lane dims; the tables broadcast."""
+    Every leaf may carry leading lane dims; the tables broadcast. On a
+    rank's block of the flat partition, :func:`_flat_ell`."""
+    if sp.flat is not None:
+        return _flat_ell(sp, z)
     NL, N, n = sp.num_nonleaf, sp.num_nodes, sp.n
     lead = tuple(z.x.shape[:-2])
     # one fused [x; u] per nonleaf node feeds the parent-expand, the
@@ -199,7 +202,10 @@ def ell(sp: StackedProblem, z: Primal) -> Dual:
 
 def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
     """Apply L' (exact adjoint of :func:`ell`; parity: reference
-    ``operators.py:55-94``). Every leaf may carry leading lane dims."""
+    ``operators.py:55-94``). Every leaf may carry leading lane dims. On a
+    rank's block of the flat partition, :func:`_flat_ell_t`."""
+    if sp.flat is not None:
+        return _flat_ell_t(sp, eta)
     NL, LF = sp.num_nonleaf, sp.num_leaf
     n = sp.n
     lead = tuple(eta.e3.shape[:-2])
@@ -264,6 +270,219 @@ def ell_t(sp: StackedProblem, eta: Dual) -> Primal:
               sp.np_pad, -1)
 
     return Primal(x=x, u=u, y=y, tau=tau, s=s)
+
+
+# -- the flat partition: a rank's rows of each stage op, completed with the
+#    halo rows of parallel.flat's planned windows -----------------------------
+
+def _flat_parent_span(sp: StackedProblem, k0: int, ca: int, cb: int):
+    """(p0, p1, off): the whole parents [p0, p1) of the rows [ca, cb) of
+    uniform stage group ``k0``'s children, and the offset of row ``ca``
+    among those parents' children (stage-major: a group's children are its
+    parents' in order, ``c`` each)."""
+    c = sp.stage_child[k0]
+    a, a2 = sp.stage_start[k0], sp.stage_start[k0 + 1]
+    p0 = a + (ca - a2) // c
+    return p0, a + (cb - 1 - a2) // c + 1, ca - a2 - (p0 - a) * c
+
+
+def _flat_parent_rows(sp: StackedProblem, k0: int, win, w_lo: int, ca: int,
+                      cb: int, anc):
+    """Each of the rows [ca, cb) of stage group ``k0``'s children gets its
+    parent's row of ``win`` (a window of parent rows from global row
+    ``w_lo``). Uniform groups repeat whole parents and cut the halo
+    children off both ends; a ragged stage gathers through ``anc`` (the
+    children's global parent ids)."""
+    c = sp.stage_child[k0]
+    if c is None:
+        return win[..., anc - w_lo, :]
+    p0, p1, off = _flat_parent_span(sp, k0, ca, cb)
+    rep = torch.repeat_interleave(win[..., p0 - w_lo:p1 - w_lo, :], c,
+                                  dim=-2)
+    return rep[..., off:off + cb - ca, :]
+
+
+def _flat_stacked_rows(sp: StackedProblem, k0: int, win, w_lo: int, ca: int,
+                       cb: int, table):
+    """Rows [ca, cb) of the children of stage group ``k0`` through its
+    stage-stacked block ``table`` [F, c, G] (one contraction over the
+    group's whole parents in ``win``, the halo children cut off)."""
+    p0, p1, off = _flat_parent_span(sp, k0, ca, cb)
+    rows = torch.tensordot(win[..., p0 - w_lo:p1 - w_lo, :], table,
+                           dims=([-1], [0]))
+    rows = rows.reshape(tuple(rows.shape[:-3]) + (-1, rows.shape[-1]))
+    return rows[..., off:off + cb - ca, :]
+
+
+def _flat_reduce(sp: StackedProblem, k0: int, w, pa: int, pb: int, ca: int):
+    """Per-parent sums of ``w`` (the child rows of this rank's nonleaf rows
+    [pa, pb) of stage group ``k0``, from global row ``ca``)."""
+    c = sp.stage_child[k0]
+    if c is not None:
+        return w.reshape(tuple(w.shape[:-2]) + (pb - pa, c, w.shape[-1])) \
+            .sum(dim=-2)
+    q0 = sp.flat.start["nl"]
+    rel = torch.clamp(sp.child_idx[pa - q0:pb - q0] - ca, 0,
+                      w.shape[-2] - 1)
+    mask = sp.child_mask[pa - q0:pb - q0][..., None]
+    return torch.sum(w[..., rel, :] * mask, dim=-2)
+
+
+def _flat_own_parents(sp: StackedProblem, same):
+    """(k0, k1, pa, pb, ca, cb) for each stage group of ``same`` in which
+    this rank owns nonleaf rows [pa, pb), whose children are [ca, cb)."""
+    fp = sp.flat
+    lo, hi = fp.real["nl"]
+    ss = sp.stage_start
+    for k0, k1 in stage_groups(sp, same):
+        pa, pb = max(ss[k0], lo), min(ss[k1], hi)
+        if pa < pb:
+            yield (k0, k1, pa, pb) + fp.children(pa, pb)
+
+
+def _flat_own_children(sp: StackedProblem, same, lo: int, hi: int):
+    """(k0, ca, cb) for each stage group of ``same`` whose children meet
+    the all-node rows [lo, hi) in [ca, cb)."""
+    ss = sp.stage_start
+    for k0, k1 in stage_groups(sp, same):
+        ca, cb = max(ss[k0 + 1], lo), min(ss[k1 + 1], hi)
+        if ca < cb:
+            yield k0, ca, cb
+
+
+def _flat_sum_children(sp: StackedProblem, w, w_lo: int):
+    """[..., nl block, F] sums over the children of this rank's nonleaf
+    rows, from ``w`` (their child rows, from global row ``w_lo``)."""
+    parts = [_flat_reduce(sp, k0, w[..., ca - w_lo:cb - w_lo, :], pa, pb, ca)
+             for k0, _, pa, pb, ca, cb in _flat_own_parents(
+                 sp, _same_child(sp))]
+    lead = tuple(w.shape[:-2])
+    out = torch.cat(parts, dim=-2) if parts \
+        else w.new_zeros(lead + (0, w.shape[-1]))
+    return repad(out, sp.nl_pad, -2)
+
+
+def _flat_parent_expand(sp: StackedProblem, win, w_lo: int):
+    """[..., np block, F]: each real non-root row of this rank's all-node
+    block gets its parent's row of ``win``; zero at the root and ghosts."""
+    fp = sp.flat
+    lo, hi = fp.child_rows
+    p0 = fp.start["np"]
+    lead, F = tuple(win.shape[:-2]), win.shape[-1]
+    parts = [win.new_zeros(lead + (lo - p0, F))]
+    for k0, ca, cb in _flat_own_children(sp, _same_child(sp), lo, hi):
+        parts.append(_flat_parent_rows(sp, k0, win, w_lo, ca, cb,
+                                       sp.anc[ca - p0:cb - p0]))
+    return repad(torch.cat(parts, dim=-2), sp.np_pad, -2)
+
+
+def _flat_ell(sp: StackedProblem, z: Primal) -> Dual:
+    """L on a rank's blocks of the flat partition: one exchange brings the
+    nonleaf and leaf views of [x | s] and the parents' x and u of the
+    rank's rows; the rest is :func:`ell`'s arithmetic on those rows."""
+    fp = sp.flat
+    n = sp.n
+    lead = tuple(z.x.shape[:-2])
+    xs = torch.cat([z.x, z.s[..., None]], dim=-1)
+    xs_nl, xs_lf, px, pu = fp.exchange(
+        sp, [("np>nl", xs), ("np>lf", xs), ("np>par", z.x), ("nl>par", z.u)])
+    xs_nl = repad(xs_nl, sp.nl_pad, -2)
+    xs_lf = repad(xs_lf, sp.lf_pad, -2)
+    xu = torch.cat([xs_nl[..., :n], z.u], dim=-1)
+    e2 = xs_nl[..., n] - torch.sum(sp.b_pad * z.y, dim=-1)
+    # parents' [x; u] of this rank's real non-root rows
+    par = torch.cat([px, pu], dim=-1)
+    w_lo = fp.window("nl>par")[0]
+    if sp.QRm is not None and any(w is not None for w in sp.qr_fwd):
+        lo, hi = fp.child_rows
+        p0 = fp.start["np"]
+        F = sp.n + sp.m
+        parts = [par.new_zeros(lead + (lo - p0, F))]
+        for k0, ca, cb in _flat_own_children(sp, _same_weight(sp.qr_fwd),
+                                             lo, hi):
+            if sp.qr_fwd[k0] is not None:
+                parts.append(_flat_stacked_rows(sp, k0, par, w_lo, ca, cb,
+                                                sp.qr_fwd[k0]))
+            else:
+                xu_par = _flat_parent_rows(sp, k0, par, w_lo, ca, cb,
+                                           sp.anc[ca - p0:cb - p0])
+                parts.append(sp.QRm.slice_rows(ca - p0, cb - p0)
+                             .matvec(xu_par))
+        e34 = repad(torch.cat(parts, dim=-2), sp.np_pad, -2)
+        e3, e4 = e34[..., :n], e34[..., n:]
+    else:
+        xu_parent = _flat_parent_expand(sp, par, w_lo)
+        if sp.QRm is not None:
+            e34 = sp.QRm.matvec(xu_parent)
+            e3, e4 = e34[..., :n], e34[..., n:]
+        else:
+            e3 = sp.sqrtQ.matvec(xu_parent[..., :n])
+            e4 = sp.sqrtR.matvec(xu_parent[..., n:])
+    half_tau = 0.5 * z.tau * sp.nz_mask
+    e7 = ((xu @ sp.nl_G.T) if sp.nl_G is not None else xu) \
+        * sp.nl_active[:, None]
+    x_leaf = xs_lf[..., :n]
+    e11 = sp.sqrtP.matvec(x_leaf)
+    half_s = 0.5 * xs_lf[..., n]
+    e14 = ((x_leaf @ sp.l_G.T) if sp.l_G is not None else x_leaf) \
+        * sp.l_active[:, None]
+    return Dual(e1=z.y, e2=e2, e3=e3, e4=e4, e5=half_tau, e6=half_tau,
+                e7=e7, e11=e11, e12=half_s, e13=half_s, e14=e14)
+
+
+def _flat_ell_t(sp: StackedProblem, eta: Dual) -> Primal:
+    """L' on a rank's blocks of the flat partition: one exchange brings the
+    children's e3 / e4 rows of the rank's nonleaf rows, a second one the
+    nonleaf and leaf parts of x and s back to the all-node block."""
+    fp = sp.flat
+    n = sp.n
+    tables = fp.tables
+    e34 = torch.cat([eta.e3, eta.e4], dim=-1)
+    (cw,) = fp.exchange(sp, [("np>child", e34)])
+    c_lo = fp.window("np>child")[0]
+    y = eta.e1 - sp.b_pad * eta.e2[..., None]
+    con7 = eta.e7 * sp.nl_active[:, None]
+    if sp.nl_G is not None:
+        con7 = con7 @ sp.nl_G
+    if sp.QRm is not None and any(w is not None for w in sp.qr_bwd):
+        parts = []
+        for k0, _, pa, pb, ca, cb in _flat_own_parents(
+                sp, _same_weight(sp.qr_bwd)):
+            blk = cw[..., ca - c_lo:cb - c_lo, :]
+            if sp.qr_bwd[k0] is not None:
+                c = sp.stage_child[k0]
+                parts.append(torch.tensordot(
+                    blk.reshape(tuple(blk.shape[:-2]) + (pb - pa, c, -1)),
+                    sp.qr_bwd[k0], dims=([-2, -1], [0, 1])))
+            else:
+                w = tables["QRm_c"].slice_rows(ca - c_lo, cb - c_lo) \
+                    .rmatvec(blk)
+                parts.append(_flat_reduce(sp, k0, w, pa, pb, ca))
+        lead = tuple(cw.shape[:-2])
+        s34 = repad(torch.cat(parts, dim=-2) if parts
+                    else cw.new_zeros(lead + (0, cw.shape[-1])),
+                    sp.nl_pad, -2)
+    elif sp.QRm is not None:
+        s34 = _flat_sum_children(sp, tables["QRm_c"].rmatvec(cw), c_lo)
+    else:
+        s34 = torch.cat([
+            _flat_sum_children(sp, tables["sqrtQ_c"].rmatvec(cw[..., :n]),
+                               c_lo),
+            _flat_sum_children(sp, tables["sqrtR_c"].rmatvec(cw[..., n:]),
+                               c_lo)], dim=-1)
+    xu = con7 + s34
+    x_nl, u = xu[..., :n], xu[..., n:]
+    con14 = eta.e14 * sp.l_active[:, None]
+    if sp.l_G is not None:
+        con14 = con14 @ sp.l_G
+    x_leaf = sp.sqrtP.rmatvec(eta.e11) + con14
+    s_leaf = 0.5 * (eta.e12 + eta.e13)
+    w_nl, w_lf = fp.exchange(sp, [
+        ("nl>np", torch.cat([x_nl, eta.e2[..., None]], dim=-1)),
+        ("lf>np", torch.cat([x_leaf, s_leaf[..., None]], dim=-1))])
+    xs = repad(torch.cat([w_nl, w_lf], dim=-2), sp.np_pad, -2)
+    tau = 0.5 * (eta.e5 + eta.e6) * sp.nz_mask
+    return Primal(x=xs[..., :n], u=u, y=y, tau=tau, s=xs[..., n])
 
 
 def flat_linops(sp: StackedProblem):

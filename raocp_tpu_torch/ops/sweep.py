@@ -66,8 +66,12 @@ class DeviceFault(RuntimeError):
 
 def sweep_eligible(sp) -> bool:
     """The structural gate: every nonleaf stage has a stage-stacked
-    [A | B] block and stage-constant Riccati tables."""
-    return (all(w is not None for w in sp.ab_bwd)
+    [A | B] block and stage-constant Riccati tables, and the problem holds
+    whole stages (not a rank's block of the flat partition, which runs the
+    torch stage path with its halo exchanges, as the JAX package's flat
+    partition runs no Pallas kernel)."""
+    return (sp.flat is None
+            and all(w is not None for w in sp.ab_bwd)
             and all(k is not None for k in sp.k_s))
 
 

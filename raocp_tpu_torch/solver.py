@@ -12,12 +12,14 @@ the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
 helpers (``validate``, plots, pgfplots exports) keep the JAX package's
 semantics. Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
 one process a rank, on the replicated-spine subtree partition
-(:mod:`raocp_tpu_torch.parallel.subtree`).
+(:mod:`raocp_tpu_torch.parallel.subtree`) or the flat node partition
+(:mod:`raocp_tpu_torch.parallel.flat`).
 """
 
 import contextlib
 import dataclasses
 import functools
+import math
 import os
 import time
 from typing import Optional
@@ -37,7 +39,9 @@ from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
                                       prox_f)
 from raocp_tpu_torch.ops.sweep import DeviceFault
-from raocp_tpu_torch.parallel.sharding import all_reduce, mesh_device
+from raocp_tpu_torch.parallel.flat import FlatProblem
+from raocp_tpu_torch.parallel.sharding import (all_reduce, mesh_device,
+                                               shard_problem)
 from raocp_tpu_torch.parallel.subtree import (build_subtree_problem,
                                               choose_frontier)
 
@@ -50,12 +54,6 @@ _DEVICE_FAULTS = tuple(c for c in (DeviceFault,
                                    getattr(torch, "AcceleratorError", None),
                                    torch.cuda.OutOfMemoryError)
                        if c is not None)
-
-
-def _not_ported(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to raocp_tpu_torch yet: ROADMAP.md queue 1 "
-        f"item {item}")
 
 
 def pin_full_precision() -> None:
@@ -120,15 +118,21 @@ def _sp_primal_dot(sp: StackedProblem, a, b):
     ``solver.py:113``): there the spine rows [0, stage_start[frontier]) of
     every leaf are replicated on all ranks, so the global inner product is
     the all-reduced sum of the local ones with the spine rows weighted by
-    1/D. :func:`tree_dot` outside a partition."""
+    1/D. Under the flat partition every row lives on one rank (ghost rows
+    are zero), so it is the all-reduced sum. :func:`tree_dot` outside a
+    partition."""
     if sp.spmd_group is None:
         return tree_dot(a, b)
-    spine = sp.stage_start[sp.frontier]
-    scale = 1.0 - 1.0 / sp.spmd_ndev
-    local = torch.stack([
-        torch.vdot(x.reshape(-1), y.reshape(-1))
-        - scale * torch.vdot(x[:spine].reshape(-1), y[:spine].reshape(-1))
-        for x, y in zip(a, b)]).sum()
+    if sp.flat is not None:
+        local = tree_dot(a, b)
+    else:
+        spine = sp.stage_start[sp.frontier]
+        scale = 1.0 - 1.0 / sp.spmd_ndev
+        local = torch.stack([
+            torch.vdot(x.reshape(-1), y.reshape(-1))
+            - scale * torch.vdot(x[:spine].reshape(-1),
+                                 y[:spine].reshape(-1))
+            for x, y in zip(a, b)]).sum()
     return all_reduce(local.reshape(1), dist.ReduceOp.SUM,
                       sp.spmd_group)[0]
 
@@ -139,12 +143,16 @@ def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
     ``numpy.random.default_rng(0)`` normals (one draw per leaf, in leaf
     order). Returns (lambda as float, iterations). Under the subtree
     partition every rank draws the same normals for its local shapes, so
-    the replicated spine rows start alike, and the convergence test reads
-    an all-reduced value, the same on every rank."""
+    the replicated spine rows start alike; under the flat partition each
+    rank takes its block of the single-device draws. The convergence test
+    reads an all-reduced value, the same on every rank."""
     rng = np.random.default_rng(0)
-    z = Primal(*(torch.as_tensor(rng.standard_normal(tuple(l.shape)),
-                                 dtype=sp.dtype, device=sp.device)
-                 for l in sp.zero_primal()))
+    if sp.flat is not None:
+        z = FlatProblem(sp).power_start(rng)
+    else:
+        z = Primal(*(torch.as_tensor(rng.standard_normal(tuple(l.shape)),
+                                     dtype=sp.dtype, device=sp.device)
+                     for l in sp.zero_primal()))
     z = _normalise(z, torch.sqrt(_sp_primal_dot(sp, z, z)))
     lam, lam_prev = 0.0, -1.0
     k = 0
@@ -199,12 +207,12 @@ def _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha1, alpha2):
     derr = torch.stack([tree_inf_norm(d0, lanes), tree_inf_norm(d1, lanes),
                         tree_inf_norm(d2, lanes)], dim=-1)
     if sp.spmd_group is not None:
-        # subtree partition: local max-norms -> global (spine rows are
-        # replicated and ghost rows zero, so a max is exact); one
-        # all-reduce for all six norms
-        both = all_reduce(torch.cat([err, derr]), dist.ReduceOp.MAX,
+        # a partition: local max-norms -> global (rows are owned once or
+        # replicated, ghost rows zero, so a max is exact); one all-reduce
+        # for all six norms (of every lane in a batch)
+        both = all_reduce(torch.cat([err, derr], dim=-1), dist.ReduceOp.MAX,
                           sp.spmd_group)
-        err, derr = both[:3], both[3:]
+        err, derr = both[..., :3], both[..., 3:]
     return err, derr
 
 
@@ -510,12 +518,19 @@ class Solver:
 
         * ``"subtree"``: the replicated-spine subtree partition
           (:mod:`raocp_tpu_torch.parallel.subtree`); needs a mesh of more
-          than one rank and uniform branching below some stage.
-        * ``"auto"`` (default): the subtree partition on a mesh of more
-          than one rank; a one-rank mesh runs the single-device path.
-        * ``"flat"``: the flat node split, not ported (ROADMAP.md item
-          14b): with a mesh it raises, as ``"auto"`` does on a tree with no
-          frontier or with ``pad_multiple`` on a mesh of several ranks.
+          than one rank and uniform branching below some stage. It runs
+          neither ``accel`` nor :meth:`solve_batch`, as in JAX.
+        * ``"flat"``: the flat node partition
+          (:mod:`raocp_tpu_torch.parallel.flat`): every node space split in
+          even row blocks, any tree, halo exchanges planned on the host;
+          every option of :meth:`solve` and :meth:`solve_batch` runs.
+        * ``"auto"`` (default): on a mesh of more than one rank, the
+          subtree partition where the tree admits a frontier and
+          ``pad_multiple`` is not given, the flat one otherwise; a one-rank
+          mesh runs the single-device path.
+
+        On the flat layout each node space is padded to a multiple of the
+        rank count (of ``pad_multiple`` too, when given).
     """
 
     def __init__(self, problem_spec: RAOCP, dtype=None,
@@ -523,8 +538,6 @@ class Solver:
                  mesh=None, partition: str = "auto", device="cuda"):
         if partition not in ("auto", "subtree", "flat"):
             raise ValueError(f"unknown partition '{partition}'")
-        if mesh is not None and partition == "flat":
-            raise _not_ported("the flat node partition", "14b")
         ranks = 1 if mesh is None else mesh.size()
         if partition == "subtree" and ranks < 2:
             raise ValueError(
@@ -535,35 +548,46 @@ class Solver:
             raise ValueError(
                 "pad_multiple applies to the flat node layout only; the "
                 "subtree partition pads stages to the device count "
-                "internally — drop the argument")
-        self.__subtree = None
+                "internally — drop the argument or use partition='flat'")
+        layout = None                       # the single-device path
         if mesh is not None:
             device = mesh_device(mesh, device)
-            if ranks > 1:
-                if pad_multiple is not None:
-                    raise _not_ported("the flat node partition "
-                                      "(pad_multiple on a mesh)", "14b")
-                if choose_frontier(problem_spec.tree, ranks) is None:
-                    if partition == "subtree":
-                        raise ValueError(
-                            "partition='subtree' needs uniform branching "
-                            "below some stage; this tree is ragged "
-                            "everywhere")
-                    raise _not_ported("the flat node partition (a tree "
-                                      "with no subtree frontier)", "14b")
+            if partition == "flat":
+                layout = "flat"
+            elif ranks > 1:
+                # eligibility is a function of the stage structure alone:
+                # decided before any stacked build
+                eligible = choose_frontier(problem_spec.tree,
+                                           ranks) is not None
+                if partition == "subtree" and not eligible:
+                    raise ValueError(
+                        "partition='subtree' needs uniform branching below "
+                        "some stage; this tree is ragged everywhere — use "
+                        "partition='flat'")
+                layout = "subtree" if partition == "subtree" or (
+                    eligible and pad_multiple is None) else "flat"
         pin_full_precision()
         self.__spec = problem_spec
-        if ranks > 1:
-            # the global problem stays on the host; only this rank's block
-            # goes to the device
+        self.__part = None
+        if layout is not None:
+            # the global problem stays on the host; only this rank's blocks
+            # go to the device
             dtype = default_dtype(device) if dtype is None \
                 else _torch_dtype(dtype)
-            self.__stacked = build_stacked(
-                problem_spec, dtype=dtype, pad_multiple=1, offline=offline,
-                device="cpu")
-            self.__subtree = build_subtree_problem(
-                problem_spec, mesh, dtype=dtype, offline=offline,
-                prebuilt=self.__stacked)
+            if layout == "subtree":
+                self.__stacked = build_stacked(
+                    problem_spec, dtype=dtype, pad_multiple=1,
+                    offline=offline, device="cpu")
+                self.__part = build_subtree_problem(
+                    problem_spec, mesh, dtype=dtype, offline=offline,
+                    prebuilt=self.__stacked)
+            else:
+                self.__stacked = build_stacked(
+                    problem_spec, dtype=dtype,
+                    pad_multiple=math.lcm(ranks, pad_multiple or 1),
+                    offline=offline, device="cpu")
+                self.__part = FlatProblem(shard_problem(self.__stacked,
+                                                        mesh))
         else:
             self.__stacked = build_stacked(
                 problem_spec, dtype=dtype,
@@ -578,22 +602,27 @@ class Solver:
         """lambda_max(L'L), memoised per Solver."""
         if self.__lambda_max is None:
             lam, self.power_iterations = _power_iteration(
-                self.__stacked if self.__subtree is None
-                else self.__subtree.sp)
+                self.__stacked if self.__part is None else self.__part.sp)
             self.__lambda_max = float(lam)
         return self.__lambda_max
 
     @property
     def stacked(self) -> StackedProblem:
-        """The stacked problem; under the subtree partition the global one,
-        on the host (:attr:`subtree` holds this rank's block)."""
+        """The stacked problem; under a partition the global one, on the
+        host (:attr:`subtree` or :attr:`flat` holds this rank's block)."""
         return self.__stacked
 
     @property
     def subtree(self):
         """The :class:`~raocp_tpu_torch.parallel.subtree.SubtreeProblem`
         when the solver runs the subtree partition, else None."""
-        return self.__subtree
+        return None if isinstance(self.__part, FlatProblem) else self.__part
+
+    @property
+    def flat(self):
+        """The :class:`~raocp_tpu_torch.parallel.flat.FlatProblem` when the
+        solver runs the flat partition, else None."""
+        return self.__part if isinstance(self.__part, FlatProblem) else None
 
     @property
     def spec(self) -> RAOCP:
@@ -654,12 +683,12 @@ class Solver:
             raise ValueError(f"relax must lie in (0, 2), got {relax}")
         if accel not in (None, "anderson", "supermann", "broyden", "lbfgs"):
             raise ValueError(f"unknown accel '{accel}'")
-        stp = self.__subtree
+        stp = self.__part
         if stp is not None:
-            if accel is not None:
+            if accel is not None and self.flat is None:
                 raise ValueError(
                     "accelerated loops are not supported under the subtree "
-                    "partition (ROADMAP.md item 14b)")
+                    "partition; use partition='flat'")
             sp = stp.sp
         x0 = torch.as_tensor(x0_np, dtype=sp.dtype, device=sp.device)
         if alpha is None:
@@ -673,9 +702,11 @@ class Solver:
                 dtype=sp.dtype, device=sp.device) for v in tree))
 
         if warm_start is None:
-            # the root is local row 0 (on every rank of a partition)
+            # the root is local row 0 (on every rank of the subtree
+            # partition, on rank 0 of the flat one)
             z0 = sp.zero_primal()
-            z0.x[0] = x0             # reference cache_initial_state
+            if sp.flat is None or sp.flat.rank == 0:
+                z0.x[0] = x0         # reference cache_initial_state
             eta0 = sp.zero_dual()
         elif stp is not None:
             # warm starts are in the global layout, whatever the partition
@@ -763,10 +794,11 @@ class Solver:
         without a result raises; validate a lane with
         ``solver.validate(results[b])``.
         """
-        if self.__subtree is not None:
+        if self.subtree is not None:
             raise ValueError("solve_batch is not supported under the "
-                             "subtree partition (ROADMAP.md item 14b)")
-        sp = self.__stacked
+                             "subtree partition; use partition='flat'")
+        flat = self.flat
+        sp = self.__stacked if flat is None else flat.sp
         x0s_np = np.asarray(initial_states, dtype=np.float64)
         if x0s_np.ndim != 2 or x0s_np.shape[1] != sp.n \
                 or x0s_np.shape[0] == 0:
@@ -783,7 +815,8 @@ class Solver:
         x0s = torch.as_tensor(x0s_np, dtype=sp.dtype, device=sp.device)
         z0 = Primal(*(leaf.expand((batch,) + tuple(leaf.shape)).clone()
                       for leaf in sp.zero_primal()))
-        z0.x[:, 0] = x0s             # reference cache_initial_state
+        if flat is None or flat.rank == 0:
+            z0.x[:, 0] = x0s         # reference cache_initial_state
         eta0 = Dual(*(leaf.expand((batch,) + tuple(leaf.shape)).clone()
                       for leaf in sp.zero_dual()))
         if sp.device.type == "cuda":
@@ -795,7 +828,10 @@ class Solver:
         if sp.device.type == "cuda":
             torch.cuda.synchronize(sp.device)
         toc = time.perf_counter()
-        z, eta = _to_numpy(z), _to_numpy(eta)
+        if flat is None:
+            z, eta = _to_numpy(z), _to_numpy(eta)
+        else:
+            z, eta = flat.primal_to_global(z), flat.dual_to_global(eta)
         self.__result = None     # no single current result after a batch
         results = []
         for b in range(batch):

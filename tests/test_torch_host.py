@@ -150,14 +150,12 @@ def test_solver_without_a_device_raises_without_a_card():
         x0, max_iters=2, tol=1e-3).num_iters >= 2
 
 
-def test_flat_partition_on_a_mesh_raises_naming_14b(tmp_path):
-    """On a real 2-rank gloo mesh (two processes on the CPU), what is not
-    ported raises naming ROADMAP item 14b: ``partition="flat"``, and under
-    ``"auto"`` a tree with no subtree frontier or ``pad_multiple``."""
+def test_flat_partition_on_a_mesh_solves(tmp_path):
+    """On a real 2-rank gloo mesh (two processes on the CPU),
+    ``partition="flat"``, and under ``"auto"`` a tree with no subtree
+    frontier or ``pad_multiple``, take the flat node partition and solve
+    as the single device does."""
     import test_torch_subtree as worker
 
-    (res, _), _ = worker.run_world(2, ("misconfig",), str(tmp_path))
-    for case in ("flat", "ragged_auto", "pad_auto"):
-        got = res["misconfig"][case]
-        assert got.startswith("NotImplementedError") and "item 14b" in got, \
-            got
+    (res, arrays), _ = worker.run_world(2, ("misconfig",), str(tmp_path))
+    worker._assert_flat_cases_match_single(res["misconfig"], arrays)

@@ -10,6 +10,7 @@ torch.set_num_threads(1)
 import raocp_tpu.models as jax_models  # noqa: E402
 import raocp_tpu_torch as rt  # noqa: E402
 import raocp_tpu_torch.models as port_models  # noqa: E402
+from test_torch_subtree import World  # noqa: E402
 
 RUN = dict(num_steps=3, seed=0, max_iters=3000, tol=1e-3)
 
@@ -53,16 +54,24 @@ def test_solver_cached_per_mode(runs):
     assert len({id(s) for s in solvers.values()}) == len(visited)
 
 
-def test_mesh_is_not_ported():
+def test_mesh_is_not_ported(tmp_path):
     """The mesh reaches every per-mode solver (the partitioned closed loop
-    is in tests/test_torch_subtree.py); what is still not ported there is
-    the flat node partition, which a tree with no subtree frontier would
-    need on a mesh of several ranks: the solver raises naming item 14b
-    (before any collective, so a stand-in for a 2-rank mesh suffices)."""
-    import types
+    on a uniform tree is in tests/test_torch_subtree.py). On a tree with
+    no subtree frontier, over a real 2-rank gloo mesh (two processes on
+    the CPU), every per-mode solver takes the flat node partition and the
+    closed loop matches the single-device controller's modes, counts,
+    states and inputs (tests/test_torch_flat.py's ``mpc`` check)."""
+    import test_torch_flat as flat
 
-    mesh = types.SimpleNamespace(size=lambda: 2, device_type="cpu")
-    ctl, _ = port_models.demo_mpc_controller(num_stages=3, stopping_time=3,
-                                             mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ctl.solver_for_mode(0)
+    (got, arrays), _ = World(2, ("mpc",), str(tmp_path),
+                             script=flat.__file__).wait()
+    ctl, x0 = port_models.demo_mpc_controller(device="cpu", **flat.RAGGED)
+    want = ctl.run(x0, **flat.MPC_RUN)
+    got = got["mpc"]
+    assert got["flat"]
+    assert got["modes"] == want.modes.tolist()
+    assert got["iterations"] == want.iterations.tolist()
+    np.testing.assert_allclose(arrays["mpc/states"], want.states, rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(arrays["mpc/inputs"], want.inputs, rtol=0,
+                               atol=1e-12)

@@ -105,29 +105,29 @@ def test_checkpoints_cross_packages(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_not_ported_options_raise():
-    """Only the flat node partition (item 14b) is still not ported: with a
-    mesh, ``partition="flat"`` raises, and so does a per-mode solver of an
-    MPC controller on a tree with no subtree frontier (the mesh reaches
-    it); batch solves (item 10) run, each lane as its single solve; the
-    relax / step_ratio range errors stay. A stand-in for a 2-rank CPU mesh
-    suffices: both raise before any collective (the real meshes are in
-    tests/test_torch_subtree.py)."""
-    import types
+def test_not_ported_options_raise(tmp_path):
+    """Every option is ported now. Batch solves run, each lane as its
+    single solve; on a real 2-rank gloo mesh (two processes on the CPU)
+    ``partition="flat"`` solves, and so does a per-mode solver of an MPC
+    controller on a tree with no subtree frontier (the mesh reaches it;
+    "auto" takes the flat partition), both as the single device does; the
+    relax / step_ratio range errors stay."""
+    import test_torch_flat as flat
+    from test_torch_subtree import World, _assert_iterates
 
     problem, x0 = port_models.lqr_binary_problem()
     solver = rt.Solver(problem, device="cpu")
     single = solver.solve(x0, max_iters=50, tol=1e-3)
     batch = solver.solve_batch(np.stack([x0, x0]), max_iters=50, tol=1e-3)
     assert [r.num_iters for r in batch] == [single.num_iters] * 2
-    mesh = types.SimpleNamespace(size=lambda: 2, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        rt.Solver(problem, mesh=mesh, partition="flat", device="cpu")
-    ragged, _ = port_models.demo_problem(num_stages=3, stopping_time=3)
-    ctl = rt.RiskAverseMPC(lambda v: ragged, np.eye(3), mesh=mesh,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ctl.solver_for_mode(0)
+    (got, arrays), _ = World(2, ("small",), str(tmp_path),
+                             script=flat.__file__).wait()
+    assert got["small"]["flat"] == [True, True]
+    _assert_iterates(arrays, "lqr", solver.solve(x0, **flat.SMALL_WINDOW),
+                     1e-12)
+    ragged, rx0 = port_models.demo_problem(num_stages=3, stopping_time=3)
+    _assert_iterates(arrays, "mpc_mode0", rt.Solver(
+        ragged, device="cpu").solve(rx0, **flat.SMALL_WINDOW), 1e-12)
     with pytest.raises(ValueError, match="relax"):
         solver.solve(x0, max_iters=10, relax=2.0)
     with pytest.raises(ValueError, match="step_ratio"):

@@ -113,7 +113,23 @@ def _global(res, prefix):
     return out
 
 
+# the calls that take the flat node partition on a mesh (the tree, its
+# Solver options), each solved for FLAT_WINDOW
+FLAT_CASES = {"flat": ("uniform", dict(partition="flat")),
+              "pad_auto": ("uniform", dict(pad_multiple=2)),
+              "ragged_auto": ("ragged", {})}
+FLAT_WINDOW = dict(max_iters=50, tol=0.0)
+
+
+def _flat_case_problem(tree):
+    return _uniform() if tree == "uniform" \
+        else port_models.demo_problem(**RAGGED)
+
+
 def check_misconfig(mesh, args):
+    """What a mesh refuses (each 'ExceptionType: message'), and the calls
+    that take the flat partition, solved for 50 iterations (the layout
+    each took; their iterates for the pytest side)."""
     problem, _ = _uniform()
     ragged, _ = port_models.demo_problem(**RAGGED)
     D = mesh.size()
@@ -124,25 +140,29 @@ def check_misconfig(mesh, args):
         "pad_subtree": lambda: rt.Solver(problem, mesh=mesh,
                                          partition="subtree",
                                          pad_multiple=D, device="cpu"),
-        "pad_auto": lambda: rt.Solver(problem, mesh=mesh, pad_multiple=D,
-                                      device="cpu"),
-        "flat": lambda: rt.Solver(problem, mesh=mesh, partition="flat",
-                                  device="cpu"),
         "unknown": lambda: rt.Solver(problem, mesh=mesh, partition="rows",
                                      device="cpu"),
         "ragged_subtree": lambda: rt.Solver(ragged, mesh=mesh,
                                             partition="subtree",
                                             device="cpu"),
-        "ragged_auto": lambda: rt.Solver(ragged, mesh=mesh, device="cpu"),
         "device": lambda: rt.Solver(problem, mesh=mesh, device="cuda"),
         "mesh_size": lambda: make_mesh("cpu", num_devices=D + 1),
     }
-    return {k: _raised(fn) for k, fn in cases.items()}, {}
+    out = {k: _raised(fn) for k, fn in cases.items()}
+    arrays = {}
+    for case, (tree, kw) in FLAT_CASES.items():
+        spec, x0 = _flat_case_problem(tree)
+        solver = rt.Solver(spec, mesh=mesh, device="cpu", **kw)
+        res = solver.solve(x0, **FLAT_WINDOW)
+        out[case] = "flat" if solver.flat is not None else "not flat"
+        arrays.update(_global(res, case))
+    return out, arrays
 
 
 def check_one_rank(mesh, args):
     """A one-rank mesh: 'subtree' refuses it, 'auto' runs the
-    single-device path, to the bit."""
+    single-device path, to the bit, and 'flat' the flat layout of one
+    block (the single solve's count and iterates)."""
     problem, x0 = port_models.demo_problem()
     solver = rt.Solver(problem, mesh=mesh, device="cpu")
     res = solver.solve(x0, max_iters=300, tol=1e-3)
@@ -150,12 +170,17 @@ def check_one_rank(mesh, args):
                                                    tol=1e-3)
     same = all(np.array_equal(a, b) for a, b in
                zip(res.primal + res.dual, alone.primal + alone.dual))
+    flat = rt.Solver(problem, mesh=mesh, partition="flat", device="cpu")
+    fres = flat.solve(x0, max_iters=300, tol=1e-3)
     return dict(
         subtree=_raised(lambda: rt.Solver(problem, mesh=mesh,
                                           partition="subtree",
                                           device="cpu")),
-        flat=_raised(lambda: rt.Solver(problem, mesh=mesh,
-                                       partition="flat", device="cpu")),
+        flat=dict(layout=flat.flat is not None, iters=fres.num_iters,
+                  single_iters=alone.num_iters,
+                  iterate_diff=max(float(np.abs(a - b).max()) for a, b in
+                                   zip(fres.primal + fres.dual,
+                                       alone.primal + alone.dual))),
         auto_partitioned=solver.subtree is not None,
         auto_same_bits=bool(same and np.array_equal(res.xi_history,
                                                     alone.xi_history))), {}
@@ -454,17 +479,18 @@ def _free_port() -> int:
 
 
 class World:
-    """D rank processes of this file running ``checks``; :meth:`wait`
-    returns every rank's (json, npz). A rank that fails kills the rest."""
+    """D rank processes of ``script`` (this file by default) running
+    ``checks``; :meth:`wait` returns every rank's (json, npz). A rank that
+    fails kills the rest."""
 
-    def __init__(self, world, checks, out, device_type="cpu"):
+    def __init__(self, world, checks, out, device_type="cpu", script=None):
         self.out = out
         os.makedirs(out, exist_ok=True)
         port = _free_port()
         env = dict(os.environ, PYTHONPATH=ROOT)
         env.pop("XLA_FLAGS", None)
         self.procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--world",
+            [sys.executable, script or os.path.abspath(__file__), "--world",
              str(world), "--rank", str(r), "--port", str(port), "--out",
              out, "--checks", ",".join(checks), "--device-type",
              device_type],
@@ -672,12 +698,14 @@ def test_host_plan_matches_jax(family, D):
 
 def test_one_rank_mesh(worlds):
     """A one-rank mesh: 'auto' runs the single-device path (the same
-    bits), 'subtree' refuses it, 'flat' is not ported."""
+    bits), 'subtree' refuses it, 'flat' runs the flat layout of one block
+    with the single solve's count and iterates (1e-12)."""
     got = worlds[1][0][0]["one_rank"]
     assert got["subtree"].startswith("ValueError") \
         and "more than one device" in got["subtree"]
-    assert got["flat"].startswith("NotImplementedError") \
-        and "item 14b" in got["flat"]
+    flat = got["flat"]
+    assert flat["layout"] and flat["iters"] == flat["single_iters"]
+    assert flat["iterate_diff"] <= 1e-12
     assert not got["auto_partitioned"] and got["auto_same_bits"]
 
 
@@ -699,19 +727,31 @@ def test_ranks_import_no_jax_and_agree(worlds, D):
             np.testing.assert_array_equal(arr[k], first_arr[k], err_msg=k)
 
 
+def _assert_flat_cases_match_single(got, arrays):
+    """The calls of FLAT_CASES took the flat layout and match the
+    single-device solve of the same window (1e-12)."""
+    for case, (tree, _) in FLAT_CASES.items():
+        assert got[case] == "flat", case
+        spec, x0 = _flat_case_problem(tree)
+        _assert_iterates(arrays, case, rt.Solver(spec, device="cpu").solve(
+            x0, **FLAT_WINDOW), 1e-12)
+
+
 @pytest.mark.parametrize("D", [2, 3])
 def test_misconfig_rejected(worlds, D):
+    """What a mesh still refuses; ``partition="flat"``, ``pad_multiple``
+    under "auto" and a tree with no frontier under "auto" take the flat
+    partition and solve as the single device does."""
     got = _rank0(worlds, D, "misconfig")
     assert got["no_mesh"].startswith("ValueError") and "needs a mesh" \
         in got["no_mesh"]
     assert got["pad_subtree"].startswith("ValueError") and "pad_multiple" \
-        in got["pad_subtree"]
-    for case in ("pad_auto", "flat", "ragged_auto"):
-        assert got[case].startswith("NotImplementedError") \
-            and "item 14b" in got[case], got[case]
+        in got["pad_subtree"] and "partition='flat'" in got["pad_subtree"]
+    _assert_flat_cases_match_single(got, worlds[D][0][1])
     assert got["unknown"].startswith("ValueError")
     assert got["ragged_subtree"].startswith("ValueError") \
-        and "uniform branching" in got["ragged_subtree"]
+        and "uniform branching" in got["ragged_subtree"] \
+        and "partition='flat'" in got["ragged_subtree"]
     assert got["device"].startswith("ValueError") and "conflicts" \
         in got["device"]
     assert got["mesh_size"].startswith("ValueError")
