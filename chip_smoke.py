@@ -1,23 +1,34 @@
 """Smoke run of raocp_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # the smoke run (about 8 minutes)
-    python3 chip_smoke.py --baseline    # BASELINE configs 3-5 to 1e-3
-    python3 chip_smoke.py --profile     # where a config-5 CP step's time goes
+    python3 chip_smoke.py               # the smoke run (about 8-11 minutes)
+    python3 chip_smoke.py --baseline    # BASELINE configs 1-5 to 1e-3, and
+                                        # the batch rows
+        [--configs 1,2,3,4,5,batch] [--dtypes float64,float32]
+        [--config5-steps 5]
+    python3 chip_smoke.py --profile     # where a CP step's time goes: the
+                                        # headline's step and components,
+                                        # config 5's step
     python3 chip_smoke.py --mesh        # the partitioned phases alone
                                         # (subtree and flat)
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
-card (at the shapes of every path below, BASELINE config 5's width and
-batches of 8 and 3 lanes included; each case with its time, the plain
-version's, the least time the card could take for the same operations and
-bytes, and its launches counted in a profile), and then drives the port's
-paths, each with the launch counts set to 0 just before it and read just
-after:
+card (at the shapes of every path below, BASELINE configs 1-3 and config
+5's width and batches of 8 and 3 lanes included; each case with its time,
+the plain version's, the least time the card could take for the same
+operations and bytes, and its launches counted in a profile), and then
+drives the port's paths, each with the launch counts set to 0 just before
+it and read just after:
 
 * ``parity_*``: the demo's 937 iterations in float64 on the card, and a
   uniform 121-node tree through K1 against the CPU;
 * ``chunked_demo_f64``: the demo in 300-iteration chunks, the same history;
+* ``baseline_config{1,2,3}_f64``: BASELINE configs 1, 2 and 3 (15, 127 and
+  3,280 nodes) through ``raocp_tpu_torch.scripts.bench_configs.run_config``
+  in float64 to 1e-3, configs 1-2 with the runner's options (1,145 and 581
+  iterations), config 3 at ``check_every=25, unroll=25``; each count equal
+  to the JAX package's for the same options and each objective within 1e-8
+  relative of its (``scripts/jax_reference.json``);
 * ``headline_f32``: ``Solver(problem).solve(x0)`` (the card is the default
   device) at the
   50-state, 20-input, 3-mode, 8-stage (9,841-node) configuration;
@@ -67,15 +78,29 @@ It prints one JSON line per phase, the kernel table, the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises; without a CUDA device it fails before printing anything. It imports
-no JAX. ``--baseline`` runs, instead of the smoke phases, the BASELINE
-config-4 SuperMann solve and the config-5 closed loop to tolerance 1e-3
-(``--config5-steps``, default 1), and ``scripts/bench_batch.py``'s two
-measurements on the card: eight lanes of the headline (in float32 and in
+no JAX.
+
+``--baseline`` runs, instead of the smoke phases, the whole five-config
+runner (``scripts/bench_configs.py``, every row solved twice, the second
+timed): configs 1-4 in float64, each plain row's count equal to the JAX
+package's float64 count and its objective within 1e-8 relative; configs
+1-4 in float32, each count within ``F32_COUNT_SLACK`` of that count;
+config 4's SuperMann row converged, its objective within
+``SUPERMANN_OBJECTIVE_REL`` of the plain row's; config 5's closed loop in
+float32 (``--config5-steps``, default 5), every step converged and the
+JAX package's realised modes, its counts printed beside the JAX package's
+float32 counts from a TPU (context); and ``scripts/bench_batch.py``'s two
+measurements (``batch``): eight lanes of the headline (in float32 and in
 float64) and of ``soc_network_problem()`` with its defaults (the SOC
 network, 148 nodes; not BASELINE config 3's 3,280) to 1e-3 in one batch
-against eight sequential solves. ``--profile`` runs 100 CP steps of
-config 5 with ``solve(profile_dir=...)`` and prints, from that trace, the
-card's busy share of the step and its kernels by time.
+against eight sequential solves. ``--configs`` and ``--dtypes`` pick a
+part of it. K1 launches equal ``prox_f`` calls on every row.
+``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
+headline (``check_every=25, unroll=25``) and of config 5 (the closed
+loop's options) with ``solve(profile_dir=...)`` and prints, from each
+trace, the card's busy share of the step, its launches and its kernels by
+time; and ``scripts/bench_components.py``'s table at the headline: each
+component's wall ms beside its device ms and launches.
 """
 
 import argparse
@@ -102,18 +127,19 @@ from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     random_network_problem,
                                     soc_network_problem)
 from raocp_tpu_torch.ops import sweep  # noqa: E402
+from raocp_tpu_torch.scripts import (bench_components,  # noqa: E402
+                                     bench_configs, profile_step)
+from raocp_tpu_torch.scripts.bench_configs import (CONFIGS,  # noqa: E402
+                                                   counted_calls)
 
 DEV = torch.device("cuda", 0)
 SMALL = dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
              stopping_time=4)
-HEADLINE = dict(num_states=50, num_inputs=20, num_modes=3, num_stages=8,
-                stopping_time=8)
-# BASELINE config 5's width (4 stages, 40 nodes) and its full
-# 88,573-node tree
-CONFIG5_WIDTH = dict(num_states=100, num_inputs=40, num_modes=3,
-                     num_stages=3, stopping_time=3)
-CONFIG5 = dict(num_states=100, num_inputs=40, num_modes=3, num_stages=10,
-               stopping_time=10)
+# BASELINE config 4 (the headline), config 5's width (4 stages, 40 nodes)
+# and its full 88,573-node tree, as the runner builds them
+HEADLINE = CONFIGS[4].problem
+CONFIG5 = bench_configs.CONFIG5
+CONFIG5_WIDTH = dict(CONFIG5, num_stages=3, stopping_time=3)
 # the JAX package's float32 count on this problem (BENCH_configs_r05.jsonl,
 # config 4): context only, not asserted
 JAX_F32_ITERS = 10174
@@ -127,8 +153,18 @@ PATH_LAUNCHES = {}
 PEAK_FLOPS = {4: 67e12, 8: 67e12}
 PEAK_BYTES = 3.35e12
 # how far, as a share of its sequential count, a float32 lane's count may
-# be from its sequential solve's to 1e-3 (baseline_batch)
+# be from its sequential solve's to 1e-3 (baseline_batch); and a float32
+# row's count from the JAX package's float64 count (--baseline): one ulp of
+# the step size moves a float32 count by 5% (ROADMAP F2)
 F32_COUNT_SLACK = 0.1
+# a float64 BASELINE row's objective against the JAX package's, relative
+F64_OBJECTIVE_REL = 1e-8
+# config 4's SuperMann objective against its plain row's, relative. Both
+# stop at xi <= 1e-3, which leaves the objective far looser than that: the
+# JAX package's own SuperMann row stops 2.7e-3 from its plain row
+# (29.3904 against 29.4701, scripts/jax_reference.json), so the bound is
+# a little under four times that gap; a wrong solution is off by more
+SUPERMANN_OBJECTIVE_REL = 1e-2
 # config 5's partitioned float32 step against the single card's, on each
 # iterate leaf relative to that leaf's inf-norm: within this many times the
 # single card's own float32 rounding of the leaf (its distance to the same
@@ -157,22 +193,11 @@ def counted(path=None):
     """Set the K1 launch count to 0 and count ``prox_f`` calls (the T
     evaluations of a CP step) while a path runs; read both after it, and
     keep the launches under ``path``."""
-    calls = {"prox_f": 0}
-    real = solver_mod.prox_f
-
-    def counting_prox_f(*args, **kwargs):
-        calls["prox_f"] += 1
-        return real(*args, **kwargs)
-
     torch.cuda.synchronize()
     sweep.LAUNCHES = 0
-    solver_mod.prox_f = counting_prox_f
-    try:
+    with counted_calls() as calls:
         yield calls
-    finally:
-        solver_mod.prox_f = real
         torch.cuda.synchronize()
-    calls["k1"] = sweep.LAUNCHES
     if path is not None:
         PATH_LAUNCHES[path] = calls["k1"]
 
@@ -229,24 +254,6 @@ FLAT_HEADLINE_SUPERMANN = dict(max_iters=100, tol=1e-3, accel="supermann",
 # its constraints far from binding), so it is measured against that floor
 FLAT_HEADLINE_REL = 1e-9
 FLAT_NOISE_FLOOR = 1e-6
-
-
-@contextlib.contextmanager
-def _t_evals():
-    """Count ``prox_f`` calls (the T evaluations) while a solve runs,
-    leaving the K1 launch count alone."""
-    calls = {"prox_f": 0}
-    real = solver_mod.prox_f
-
-    def counting(*args, **kwargs):
-        calls["prox_f"] += 1
-        return real(*args, **kwargs)
-
-    solver_mod.prox_f = counting
-    try:
-        yield calls
-    finally:
-        solver_mod.prox_f = real
 
 
 def _mesh_counters():
@@ -378,7 +385,7 @@ def _rank_flat_demo(mesh, base, refs):
     x0 = np.asarray(x0)
     lanes = solver.solve_batch(np.stack([s * x0 for s in FLAT_BATCH_SCALES]),
                                **FLAT_DEMO)
-    with _t_evals() as calls:
+    with counted_calls() as calls:
         anderson = solver.solve(x0, max_iters=FLAT_ANDERSON_WINDOW,
                                 tol=1e-12, alpha=refs["demo_alpha"],
                                 accel="anderson")
@@ -416,7 +423,7 @@ def _rank_flat_headline(mesh, base, refs):
                ms_per_step=1e3 * cp.solve_time / cp.num_iters)
     arrays = _result_arrays(cp, "cp/")
     _mesh_counters()
-    with _t_evals() as calls:
+    with counted_calls() as calls:
         sm = solver.solve(x0, alpha=alpha, **FLAT_HEADLINE_SUPERMANN)
     out["supermann"] = dict(
         _flat_read(fp, sm.num_iters), iters=sm.num_iters,
@@ -560,7 +567,7 @@ def _flat_references(demo):
     refs = {"ragged": rt.Solver(ragged, dtype=torch.float64,
                                 device=DEV).solve(rx0, **FLAT_DEMO)}
     problem, x0 = demo_problem()
-    with _t_evals() as calls:
+    with counted_calls() as calls:
         refs["anderson"] = rt.Solver(
             problem, dtype=torch.float64, device=DEV).solve(
             x0, max_iters=FLAT_ANDERSON_WINDOW, tol=1e-12, alpha=demo.alpha,
@@ -576,7 +583,7 @@ def _flat_references(demo):
     refs["headline_cp_k1"] = calls["k1"]
     refs["headline_cp_prox_f"] = calls["prox_f"]
     refs["headline_peak"] = torch.cuda.max_memory_allocated()
-    with _t_evals() as calls:
+    with counted_calls() as calls:
         refs["headline_sm"] = solver.solve(
             x0, alpha=refs["headline_alpha"], **FLAT_HEADLINE_SUPERMANN)
     refs["headline_sm_t_evals"] = calls["prox_f"]
@@ -868,12 +875,20 @@ def bench_lanes(x0, lanes=8):
                      0.5 + np.random.default_rng(0).random(lanes)])
 
 
-def _sweep_inputs(kwargs, dtype, pad, lanes=None):
-    """A problem and K1's inputs on the card: x [np_pad, n], u [nl_pad, m]
-    and x0 [n], or with ``lanes`` x [B, np_pad, n], u [B, nl_pad, m] and
-    x0 [B, n]."""
-    spec, x0 = random_network_problem(**kwargs)
-    sp = build_stacked(spec, dtype=dtype, pad_multiple=pad, device=DEV)
+def _network(kwargs):
+    """``random_network_problem(**kwargs)`` as a K1 case's problem."""
+    return bench_configs.Config("network", "random_network_problem", kwargs,
+                                "host", {})
+
+
+def _sweep_inputs(cfg, dtype, pad, lanes=None):
+    """The problem of ``cfg`` (a :class:`bench_configs.Config`, stacked as
+    its runner's Solver stacks it but for the padding) and K1's inputs on
+    the card: x [np_pad, n], u [nl_pad, m] and x0 [n], or with ``lanes``
+    x [B, np_pad, n], u [B, nl_pad, m] and x0 [B, n]."""
+    spec, x0 = cfg.make()
+    sp = build_stacked(spec, dtype=dtype, pad_multiple=pad,
+                       offline=cfg.offline, device=DEV)
     rng = np.random.default_rng(0)
     lead = () if lanes is None else (lanes,)
     x_in = torch.as_tensor(rng.standard_normal(lead + (sp.np_pad, sp.n)),
@@ -984,35 +999,49 @@ def phase_kernel():
     the schedule's. A batch's lanes are also held
     against the unbatched kernel on each lane, and one lane must be the
     unbatched call to the bit."""
-    odd_width = dict(HEADLINE, num_inputs=18)
-    cases = (("a_small_f64", SMALL, torch.float64, 4, 1e-12, None),
-             ("b_small_f32", SMALL, torch.float32, 4, 1e-5, None),
+    small, headline = _network(SMALL), _network(HEADLINE)
+    config5_width = _network(CONFIG5_WIDTH)
+    cases = (("a_small_f64", small, torch.float64, 4, 1e-12, None),
+             ("b_small_f32", small, torch.float32, 4, 1e-5, None),
              # 8 sequential stages of up to c*n+m = 170-term float32 sums,
              # summed in another order than cuBLAS's
-             ("c_headline_f32", HEADLINE, torch.float32, 8, 1e-4, None),
+             ("c_headline_f32", headline, torch.float32, 8, 1e-4, None),
              # config 5's width: the widest rows, 40 nodes
-             ("d_config5_width_f64", CONFIG5_WIDTH, torch.float64, 4, 1e-12,
+             ("d_config5_width_f64", config5_width, torch.float64, 4, 1e-12,
               None),
-             ("e_config5_width_f32", CONFIG5_WIDTH, torch.float32, 4, 1e-4,
+             ("e_config5_width_f32", config5_width, torch.float32, 4, 1e-4,
               None),
              # the shapes the mpc_config5_f32 path hands K1: 88,573 nodes,
              # parent stages of up to 19,683 rows, persistent blocks
-             ("f_config5_full_f32", CONFIG5, torch.float32, 1, 1e-4, None),
-             ("g_headline_f64", HEADLINE, torch.float64, 8, 1e-12, None),
+             ("f_config5_full_f32", _network(CONFIG5), torch.float32, 1, 1e-4,
+              None),
+             ("g_headline_f64", headline, torch.float64, 8, 1e-12, None),
              # m no multiple of 4 (rows of 72 bytes: 8-byte copies, scalar
              # stores), stages that are no multiples of their tiles, node
              # spaces padded to multiples of 5
-             ("h_odd_width_f32", odd_width, torch.float32, 5, 1e-4, None),
+             ("h_odd_width_f32", _network(dict(HEADLINE, num_inputs=18)),
+              torch.float32, 5, 1e-4, None),
              # the shapes the batch_headline_f32 path hands K1: 8 lanes,
              # 78,728 rows; and the uniform tree in 3 lanes of float64
-             ("i_headline_b8_f32", HEADLINE, torch.float32, 8, 1e-6, 8),
-             ("j_small_b3_f64", SMALL, torch.float64, 4, 1e-14, 3))
+             ("i_headline_b8_f32", headline, torch.float32, 8, 1e-6, 8),
+             ("j_small_b3_f64", small, torch.float64, 4, 1e-14, 3),
+             # the shapes the baseline_config{1,2,3}_f64 paths hand K1 (no
+             # padding, the runner's offline tables): n=2, m=1 on 15 nodes
+             # (every nonleaf stage in the apex); n=10, m=5 on 127 nodes;
+             # n=20, m=8 on 3,280 nodes. In float32, the small cases' and
+             # the headline's tolerances
+             ("k_config1_f64", CONFIGS[1], torch.float64, 1, 1e-12, None),
+             ("l_config1_f32", CONFIGS[1], torch.float32, 1, 1e-5, None),
+             ("m_config2_f64", CONFIGS[2], torch.float64, 1, 1e-12, None),
+             ("n_config2_f32", CONFIGS[2], torch.float32, 1, 1e-5, None),
+             ("o_config3_f64", CONFIGS[3], torch.float64, 1, 1e-12, None),
+             ("p_config3_f32", CONFIGS[3], torch.float32, 1, 1e-4, None))
     # a lane of a batch against the unbatched kernel: tiles of other rows,
     # so split-K sums in another order
     lane_tol = {torch.float32: 1e-6, torch.float64: 1e-14}
     out = {}
-    for name, kwargs, dtype, pad, tol, lanes in cases:
-        sp, x_in, u_in, x0 = _sweep_inputs(kwargs, dtype, pad, lanes)
+    for name, cfg, dtype, pad, tol, lanes in cases:
+        sp, x_in, u_in, x0 = _sweep_inputs(cfg, dtype, pad, lanes)
         check(sweep.sweep_eligible(sp), f"{name}: not sweep-eligible")
         before = sweep.LAUNCHES
         x, u = sweep.project_dynamics_sweep(sp, x_in, u_in, x0)
@@ -1122,6 +1151,58 @@ def phase_chunked(demo):
     check(res.converged and res.num_iters == 937,
           f"chunked demo took {res.num_iters} iterations, not 937")
     check(diff <= 1e-12, f"chunked history differs by {diff}")
+
+
+def _reference(row):
+    """The JAX package's float64 row for ``row``'s config and options."""
+    ref = bench_configs.reference_row(row["config"], row["solve"])
+    check(ref is not None, f"no JAX reference for {row['config']} solved "
+                           f"with {row['solve']}")
+    return ref
+
+
+def _check_plain_row(row, phase):
+    """A plain CP row of the runner against the JAX package's float64 row:
+    converged; in float64 the same count and the objective within
+    ``F64_OBJECTIVE_REL``, in float32 the count within ``F32_COUNT_SLACK``;
+    K1 launched once per ``prox_f`` call."""
+    ref = _reference(row)
+    check(row["converged"], f"{phase}: did not converge ({row['xi']})")
+    if row["dtype"] == "torch.float64":
+        check(row["iterations"] == ref["iterations"],
+              f"{phase}: {row['iterations']} iterations, JAX "
+              f"{ref['iterations']} (xi at the last two checks "
+              f"{row['xi_last_two_checks']}, alpha {row['alpha']!r}, JAX's "
+              f"{ref['alpha']!r})")
+        rel = abs(row["objective"] - ref["objective"]) / abs(ref["objective"])
+        check(rel <= F64_OBJECTIVE_REL,
+              f"{phase}: objective {row['objective']!r} is {rel} from JAX's "
+              f"{ref['objective']!r}")
+    else:
+        check(abs(row["iterations"] - ref["iterations"])
+              <= F32_COUNT_SLACK * ref["iterations"],
+              f"{phase}: {row['iterations']} iterations, further than "
+              f"{F32_COUNT_SLACK:.0%} from JAX's float64 {ref['iterations']}")
+    check(row["k1_launches"] == row["prox_f_calls"] > 0,
+          f"{phase}: K1 launches {row['k1_launches']} != prox_f calls "
+          f"{row['prox_f_calls']}")
+
+
+def phase_baseline_configs():
+    """BASELINE configs 1-3 in float64 on the card, through the runner:
+    configs 1 and 2 with its options, config 3 at its production stride;
+    each held against the JAX package's count and objective."""
+    for k, options in ((1, {}), (2, {}), (3, bench_configs.STRIDED)):
+        path = f"baseline_config{k}_f64"
+        with counted(path) as calls:
+            (row,) = bench_configs.run_config(k, torch.float64, DEV,
+                                              repeats=1, **options)
+        emit(path, **row, path_k1_launches=calls["k1"],
+             path_prox_f_calls=calls["prox_f"])
+        _check_plain_row(row, path)
+        check(calls["k1"] == calls["prox_f"] == row["k1_launches"],
+              f"{path}: K1 launches {calls['k1']} != prox_f calls "
+              f"{calls['prox_f']}")
 
 
 def phase_headline():
@@ -1436,94 +1517,81 @@ def baseline_batch(names=("batch_config4_f32", "batch_config4_f64",
               f"{calls['prox_f']}")
 
 
-def baseline(config5_steps):
-    """BASELINE config 4 (SuperMann) and config 5 (closed loop) to 1e-3,
-    as ``scripts/bench_configs.py`` runs them in the JAX package."""
-    problem, x0 = random_network_problem(**HEADLINE)
-    tic = time.perf_counter()
-    solver = rt.Solver(problem, device=DEV)
-    solver.operator_norm_sq()
-    setup_s = time.perf_counter() - tic
-    with counted("config4_supermann") as calls:
-        res = solver.solve(x0, max_iters=20000, tol=1e-3, accel="supermann")
-    emit("config4_supermann_f32", nodes=solver.stacked.num_nodes,
-         converged=res.converged, iters=res.num_iters,
-         t_evals=calls["prox_f"], k1_launches=calls["k1"],
-         time_to_tol_s=res.solve_time, setup_s=setup_s,
-         iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
-         max_violation=max(solver.validate(res).values()))
-    check(res.converged, "config 4 SuperMann did not converge")
+def baseline(configs, dtypes, config5_steps):
+    """The five-config runner (``scripts/bench_configs.py``, every row
+    solved twice, the second timed) on the card: configs 1-4 in each of
+    ``dtypes``, each plain row against the JAX package's float64 row
+    (:func:`_check_plain_row`), config 4's SuperMann row converged to an
+    objective within ``SUPERMANN_OBJECTIVE_REL`` of the plain row's (its
+    count is not held: the accelerators amplify rounding); config 5's
+    closed loop in float32, ``config5_steps`` steps, every step converged
+    with the JAX package's realised modes."""
+    for dtype in dtypes:
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for k in sorted(c for c in configs if c in CONFIGS):
+            rows = bench_configs.run_config(k, dtype, DEV)
+            for row in rows:
+                phase = f"baseline_{row['config']}_{tag}"
+                emit(phase, **row)
+                if row["accel"] is None:
+                    _check_plain_row(row, phase)
+                    continue
+                plain = rows[0]["objective"]
+                rel = abs(row["objective"] - plain) / abs(plain)
+                check(row["converged"] and rel <= SUPERMANN_OBJECTIVE_REL,
+                      f"{phase}: converged {row['converged']}, objective "
+                      f"{rel} from the plain row's")
+                check(row["k1_launches"] == row["prox_f_calls"] > 0,
+                      f"{phase}: K1 launches {row['k1_launches']} != "
+                      f"prox_f calls {row['prox_f_calls']}")
+    if 5 in configs:
+        (row,) = bench_configs.run_config(5, torch.float32, DEV,
+                                          num_steps=config5_steps)
+        emit("baseline_5_mpc_closed_loop_1e5_f32", **row)
+        check(row["converged"], f"a config-5 step did not converge: "
+                                f"{row['iterations_per_step']}")
+        check(row["modes"] == row["jax_modes"],
+              f"config 5's modes {row['modes']}, JAX's {row['jax_modes']}")
+        check(row["k1_launches"] == row["prox_f_calls"] > 0,
+              f"config 5: K1 launches {row['k1_launches']} != prox_f calls "
+              f"{row['prox_f_calls']}")
 
-    controller, x0 = network_mpc_controller(**CONFIG5, offline="device",
-                                            device=DEV)
-    setup = {}
-    _timed_solver_for_mode(controller, setup)
-    tic = time.perf_counter()
-    with counted("config5_closed_loop") as calls:
-        run = controller.run(x0, num_steps=config5_steps, max_iters=20000,
-                             tol=1e-3, check_every=25, unroll=5,
-                             chunk_iters=2500, relax="auto")
-    emit("config5_closed_loop_f32", steps=run.num_steps,
-         converged=run.converged, modes=run.modes.tolist(),
-         iterations=run.iterations.tolist(),
-         solve_s=run.solve_times.tolist(),
-         setup_s_per_solver={str(k): v for k, v in setup.items()},
-         wall_s=time.perf_counter() - tic, k1_launches=calls["k1"],
-         prox_f_calls=calls["prox_f"], total_cost=run.total_cost)
-    check(run.converged, "a config-5 step did not converge")
 
-
-def profile_config5(steps=100):
-    """Where a CP step of config 5 (88,573 nodes, float32) goes, from the
-    trace that ``solve(profile_dir=...)`` writes: the wall time per step
-    (from the first device event's start to the last one's end), the share
-    of it the card is busy, K1's share of the card's time, and the kernels
-    that take most of it."""
-    controller, x0 = network_mpc_controller(**CONFIG5, offline="device")
-    solver, _ = controller.solver_for_mode(0)
-    solver.operator_norm_sq()
-    opts = dict(max_iters=steps, tol=1e-12, check_every=25, unroll=5,
-                relax="auto")
-    solver.solve(x0, **opts)                    # warm up, builds K1
-    with tempfile.TemporaryDirectory() as folder, counted() as calls:
-        res = solver.solve(x0, profile_dir=folder, **opts)
-        with open(os.path.join(folder, "trace.json")) as fh:
-            events = json.load(fh)["traceEvents"]
-    events = [ev for ev in events
-              if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    check(events, "the trace holds no device event")
-    by_name = {}                                # kernel -> [us, launches]
-    for ev in events:
-        entry = by_name.setdefault(ev["name"], [0.0, 0])
-        entry[0] += ev["dur"]
-        entry[1] += 1
-    busy_us = sum(t for t, _ in by_name.values())
-    wall_us = max(ev["ts"] + ev["dur"] for ev in events) \
-        - min(ev["ts"] for ev in events)
-    k1_us = sum(t for name, (t, _) in by_name.items()
-                if "stage_kernel" in name or "apex_kernel" in name)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    emit("profile_config5_f32", nodes=solver.stacked.num_nodes,
-         steps=res.num_iters,
-         wall_ms_per_step=1e-3 * wall_us / res.num_iters,
-         device_ms_per_step=1e-3 * busy_us / res.num_iters,
-         device_busy_share=busy_us / wall_us,
-         k1_ms_per_step=1e-3 * k1_us / res.num_iters,
-         k1_share_of_device=k1_us / busy_us, k1_launches=calls["k1"],
-         kernel_launches_per_step=sum(
-             c for _, c in by_name.values()) / res.num_iters,
-         top_kernels=[dict(name=name[:60], ms_per_step=1e-3 * t
-                           / res.num_iters, launches_per_step=c
-                           / res.num_iters) for name, (t, c) in top])
+def profile():
+    """Where the time of a CP step goes (``scripts/profile_step.py``): the
+    headline's 100 steps at ``check_every=25, unroll=25`` and config 5's
+    at the closed loop's options, each from the trace of
+    ``solve(profile_dir=...)``; and the headline's components
+    (``scripts/bench_components.py``), wall beside device time."""
+    for name in ("headline", "config5"):
+        got = profile_step.run_profile(name, device=DEV)
+        emit(f"profile_{name}_f32", **got)
+        check(got["k1_launches"] == got["prox_f_calls"] > 0
+              and got["device_ms_per_step"] > 0,
+              f"{name}'s profile: K1 launches {got['k1_launches']}, prox_f "
+              f"calls {got['prox_f_calls']}")
+    problem, _ = CONFIGS[4].make()
+    sp = rt.Solver(problem, dtype=torch.float32, offline="device",
+                   device=DEV).stacked
+    rows = bench_components.time_components(sp)
+    emit("components_headline_f32", nodes=sp.num_nodes, rows=rows)
+    check(all(r["device_ms"] > 0 and r["launches"] > 0 for r in rows),
+          "a component put nothing on the card")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="store_true",
-                    help="run BASELINE configs 3-5 to 1e-3 instead")
-    ap.add_argument("--config5-steps", type=int, default=1)
+                    help="run BASELINE configs 1-5 to 1e-3 and the batch "
+                         "rows instead")
+    ap.add_argument("--configs", default="1,2,3,4,5,batch",
+                    help="--baseline's part: configs of 1-5, 'batch'")
+    ap.add_argument("--dtypes", default="float64,float32",
+                    help="--baseline's dtypes of configs 1-4")
+    ap.add_argument("--config5-steps", type=int, default=5)
     ap.add_argument("--profile", action="store_true",
-                    help="profile 100 CP steps of config 5 instead")
+                    help="profile the headline's and config 5's CP step "
+                         "and the headline's components instead")
     ap.add_argument("--mesh", action="store_true",
                     help="run the partitioned phases alone (subtree, flat)")
     # one rank of the partitioned phases (the script starts itself so)
@@ -1545,16 +1613,21 @@ def main():
         return 0
     if args.baseline or args.profile:
         if args.profile:
-            profile_config5()
+            profile()
         else:
-            baseline(args.config5_steps)
-            baseline_batch()
+            parts = args.configs.split(",")
+            baseline({int(c) for c in parts if c != "batch"},
+                     [getattr(torch, d) for d in args.dtypes.split(",")],
+                     args.config5_steps)
+            if "batch" in parts:
+                baseline_batch()
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
     phase_matmul_context()
     demo = phase_parity()
     phase_chunked(demo)
+    phase_baseline_configs()
     phase_headline()
     phase_mpc_config5()
     phase_accel()

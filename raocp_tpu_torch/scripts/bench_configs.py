@@ -1,0 +1,235 @@
+"""Run the five BASELINE.json configurations end to end on the port
+(counterpart of the JAX package's ``scripts/bench_configs.py``).
+
+    python -m raocp_tpu_torch.scripts.bench_configs [--configs 1,2,3,4,5]
+        [--dtype float32|float64] [--device cpu]
+
+For each of configs 1-4: build the problem, solve to 1e-3 (the BASELINE
+target residual) twice with the JAX script's options and time the second
+solve (the first pays K1's per-problem packing), validate it, and print
+one JSON line with the JAX script's fields, the dtype, the K1 launches and
+``prox_f`` calls of the timed solve, and the JAX package's float64 count
+for the same row and options (``jax_reference.json``) beside the port's.
+Config 4 adds a SuperMann row. Config 5 is the closed-loop risk-averse MPC
+run: five steps on the 100-state plant, an 88,573-node tree a step; its
+row carries the JAX package's realised modes and, as context from a TPU
+in float32, its per-step counts.
+
+  1. 2-state/1-input LQR-style RAOCP, binary tree, N=3, AVaR
+  2. mass-spring chain (10 states), branching-2, horizon 6, input boxes
+  3. 20-state, branching-3, horizon 7 (3,280 nodes), SOC (ball) + AVaR
+  4. 50-state network, 9,841-node tree, plain CP and SuperMann
+  5. 100-state, 88,573-node tree, closed-loop risk-averse MPC
+
+It runs on the card unless ``--device cpu`` is given, and a row that
+raises fails the run.
+"""
+
+import argparse
+import contextlib
+import dataclasses
+import functools
+import json
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from raocp_tpu_torch import models
+from raocp_tpu_torch import solver as solver_mod
+from raocp_tpu_torch.core.stacked import _torch_dtype, default_dtype
+from raocp_tpu_torch.ops import sweep
+
+__all__ = ["CONFIGS", "CONFIG5", "CONFIG5_RUN", "SOLVE", "STRIDED", "Config",
+           "counted_calls", "jax_reference", "reference_row", "run_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """One of configs 1-4: the problem family and its arguments, the
+    Solver's and the solve's options, and the accelerated row, if any."""
+
+    name: str
+    family: str
+    problem: dict
+    offline: str
+    solve: dict
+    accel: Optional[str] = None
+
+    def make(self, family_module=models):
+        """(problem, x0) from ``family_module`` (the port's models; the
+        JAX package's for its reference)."""
+        return getattr(family_module, self.family)(**self.problem)
+
+
+# every row solves to the BASELINE tolerance with these, plus its own
+SOLVE = dict(max_iters=20000, tol=1e-3)
+CONFIGS = {
+    1: Config("1_lqr_binary_15node", "lqr_binary_problem",
+              dict(num_stages=3), "host", {}),
+    2: Config("2_mass_spring_127node", "mass_spring_problem",
+              dict(num_masses=5, num_stages=6), "host", {}),
+    3: Config("3_soc_network_3k_node", "soc_network_problem",
+              dict(num_states=20, num_inputs=8, num_modes=3, num_stages=7,
+                   stopping_time=7), "device", dict(chunk_iters=2500)),
+    4: Config("4_network_1e4", "random_network_problem",
+              dict(num_states=50, num_inputs=20, num_modes=3, num_stages=8,
+                   stopping_time=8), "device", dict(chunk_iters=2500),
+              accel="supermann"),
+}
+# config 5: the per-step problem is the fully branched 88,573-node tree
+# (3^0..3^10); the production loop's options (check_every=25, unroll=5),
+# each device execution bounded by chunk_iters
+CONFIG5 = dict(num_states=100, num_inputs=40, num_modes=3, num_stages=10,
+               stopping_time=10)
+CONFIG5_RUN = dict(num_steps=5, max_iters=20000, tol=1e-3, check_every=25,
+                   unroll=5, chunk_iters=2500, relax="auto")
+# the production loop's stride: the smoke solves config 3 at it (a card step
+# at check_every=1 is bound by the host's read of the residuals), and the
+# reference holds config 3 at it too
+STRIDED = dict(check_every=25, unroll=25)
+_REFERENCE = Path(__file__).resolve().parent / "jax_reference.json"
+
+
+@functools.lru_cache(maxsize=1)
+def jax_reference() -> dict:
+    """The JAX package's committed results (``jax_reference.json``)."""
+    with open(_REFERENCE) as fh:
+        return json.load(fh)
+
+
+def reference_row(name: str, solve: dict) -> Optional[dict]:
+    """The JAX package's float64 row of ``name`` solved with the options
+    ``solve`` (the row's own, :data:`SOLVE` included), or None where the
+    reference holds no such row."""
+    for row in jax_reference()["rows"]:
+        if row["config"] == name and row["solve"] == solve:
+            return row
+    return None
+
+
+@contextlib.contextmanager
+def counted_calls():
+    """Count the K1 launches and the ``prox_f`` calls (the T evaluations
+    of a CP step, accelerated or not) while the body runs; the counts are
+    read after it. Nothing is reset, so an outer count goes on counting."""
+    calls = {"prox_f": 0, "k1": 0}
+    real = solver_mod.prox_f
+
+    def counting(*args, **kwargs):
+        calls["prox_f"] += 1
+        return real(*args, **kwargs)
+
+    before = sweep.LAUNCHES
+    solver_mod.prox_f = counting
+    try:
+        yield calls
+    finally:
+        solver_mod.prox_f = real
+        calls["k1"] = sweep.LAUNCHES - before
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _solve_rows(cfg: Config, dtype, device, repeats: int, options: dict):
+    """The plain row of ``cfg`` (and its accelerated row), each solved
+    ``repeats`` times, the last solve timed and counted."""
+    problem, x0 = cfg.make()
+    _sync(device)
+    tic = time.perf_counter()
+    solver = solver_mod.Solver(problem, dtype=dtype, offline=cfg.offline,
+                               device=device)
+    solver.operator_norm_sq()
+    _sync(device)
+    setup_s = time.perf_counter() - tic
+    runs = [(cfg.name, {**SOLVE, **cfg.solve, **options})]
+    if cfg.accel is not None:
+        # the accelerated loops carry their own histories and do not chunk
+        runs.append((f"{cfg.name}_{cfg.accel}",
+                     {**SOLVE, **options, "accel": cfg.accel}))
+    rows = []
+    for name, solve in runs:
+        for _ in range(repeats - 1):
+            solver.solve(x0, **solve)
+        with counted_calls() as calls:
+            res = solver.solve(x0, **solve)
+        ref = reference_row(name, solve) or {}
+        checked = res.xi_history[~np.isnan(res.xi_history).any(axis=1)]
+        rows.append(dict(
+            config=name, num_nodes=problem.tree.num_nodes,
+            converged=res.converged, iterations=res.num_iters,
+            iters_per_s=res.iters_per_second, time_to_tol_s=res.solve_time,
+            setup_s=setup_s,
+            max_violation=max(solver.validate(res).values()),
+            accel=solve.get("accel"), dtype=str(solver.stacked.dtype),
+            k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
+            jax_iterations=ref.get("iterations"),
+            objective=res.objective, jax_objective=ref.get("objective"),
+            xi=res.xi.tolist(), xi_last_two_checks=checked[-2:].tolist(),
+            alpha=res.alpha, solve=solve))
+    return rows
+
+
+def _closed_loop_row(dtype, device, options: dict):
+    """Config 5: the closed loop of ``CONFIG5_RUN`` (with ``options``)."""
+    run_kw = {**CONFIG5_RUN, **options}
+    controller, x0 = models.network_mpc_controller(
+        **CONFIG5, dtype=dtype, offline="device", device=device)
+    tic = time.perf_counter()
+    with counted_calls() as calls:
+        run = controller.run(x0, **run_kw)
+    wall = time.perf_counter() - tic
+    solver = controller.solver_for_mode(int(run.modes[0]))[0]
+    ref = jax_reference()["config5"]
+    return dict(
+        config="5_mpc_closed_loop_1e5",
+        num_nodes=solver.stacked.num_nodes, converged=run.converged,
+        mpc_steps=run.num_steps,
+        iterations_per_step=run.iterations.tolist(), wall_s=wall,
+        relax=solver_mod._resolve_relax(run_kw["relax"]),
+        relax_mode="auto" if run_kw["relax"] == "auto" else "explicit",
+        dtype=str(solver.stacked.dtype), k1_launches=calls["k1"],
+        prox_f_calls=calls["prox_f"], modes=run.modes.tolist(),
+        jax_modes=ref["modes"][:run.num_steps + 1],
+        total_cost=run.total_cost, solve_s=run.solve_times.tolist(),
+        jax_tpu_f32_iterations_per_step=ref["tpu_f32_iterations_per_step"],
+        run=run_kw)
+
+
+def run_config(k: int, dtype=None, device="cuda", repeats: int = 2,
+               **options) -> list:
+    """BASELINE config ``k`` (1-5) on ``device`` in ``dtype`` (the device's
+    default: float32 on a GPU, float64 on the CPU); returns its rows.
+
+    ``options`` override the config's solve options (configs 1-4: e.g.
+    ``check_every``, ``unroll``, ``max_iters``) or its closed-loop options
+    (config 5: e.g. ``num_steps``). Configs 1-4 solve each row
+    ``repeats`` times and time and count the last solve."""
+    dtype = default_dtype(device) if dtype is None else _torch_dtype(dtype)
+    if k == 5:
+        return [_closed_loop_row(dtype, device, options)]
+    if k not in CONFIGS:
+        raise ValueError(f"no BASELINE config {k} (1-5)")
+    return _solve_rows(CONFIGS[k], dtype, device, repeats, options)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--configs", default="1,2,3,4,5")
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    help="default: float32 on the card, float64 on the CPU")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dtype = None if args.dtype is None else getattr(torch, args.dtype)
+    for k in (int(c) for c in args.configs.split(",")):
+        for row in run_config(k, dtype=dtype, device=args.device):
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

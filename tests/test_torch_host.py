@@ -78,8 +78,8 @@ def test_example_families_match_jax(name, kwargs):
 
 
 def test_port_never_imports_jax():
-    """A fresh process imports the port (accel, mpc, parallel and utils
-    included),
+    """A fresh process imports the port (accel, mpc, parallel, utils, the
+    scripts and the examples included),
     builds, steps and validates the demo, and finds no JAX module loaded,
     and no matplotlib either (only the plotting functions import it)."""
     code = (
@@ -89,6 +89,12 @@ def test_port_never_imports_jax():
         "import raocp_tpu_torch.accel, raocp_tpu_torch.mpc\n"
         "import raocp_tpu_torch.parallel\n"
         "import raocp_tpu_torch.utils.evaluate, raocp_tpu_torch.utils.plots\n"
+        "import raocp_tpu_torch.scripts.bench_configs\n"
+        "import raocp_tpu_torch.scripts.bench_components\n"
+        "import raocp_tpu_torch.scripts.profile_step\n"
+        "import raocp_tpu_torch.examples.main\n"
+        "import raocp_tpu_torch.examples.closed_loop_mpc\n"
+        "import raocp_tpu_torch.examples.risk_spectrum\n"
         "from raocp_tpu_torch.models import demo_problem\n"
         "problem, x0 = demo_problem()\n"
         "solver = r.Solver(problem, device='cpu')\n"
@@ -114,6 +120,8 @@ def _entry_points():
     import raocp_tpu_torch as rt
     from raocp_tpu_torch.core import modal
     from raocp_tpu_torch.core import stacked
+    from raocp_tpu_torch.examples import closed_loop_mpc, main, risk_spectrum
+    from raocp_tpu_torch.scripts import bench_configs
     return {
         "Solver": rt.Solver.__init__,
         "RiskAverseMPC": rt.RiskAverseMPC.__init__,
@@ -122,18 +130,50 @@ def _entry_points():
         "build_stacked": stacked.build_stacked,
         "from_numpy": stacked.from_numpy,
         "upload": modal.upload,
+        "run_config": bench_configs.run_config,
+        "examples.main": main.main,
+        "examples.closed_loop_mpc": closed_loop_mpc.main,
+        "examples.risk_spectrum": risk_spectrum.main,
     }
+
+
+# the command-line entry points and how each is asked for the CPU
+COMMANDS = {
+    "raocp_tpu_torch.scripts.bench_configs": ["--configs", "1"],
+    "raocp_tpu_torch.examples.main": [],
+    "raocp_tpu_torch.examples.closed_loop_mpc": ["1"],
+    "raocp_tpu_torch.examples.risk_spectrum": [],
+}
 
 
 @pytest.mark.parametrize("name", ["Solver", "RiskAverseMPC",
                                   "demo_mpc_controller",
                                   "network_mpc_controller", "build_stacked",
-                                  "from_numpy", "upload"])
+                                  "from_numpy", "upload", "run_config",
+                                  "examples.main",
+                                  "examples.closed_loop_mpc",
+                                  "examples.risk_spectrum"])
 def test_entry_points_default_to_the_card(name):
     import inspect
     default = inspect.signature(_entry_points()[name]).parameters[
         "device"].default
     assert default == "cuda"
+
+
+@pytest.mark.parametrize("module", sorted(COMMANDS))
+def test_commands_raise_without_a_card(module, tmp_path):
+    """Run as commands, the runner and the examples go to the card and
+    fail without one; nothing carries on on the CPU unless asked."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-m", module, *COMMANDS[module]],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr, out.stderr[-2000:]
 
 
 def test_solver_without_a_device_raises_without_a_card():
