@@ -10,11 +10,15 @@
                                         # config 5's step
     python3 chip_smoke.py --mesh        # the partitioned phases alone
                                         # (subtree and flat)
+    python3 chip_smoke.py --scale       # the scale runs, the option
+        [--parts scale_88573,...]       # sweeps, the batch and scaling
+                                        # harnesses: their full rows
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
-card (at the shapes of every path below, BASELINE configs 1-3 and config
-5's width and batches of 8 and 3 lanes included; each case with its time,
+card (at the shapes of every path below, BASELINE configs 1-3, config
+5's width, the 88,573- and 797,161-node trees of the scale runs and
+batches of 8 and 3 lanes included; each case with its time,
 the plain version's, the least time the card could take for the same
 operations and bytes, and its launches counted in a profile), and then
 drives the port's paths, each with the launch counts set to 0 just before
@@ -35,6 +39,19 @@ it and read just after:
 * ``mpc_config5_f32``: ``network_mpc_controller(offline="device")`` at
   BASELINE config 5's full size (100 states, 40 inputs, 88,573 nodes),
   two closed-loop steps;
+* ``scale_88573_f32``: ``scripts/bench_scale.py``'s problem (a 50-state,
+  20-input network fully branched for 10 stages, 88,573 nodes) through
+  ``bench_scale.run_tree``: the power iteration, then 250 CP steps
+  (the runner's 1,000 are ``--scale``'s); finite residuals, K1 launches
+  equal to ``prox_f`` calls;
+* ``scale_797161_f32``: ``scripts/bench_1e6.py``'s problem (12 stages,
+  797,161 nodes, a 531,441-row leaf stage) through the same function: the
+  tree, the build, the loose power iteration, 50 CP steps with the peak
+  device memory after each; then 25 steps through K1 held against the same
+  25 steps through the plain sweep at the same step size
+  (``SCALE_STEPS_REL``);
+* ``relax_config2_f64``: ``scripts/bench_relax.py``'s relax-1.8 row of
+  BASELINE config 2 in float64, its count the JAX package's;
 * ``accel_headline_f32``: SuperMann on the headline; SuperMann on the
   uniform tree (through K1) and Anderson on the demo, in float64 against
   the CPU port (the same T evaluations and iterates over the first 80 /
@@ -95,6 +112,17 @@ float64) and of ``soc_network_problem()`` with its defaults (the SOC
 network, 148 nodes; not BASELINE config 3's 3,280) to 1e-3 in one batch
 against eight sequential solves. ``--configs`` and ``--dtypes`` pick a
 part of it. K1 launches equal ``prox_f`` calls on every row.
+``--scale`` runs each of these in a process of its own and checks its
+rows: ``bench_scale`` (1,000 CP steps, best of 3), ``bench_1e6`` (50 steps,
+and once to 1e-3), the 797,161-node step's profile (20 steps, with the
+Solver's own power iteration), ``bench_relax`` and ``bench_accel`` in
+float64 and float32 (one timed solve a row; every plain CP count in
+float64 the JAX package's, in float32 within ``F32_COUNT_SLACK`` of it;
+the accelerators' counts reported), ``bench_batch`` (the 148-node SOC
+network), ``bench_scaling --device cuda`` at one and two ranks, and
+(``f2``) the eight float32 headline lanes to 1e-3 at the JAX package's
+step size (ROADMAP F2). K1 launches equal ``prox_f`` calls on every row
+whose tree is K1's.
 ``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
 headline (``check_every=25, unroll=25``) and of config 5 (the closed
 loop's options) with ``solve(profile_dir=...)`` and prints, from each
@@ -126,9 +154,11 @@ from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     network_mpc_controller,
                                     random_network_problem,
                                     soc_network_problem)
-from raocp_tpu_torch.ops import sweep  # noqa: E402
-from raocp_tpu_torch.scripts import (bench_components,  # noqa: E402
-                                     bench_configs, profile_step)
+from raocp_tpu_torch.ops import prox, sweep  # noqa: E402
+from raocp_tpu_torch.scripts import (bench_batch,  # noqa: E402
+                                     bench_components, bench_configs,
+                                     bench_relax, bench_scale, profile_step)
+from raocp_tpu_torch.scripts.bench_batch import batch_lanes  # noqa: E402
 from raocp_tpu_torch.scripts.bench_configs import (CONFIGS,  # noqa: E402
                                                    counted_calls)
 
@@ -140,6 +170,18 @@ SMALL = dict(num_states=6, num_inputs=3, num_modes=3, num_stages=4,
 HEADLINE = CONFIGS[4].problem
 CONFIG5 = bench_configs.CONFIG5
 CONFIG5_WIDTH = dict(CONFIG5, num_stages=3, stopping_time=3)
+# the scale_88573_f32 phase's CP steps (bench_scale runs 1,000)
+SCALE_SMOKE_ITERS = 250
+# scale_797161_f32: 25 CP steps through K1 against the same 25 through the
+# plain sweep, float32, the same step size. The two round differently (one
+# apply agrees to 3.3e-7 of the output's largest entry at worst, PERF.md)
+# and CP steps are nonexpansive, so 25 steps of such rounding stay near
+# 25 x 1e-6: each iterate leaf within SCALE_STEPS_REL of its largest entry,
+# a leaf below SCALE_NOISE_FLOOR of the iterate's largest entry against
+# that floor
+SCALE_STEPS = 25
+SCALE_STEPS_REL = 1e-4
+SCALE_NOISE_FLOOR = 1e-6
 # the JAX package's float32 count on this problem (BENCH_configs_r05.jsonl,
 # config 4): context only, not asserted
 JAX_F32_ITERS = 10174
@@ -867,14 +909,6 @@ def _check_flat_headline(ranks, refs):
           "K1 ran on the flat headline")
 
 
-def bench_lanes(x0, lanes=8):
-    """``scripts/bench_batch.py``'s initial states: (0.5 + r) x0, r from
-    ``numpy.random.default_rng(0)``."""
-    x0 = np.asarray(x0, dtype=np.float64)
-    return np.stack([s * x0 for s in
-                     0.5 + np.random.default_rng(0).random(lanes)])
-
-
 def _network(kwargs):
     """``random_network_problem(**kwargs)`` as a K1 case's problem."""
     return bench_configs.Config("network", "random_network_problem", kwargs,
@@ -895,7 +929,7 @@ def _sweep_inputs(cfg, dtype, pad, lanes=None):
                            dtype=dtype, device=DEV)
     u_in = torch.as_tensor(rng.standard_normal(lead + (sp.nl_pad, sp.m)),
                            dtype=dtype, device=DEV)
-    x0 = x0 if lanes is None else bench_lanes(x0, lanes)
+    x0 = x0 if lanes is None else batch_lanes(x0, lanes)
     return sp, x_in, u_in, torch.as_tensor(x0, dtype=dtype, device=DEV)
 
 
@@ -1035,7 +1069,14 @@ def phase_kernel():
              ("m_config2_f64", CONFIGS[2], torch.float64, 1, 1e-12, None),
              ("n_config2_f32", CONFIGS[2], torch.float32, 1, 1e-5, None),
              ("o_config3_f64", CONFIGS[3], torch.float64, 1, 1e-12, None),
-             ("p_config3_f32", CONFIGS[3], torch.float32, 1, 1e-4, None))
+             ("p_config3_f32", CONFIGS[3], torch.float32, 1, 1e-4, None),
+             # the shapes the scale_* paths hand K1 (n=50, m=20): 88,573
+             # nodes (stages of up to 19,683 parents) and 797,161 nodes
+             # (177,147 parents of the 531,441-row leaf stage)
+             ("q_scale_88573_f32", _network(bench_scale.tree_kwargs(10)),
+              torch.float32, 1, 1e-6, None),
+             ("r_scale_797161_f32", _network(bench_scale.tree_kwargs(12)),
+              torch.float32, 1, 1e-6, None))
     # a lane of a batch against the unbatched kernel: tiles of other rows,
     # so split-K sums in another order
     lane_tol = {torch.float32: 1e-6, torch.float64: 1e-14}
@@ -1295,6 +1336,110 @@ def phase_mpc_config5():
           f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
 
 
+def phase_scale_88573():
+    """``bench_scale``'s problem (88,573 nodes, n=50, m=20, float32,
+    ``offline="device"``) through ``bench_scale.run_tree``: the power
+    iteration at the Solver's tolerance, then ``SCALE_SMOKE_ITERS`` CP
+    steps at ``check_every=25``; K1 launches equal ``prox_f`` calls."""
+    with counted("scale_88573_f32") as calls:
+        row = bench_scale.run_tree(10, iters=SCALE_SMOKE_ITERS,
+                                   device=DEV).row
+    emit("scale_88573_f32", **row, path_k1_launches=calls["k1"],
+         path_prox_f_calls=calls["prox_f"])
+    check(row["num_nodes"] == 88573, "not the 88,573-node tree")
+    check(row["finite"] and np.isfinite(row["xi"]).all(),
+          f"the 88,573-node iterates are not finite: xi {row['xi']}")
+    check(row["iters"] == SCALE_SMOKE_ITERS,
+          f"{row['iters']} CP steps, not {SCALE_SMOKE_ITERS}")
+    check(calls["k1"] == calls["prox_f"] > 0,
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+
+
+@contextlib.contextmanager
+def _plain_sweep():
+    """``prox_f``'s dynamics projection through the plain torch sweep while
+    the body runs: the reference a K1 run is held against."""
+    real = prox.project_dynamics_sweep
+    prox.project_dynamics_sweep = sweep.project_dynamics_sweep_ref
+    try:
+        yield
+    finally:
+        prox.project_dynamics_sweep = real
+
+
+def phase_scale_797161():
+    """``bench_1e6``'s problem (797,161 nodes, n=50, m=20, float32,
+    ``offline="device"``) through ``bench_scale.run_tree``: the tree, the
+    build, the loose power iteration (1e-6), 50 CP steps (K1 launches
+    equal ``prox_f`` calls); then ``SCALE_STEPS`` steps through K1 held
+    against the same steps through the plain sweep at the same step
+    size."""
+    with counted("scale_797161_f32") as calls:
+        run = bench_scale.run_tree(12, iters=50, power_rel_tol=1e-6,
+                                   device=DEV)
+    row = run.row
+    sp = run.solver.stacked
+    x0 = torch.as_tensor(run.x0, dtype=sp.dtype, device=DEV)
+
+    def steps():
+        z0 = sp.zero_primal()
+        z0.x[0] = x0
+        z, eta, *_ = solver_mod._run_cp(
+            sp, z0, sp.zero_dual(), x0, row["alpha"], row["alpha"], 0.0,
+            SCALE_STEPS, check_every=25, unroll=5)
+        return {**z._asdict(), **eta._asdict()}
+
+    with counted() as k1_calls:
+        got = steps()
+    with _plain_sweep(), counted() as plain_calls:
+        ref = steps()
+    largest = max(float(v.abs().max()) for v in ref.values())
+    rel = {k: float((got[k] - v).abs().max())
+           / max(float(v.abs().max()), SCALE_NOISE_FLOOR * largest, 1e-30)
+           for k, v in ref.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    del got, ref, run
+    torch.cuda.empty_cache()
+    emit("scale_797161_f32", **row, path_k1_launches=calls["k1"],
+         path_prox_f_calls=calls["prox_f"], nonleaf=sp.num_nonleaf,
+         leaf_stage_rows=sp.num_nodes - sp.stage_start[-2],
+         k1_fields=_plan_fields(sp), steps_vs_plain=SCALE_STEPS,
+         steps_k1_launches=k1_calls["k1"],
+         steps_plain_k1_launches=plain_calls["k1"],
+         steps_rel_diff_by_leaf=rel, steps_rel_bound=SCALE_STEPS_REL,
+         steps_noise_floor=SCALE_NOISE_FLOOR)
+    check(row["num_nodes"] == 797161 and sp.num_nonleaf == 265720,
+          "not the 797,161-node tree")
+    check(row["finite"] and finite and np.isfinite(row["xi"]).all(),
+          f"the 797,161-node iterates are not finite: xi {row['xi']}")
+    check(row["iters"] == 50, f"{row['iters']} CP steps, not 50")
+    check(calls["k1"] == calls["prox_f"] > 0,
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+    check(k1_calls["k1"] == k1_calls["prox_f"] == SCALE_STEPS
+          and plain_calls["k1"] == 0
+          and plain_calls["prox_f"] == SCALE_STEPS,
+          f"the K1 run made {k1_calls} and the plain run {plain_calls}")
+    check(max(rel.values()) <= SCALE_STEPS_REL,
+          f"{SCALE_STEPS} steps through K1 are {rel} from the plain "
+          f"sweep's, beyond {SCALE_STEPS_REL}")
+
+
+def phase_relax_config2():
+    """``bench_relax``'s relax-1.8 row of BASELINE config 2 in float64 on
+    the card, held to the JAX package's count for the same options."""
+    with counted("relax_config2_f64") as calls:
+        (row,) = bench_relax.run_relax(2, torch.float64, DEV, repeats=1,
+                                       settings=("relax1.8",))
+    emit("relax_config2_f64", **row, path_k1_launches=calls["k1"],
+         path_prox_f_calls=calls["prox_f"])
+    check(row["converged"] and row["jax_iterations"] is not None
+          and row["iterations"] == row["jax_iterations"],
+          f"config 2 at relax 1.8: {row['iterations']} iterations, JAX "
+          f"{row['jax_iterations']}")
+    check(calls["k1"] == calls["prox_f"] > 0,
+          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+
+
 def _accel_window(phase, problem, x0, iters, **kw):
     """An accelerated solve capped at ``iters`` iterations, float64, on the
     card and on the CPU with one step size. The accelerators amplify
@@ -1406,7 +1551,7 @@ def phase_batch_headline():
     problem, x0 = random_network_problem(**HEADLINE)
     solver = rt.Solver(problem)             # the default device: the card
     solver.operator_norm_sq()
-    x0s = bench_lanes(x0)
+    x0s = batch_lanes(x0)
     opts = dict(max_iters=2500, tol=1e-3, check_every=25, unroll=25)
     # K1's batched and unbatched calls are planned and packed on first use
     solver.solve_batch(x0s, max_iters=25, tol=1e-3)
@@ -1452,69 +1597,38 @@ def phase_batch_headline():
 
 def baseline_batch(names=("batch_config4_f32", "batch_config4_f64",
                           "batch_socnet148_f32")):
-    """``scripts/bench_batch.py``'s two measurements on the card: eight
-    lanes solved to 1e-3 in one batch against eight sequential solves, at
-    the headline (BASELINE config 4, in float32 and in float64) and at
-    the SOC network (``soc_network_problem()`` with its defaults: 148
-    nodes, not BASELINE config 3's 3,280; ``offline="device"``, float32).
-    Each lane must end as its sequential solve does (converged, or at the
-    cap). In float64 its count must be within one check period (25) of
-    its sequential count, ``scripts/bench_batch.py``'s check. In float32 a
-    lane rounds otherwise than its single solve (other tiles of K1, other
-    GEMM shapes), and where a residual lingers near the tolerance that
-    moves its first check below it: there a lane's count must be within
-    ``F32_COUNT_SLACK`` of its sequential count (PERF.md: a config-4 lane
-    625 iterations, 5.3%, from its count in two float32 runs, and every
-    lane within 25 in float64)."""
+    """``scripts/bench_batch.py``'s two measurements on the card
+    (``bench_batch.run_batch``): eight lanes solved to 1e-3 in one batch
+    against eight sequential solves, at the headline (BASELINE config 4, in
+    float32 and in float64) and at the SOC network
+    (``soc_network_problem()`` with its defaults: 148 nodes, not BASELINE
+    config 3's 3,280; ``offline="device"``, float32). Each lane must end as
+    its sequential solve does, its count within one check period (25) of
+    its sequential count in float64 and within ``bench_batch``'s
+    ``F32_LANE_SLACK`` in float32 (``run_batch`` raises otherwise); K1
+    launches equal the batch's ``prox_f`` calls."""
     configs = {
         "batch_config4_f32": (lambda: random_network_problem(**HEADLINE),
-                              torch.float32, 20000, {}),
+                              torch.float32, 20000, {}, None),
         "batch_config4_f64": (lambda: random_network_problem(**HEADLINE),
-                              torch.float64, 20000, {}),
+                              torch.float64, 20000, {}, None),
         "batch_socnet148_f32": (soc_network_problem, torch.float32, 4000,
-                              dict(offline="device"))}
+                                dict(offline="device"),
+                                bench_batch.batch_key(False, 8, 4000))}
     for name in names:
-        make, dtype, max_iters, extra = configs[name]
+        make, dtype, max_iters, extra, key = configs[name]
         problem, x0 = make()
         solver = rt.Solver(problem, dtype=dtype, device=DEV, **extra)
         solver.operator_norm_sq()
-        x0s = bench_lanes(x0)
-        kw = dict(max_iters=max_iters, tol=1e-3, check_every=25, unroll=25)
-        solver.solve(x0s[0], max_iters=25, tol=1e-3)      # warm up
-        solver.solve_batch(x0s, max_iters=25, tol=1e-3)
-        tic = time.perf_counter()
-        seq = [solver.solve(x, **kw) for x in x0s]
-        seq_s = time.perf_counter() - tic
-        with counted(name) as calls:
-            tic = time.perf_counter()
-            bat = solver.solve_batch(x0s, **kw)
-            bat_s = time.perf_counter() - tic
-        diff = [b.num_iters - a.num_iters for a, b in zip(seq, bat)]
-        slack = [25 if dtype == torch.float64
-                 else max(25, F32_COUNT_SLACK * a.num_iters) for a in seq]
-        emit(name, nodes=solver.stacked.num_nodes, dtype=str(dtype),
-             lanes=len(bat), sequential_s=seq_s, batched_s=bat_s,
-             ratio=seq_s / bat_s,
-             sequential_iters=[r.num_iters for r in seq],
-             batched_iters=[r.num_iters for r in bat],
-             sequential_status=[r.status for r in seq],
-             batched_status=[r.status for r in bat], count_diff=diff,
-             count_slack=slack,
-             lanes_beyond_one_period=sum(abs(d) > 25 for d in diff),
-             sequential_lane_iters_per_second=sum(
-                 r.num_iters for r in seq) / seq_s,
-             batched_lane_iters_per_second=sum(
-                 r.num_iters for r in bat) / bat_s,
-             k1_launches=calls["k1"], prox_f_calls=calls["prox_f"])
-        check([r.status for r in seq] == [r.status for r in bat],
-              f"{name}: a lane ends otherwise than its sequential solve")
-        check(all(abs(d) <= s for d, s in zip(diff, slack)),
-              f"{name}: a lane's count is further from its sequential "
-              f"count than {slack}: {diff}")
+        row = bench_batch.run_batch(
+            solver, batch_lanes(x0), max_iters, name=name,
+            reference=None if key is None
+            else bench_configs.reference_row(*key))
+        emit(name, **row)
         check(not sweep.sweep_eligible(solver.stacked)
-              or calls["k1"] == calls["prox_f"] > 0,
-              f"{name}: K1 launches {calls['k1']} != prox_f calls "
-              f"{calls['prox_f']}")
+              or row["k1_launches"] == row["prox_f_calls"] > 0,
+              f"{name}: K1 launches {row['k1_launches']} != prox_f calls "
+              f"{row['prox_f_calls']}")
 
 
 def baseline(configs, dtypes, config5_steps):
@@ -1579,6 +1693,105 @@ def profile():
           "a component put nothing on the card")
 
 
+# JAX's float32 step size at the headline (0.999 / lambda_max in float32;
+# the port's own is 0.24975, two ulps away: ROADMAP F2)
+F2_ALPHA = 0.24974997
+# --scale's parts, each run in a process of its own: the runner and its
+# arguments (a runner module of raocp_tpu_torch.scripts, or this script)
+_MOD = "raocp_tpu_torch.scripts."
+SCALE_PARTS = {
+    "scale_88573": ["-m", _MOD + "bench_scale"],
+    "tree797161": ["-m", _MOD + "bench_1e6"],
+    "tree797161_tol": ["-m", _MOD + "bench_1e6", "--tol", "1e-3"],
+    "profile797161": ["-m", _MOD + "profile_step", "--config", "tree797161",
+                      "--steps", "20"],
+    "relax_f64": ["-m", _MOD + "bench_relax", "--dtype", "float64",
+                  "--repeats", "1"],
+    "relax_f32": ["-m", _MOD + "bench_relax", "--dtype", "float32",
+                  "--repeats", "1"],
+    "accel_f64": ["-m", _MOD + "bench_accel", "--dtype", "float64",
+                  "--repeats", "1"],
+    "accel_f32": ["-m", _MOD + "bench_accel", "--dtype", "float32",
+                  "--repeats", "1"],
+    "batch": ["-m", _MOD + "bench_batch"],
+    "scaling": ["-m", _MOD + "bench_scaling", "--device", "cuda", "--ranks",
+                "1,2"],
+    "f2": [os.path.abspath(__file__), "--part", "f2"],
+}
+SCALE_PART_TIMEOUT = 3000
+
+
+def part_f2():
+    """The eight float32 headline lanes of ``batch_config4_f32`` to 1e-3 at
+    JAX's step size ``F2_ALPHA``, with lane 6 solved alone beside them."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem, device=DEV)
+    row = bench_batch.run_batch(solver, batch_lanes(x0), 20000,
+                                alpha=F2_ALPHA, sequential=(6,),
+                                name="f2_headline_b8_f32")
+    print(json.dumps(row), flush=True)
+    check(row["k1_launches"] == row["prox_f_calls"] > 0,
+          f"K1 launches {row['k1_launches']} != prox_f calls "
+          f"{row['prox_f_calls']}")
+
+
+def _check_scale_row(part, row):
+    """What a --scale part's row must hold: K1 launched once per
+    ``prox_f`` call wherever it is on the row's path on the card, finite
+    results; a plain CP row of the sweeps in float64 on the JAX package's
+    count, in float32 within ``F32_COUNT_SLACK`` of it."""
+    if row.get("k1_path") and row["device"].startswith("cuda"):
+        check(row["k1_launches"] == row["prox_f_calls"] > 0,
+              f"{part}: K1 launches {row['k1_launches']} != prox_f calls "
+              f"{row['prox_f_calls']}")
+    if "finite" in row:
+        check(row["finite"], f"{part}: the iterates are not finite")
+    if row.get("tol"):
+        check(row["converged"], f"{part}: did not reach {row['tol']}")
+    if part.startswith(("relax", "accel")) \
+            and "accel" not in row["solve"]:
+        ref = row["jax_iterations"]
+        check(ref is not None, f"{part}: no JAX count for {row['solve']}")
+        if row["dtype"] == "torch.float64":
+            check(row["iterations"] == ref,
+                  f"{part} {row['config']} {row['solve']}: "
+                  f"{row['iterations']} iterations, JAX {ref}")
+        else:
+            check(abs(row["iterations"] - ref) <= F32_COUNT_SLACK * ref,
+                  f"{part} {row['config']} {row['solve']}: "
+                  f"{row['iterations']} iterations, further than "
+                  f"{F32_COUNT_SLACK:.0%} from JAX's float64 {ref}")
+
+
+def scale(parts):
+    """The long rows (module docstring), each part in a process of its
+    own; every part runs, and the run fails after the last if any part
+    failed or a row broke its check."""
+    failed = []
+    for part in parts:
+        tic = time.perf_counter()
+        proc = subprocess.run([sys.executable, *SCALE_PARTS[part]],
+                              capture_output=True, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=SCALE_PART_TIMEOUT)
+        rows = [json.loads(line) for line in proc.stdout.splitlines()
+                if line.startswith("{")]
+        errors = []
+        for row in rows:
+            emit(f"scale_{part}", **row)
+            try:
+                _check_scale_row(part, row)
+            except AssertionError as e:
+                errors.append(str(e))
+        if proc.returncode != 0:
+            errors.append(f"exit {proc.returncode}: {proc.stderr[-3000:]}")
+        emit(f"scale_{part}_done", seconds=time.perf_counter() - tic,
+             exit=proc.returncode, rows=len(rows), errors=errors)
+        if errors or not rows:
+            failed.append(part)
+    check(not failed, f"--scale parts failed: {failed}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="store_true",
@@ -1594,6 +1807,13 @@ def main():
                          "and the headline's components instead")
     ap.add_argument("--mesh", action="store_true",
                     help="run the partitioned phases alone (subtree, flat)")
+    ap.add_argument("--scale", action="store_true",
+                    help="run the scale, sweep, batch and partition "
+                         "runners' full rows instead")
+    ap.add_argument("--parts", default=",".join(SCALE_PARTS),
+                    help="--scale's parts")
+    # one in-process part of --scale (the script starts itself so)
+    ap.add_argument("--part", choices=("f2",))
     # one rank of the partitioned phases (the script starts itself so)
     ap.add_argument("--rank", type=int)
     ap.add_argument("--world", type=int)
@@ -1602,8 +1822,16 @@ def main():
     args = ap.parse_args()
     if args.rank is not None:
         return rank_main(args)
+    if args.part == "f2":
+        solver_mod.pin_full_precision()
+        part_f2()
+        return 0
     smi = phase_device()
     phase_build()
+    if args.scale:
+        scale(args.parts.split(","))
+        print(smi, flush=True)
+        return 0
     if args.mesh:
         problem, x0 = demo_problem()
         demo = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
@@ -1630,6 +1858,9 @@ def main():
     phase_baseline_configs()
     phase_headline()
     phase_mpc_config5()
+    phase_scale_88573()
+    phase_scale_797161()
+    phase_relax_config2()
     phase_accel()
     phase_batch_demo()
     phase_batch_headline()

@@ -428,6 +428,11 @@ def plan_sweep(stage_rows, stage_child, n, m, esize, sms=NUM_SMS, lanes=1):
     ns_nl = len(stage_rows)
     if lanes < 1:
         raise ValueError(f"a sweep needs at least one lane, not {lanes}")
+    # The kernel indexes a launch's rows (all lanes of a stage) with 32-bit
+    # unsigned integers and computes element offsets in 64 bits
+    # (``RowMap::at``), so only the rows of a stage are bounded here. At
+    # 797,161 nodes and n = 50 (one lane) the largest element offset is
+    # 39.9 M, far from either limit.
     if lanes * max(stage_rows) >= 2 ** 31:
         raise ValueError(f"{lanes} lanes of {max(stage_rows)} rows pass "
                          "the kernel's 32-bit row index")

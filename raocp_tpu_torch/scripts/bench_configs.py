@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import subprocess
 import time
 from pathlib import Path
 from typing import Optional
@@ -43,7 +44,9 @@ from raocp_tpu_torch.core.stacked import _torch_dtype, default_dtype
 from raocp_tpu_torch.ops import sweep
 
 __all__ = ["CONFIGS", "CONFIG5", "CONFIG5_RUN", "SOLVE", "STRIDED", "Config",
-           "counted_calls", "jax_reference", "reference_row", "run_config"]
+           "card", "counted_calls", "device_fields", "jax_reference",
+           "peak_mb", "reference_row", "reset_peak", "run_config", "sync",
+           "keyed_rows", "timed_solves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +105,11 @@ def jax_reference() -> dict:
 
 def reference_row(name: str, solve: dict) -> Optional[dict]:
     """The JAX package's float64 row of ``name`` solved with the options
-    ``solve`` (the row's own, :data:`SOLVE` included), or None where the
-    reference holds no such row."""
-    for row in jax_reference()["rows"]:
+    ``solve`` (the row's own, :data:`SOLVE` included; for the sweeps'
+    rows also the stacking's ``offline``), or None where the reference
+    holds no such row."""
+    ref = jax_reference()
+    for row in ref["rows"] + ref.get("sweeps", {}).get("rows", []):
         if row["config"] == name and row["solve"] == solve:
             return row
     return None
@@ -131,21 +136,104 @@ def counted_calls():
         calls["k1"] = sweep.LAUNCHES - before
 
 
-def _sync(device):
+def sync(device):
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
+
+
+@functools.lru_cache(maxsize=None)
+def card(device) -> Optional[str]:
+    """The card's ``name, power.limit`` as ``nvidia-smi`` reports them (a
+    card below its 700 W limit runs slower under load), or None off a
+    card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def reset_peak(device):
+    """Start a peak-memory reading of the card (none on the CPU)."""
+    if torch.device(device).type == "cuda":
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_mb(device) -> Optional[float]:
+    """``torch.cuda.max_memory_allocated`` in MB since :func:`reset_peak`
+    (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20
+
+
+def device_fields(solver_or_sp) -> dict:
+    """What every runner's row says of where it ran: the dtype, the device,
+    the card's ``name, power.limit``, and whether K1 is on the problem's
+    path (``k1_path``: every ``prox_f`` call then launches it once on a
+    card)."""
+    sp = getattr(solver_or_sp, "stacked", solver_or_sp)
+    return dict(dtype=str(sp.dtype), device=str(sp.device),
+                card=card(sp.device), k1_path=sweep.sweep_eligible(sp))
+
+
+def timed_solves(solver, x0, repeats: int, **solve):
+    """``solver.solve(x0, **solve)`` ``repeats`` times, after one solve of
+    25 iterations that pays K1's per-problem packing and the allocator's
+    growth (the port compiles nothing per call, so a full solve is not
+    needed to warm it). Returns the last result, the best wall seconds and
+    the last solve's counts (:func:`counted_calls`)."""
+    solver.solve(x0, **{**solve, "max_iters": 25})
+    best = float("inf")
+    for _ in range(repeats):
+        with counted_calls() as calls:
+            res = solver.solve(x0, **solve)
+        best = min(best, res.solve_time)
+    return res, best, calls
+
+
+def keyed_rows(cfg: Config, keys: dict, dtype, device, repeats: int):
+    """Config ``cfg`` solved with each of ``keys`` (label -> key: the
+    stacking's ``offline``, one for all, and the solve's options, as
+    ``jax_reference.json`` keys its rows) on one Solver, each timed by
+    :func:`timed_solves`. Yields (label, the fields every such row has,
+    the JAX package's row for the key or {})."""
+    problem, x0 = cfg.make()
+    (offline,) = {key["offline"] for key in keys.values()}
+    solver = solver_mod.Solver(problem, dtype=dtype, offline=offline,
+                               device=device)
+    for label, key in keys.items():
+        solve = {o: v for o, v in key.items() if o != "offline"}
+        reset_peak(device)
+        res, best, calls = timed_solves(solver, x0, repeats, **solve)
+        ref = reference_row(cfg.name, key) or {}
+        yield label, dict(
+            config=cfg.name, num_nodes=problem.tree.num_nodes,
+            iterations=res.num_iters,
+            converged=bool(np.max(res.xi) <= solve["tol"]),
+            time_to_tol_s=best, iters_per_s=res.num_iters / best,
+            **device_fields(solver), k1_launches=calls["k1"],
+            prox_f_calls=calls["prox_f"],
+            max_memory_allocated_mb=peak_mb(device),
+            jax_iterations=ref.get("iterations"), xi=res.xi.tolist(),
+            alpha=res.alpha, solve=key), ref
 
 
 def _solve_rows(cfg: Config, dtype, device, repeats: int, options: dict):
     """The plain row of ``cfg`` (and its accelerated row), each solved
     ``repeats`` times, the last solve timed and counted."""
     problem, x0 = cfg.make()
-    _sync(device)
+    sync(device)
     tic = time.perf_counter()
     solver = solver_mod.Solver(problem, dtype=dtype, offline=cfg.offline,
                                device=device)
     solver.operator_norm_sq()
-    _sync(device)
+    sync(device)
     setup_s = time.perf_counter() - tic
     runs = [(cfg.name, {**SOLVE, **cfg.solve, **options})]
     if cfg.accel is not None:

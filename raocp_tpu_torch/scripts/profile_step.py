@@ -3,27 +3,32 @@
 JAX package's ``scripts/profile_step.py``).
 
     python -m raocp_tpu_torch.scripts.profile_step [--steps 100]
-        [--config headline|config5]
+        [--config headline|config5|tree797161]
 
 ``headline`` (BASELINE config 4: 9,841 nodes, float32) runs 100 CP steps
 at ``check_every=25, unroll=25``; ``config5`` (BASELINE config 5's
 88,573-node per-step tree, float32) at the closed loop's
-``check_every=25, unroll=5, relax="auto"``. Each prints one JSON line: the
-trace's wall time and device time a step, the card's busy share, the
-launches a step, K1's share of the device time and the kernels that take
-most of it. It needs a card.
+``check_every=25, unroll=5, relax="auto"``; ``tree797161`` (``bench_1e6``'s
+797,161-node tree, float32) at its ``check_every=25, unroll=5``. Each
+prints one JSON line: the trace's wall time and device time a step, the
+card's busy share, the launches a step, K1's share of the device time and
+the kernels that take most of it, and the Solver's power iteration (its
+count and seconds at the Solver's own tolerance). It needs a card.
 """
 
 import argparse
 import json
 import os
 import tempfile
+import time
 
 import torch
 
 from raocp_tpu_torch import models
+from raocp_tpu_torch.ops.sweep import sweep_eligible
 from raocp_tpu_torch.scripts.bench_configs import (CONFIG5, CONFIGS,
-                                                   counted_calls)
+                                                   counted_calls, sync)
+from raocp_tpu_torch.scripts.bench_scale import tree_problem
 from raocp_tpu_torch.solver import Solver
 
 __all__ = ["PROFILES", "device_events", "is_k1", "profile_solve",
@@ -91,8 +96,11 @@ def profile_solve(solver: Solver, x0, steps: int, **options) -> dict:
         events = device_events(os.path.join(folder, "trace.json"))
     return dict(summarize_trace(events, res.num_iters),
                 nodes=solver.stacked.num_nodes,
-                dtype=str(solver.stacked.dtype), k1_launches=calls["k1"],
-                prox_f_calls=calls["prox_f"], options=options)
+                dtype=str(solver.stacked.dtype),
+                device=str(solver.stacked.device),
+                k1_path=sweep_eligible(solver.stacked),
+                k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
+                options=options)
 
 
 def _headline(device):
@@ -107,10 +115,17 @@ def _config5(device):
     return controller.solver_for_mode(0)[0], x0
 
 
+def _tree797161(device):
+    problem, x0 = tree_problem(12)
+    return Solver(problem, dtype=torch.float32, offline="device",
+                  device=device), x0
+
+
 # name -> (solver maker, the loop's options)
 PROFILES = {
     "headline": (_headline, dict(check_every=25, unroll=25)),
     "config5": (_config5, dict(check_every=25, unroll=5, relax="auto")),
+    "tree797161": (_tree797161, dict(check_every=25, unroll=5)),
 }
 
 
@@ -119,8 +134,14 @@ def run_profile(name: str = "headline", steps: int = 100,
     """The step profile of ``PROFILES[name]`` on ``device`` (a card)."""
     make, options = PROFILES[name]
     solver, x0 = make(device)
+    sync(device)
+    tic = time.perf_counter()
     solver.operator_norm_sq()
-    return dict(profile=name, **profile_solve(solver, x0, steps, **options))
+    sync(device)
+    power_s = time.perf_counter() - tic
+    return dict(profile=name, power_iterations=solver.power_iterations,
+                power_seconds=power_s,
+                **profile_solve(solver, x0, steps, **options))
 
 
 def main(argv=None):

@@ -18,6 +18,7 @@ from raocp_tpu_torch.core.stacked import build_stacked  # noqa: E402
 from raocp_tpu_torch.models import random_network_problem  # noqa: E402
 from raocp_tpu_torch.ops import sweep  # noqa: E402
 from raocp_tpu_torch.ops.prox import project_dynamics  # noqa: E402
+from raocp_tpu_torch.scripts.bench_scale import tree_problem  # noqa: E402
 
 # name -> (tree, pad_multiple): the tests/test_pallas.py fixture; a wider
 # one (n=50, m=20, c=3); BASELINE config 5's width (n=100, m=40, c=3; 4
@@ -92,6 +93,36 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
             assert la["smem"] == lib.raocp_sweep_smem(
                 int(fwd), la["tile"], la["tm"], cols, sp.n, sp.m, c,
                 sweep._esize(tdt))
+
+
+# the scale runners' trees (bench_scale, bench_1e6): n=50, m=20 fully
+# branched for 10 and 12 stages, 88,573 and 797,161 nodes; the latter's
+# 177,147 parents reach the 531,441-row leaf stage
+SCALE_STAGES = {"scale_88573": 10, "tree_797161": 12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCALE_STAGES))
+def test_kernel_matches_plain_version_at_scale(cuda, name):
+    """K1 on the scale runners' trees in float32 (unpadded, as their
+    solver stacks them) against the plain version, to 1e-6 of the output's
+    largest entry."""
+    spec, x0 = tree_problem(SCALE_STAGES[name])
+    sp = build_stacked(spec, dtype=torch.float32, offline="device",
+                       device=cuda)
+    rng = np.random.default_rng(0)
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                 for a in (rng.standard_normal((sp.np_pad, sp.n)),
+                           rng.standard_normal((sp.nl_pad, sp.m)), x0))
+    before = sweep.LAUNCHES
+    x, u = sweep.project_dynamics_sweep(sp, *args)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    x_ref, u_ref = sweep.project_dynamics_sweep_ref(sp, *args)
+    scale = max(1.0, float(x_ref.abs().max()), float(u_ref.abs().max()))
+    torch.testing.assert_close(x, x_ref, rtol=0, atol=1e-6 * scale)
+    torch.testing.assert_close(u, u_ref, rtol=0, atol=1e-6 * scale)
+    assert torch.isfinite(x).all() and torch.isfinite(u).all()
 
 
 @pytest.mark.cuda

@@ -92,6 +92,12 @@ def test_port_never_imports_jax():
         "import raocp_tpu_torch.scripts.bench_configs\n"
         "import raocp_tpu_torch.scripts.bench_components\n"
         "import raocp_tpu_torch.scripts.profile_step\n"
+        "import raocp_tpu_torch.scripts.bench_scale\n"
+        "import raocp_tpu_torch.scripts.bench_1e6\n"
+        "import raocp_tpu_torch.scripts.bench_relax\n"
+        "import raocp_tpu_torch.scripts.bench_accel\n"
+        "import raocp_tpu_torch.scripts.bench_batch\n"
+        "import raocp_tpu_torch.scripts.bench_scaling\n"
         "import raocp_tpu_torch.examples.main\n"
         "import raocp_tpu_torch.examples.closed_loop_mpc\n"
         "import raocp_tpu_torch.examples.risk_spectrum\n"
@@ -121,7 +127,9 @@ def _entry_points():
     from raocp_tpu_torch.core import modal
     from raocp_tpu_torch.core import stacked
     from raocp_tpu_torch.examples import closed_loop_mpc, main, risk_spectrum
-    from raocp_tpu_torch.scripts import bench_configs
+    from raocp_tpu_torch.scripts import (bench_accel, bench_configs,
+                                         bench_relax, bench_scale,
+                                         bench_scaling)
     return {
         "Solver": rt.Solver.__init__,
         "RiskAverseMPC": rt.RiskAverseMPC.__init__,
@@ -131,6 +139,10 @@ def _entry_points():
         "from_numpy": stacked.from_numpy,
         "upload": modal.upload,
         "run_config": bench_configs.run_config,
+        "run_tree": bench_scale.run_tree,
+        "run_relax": bench_relax.run_relax,
+        "run_accel": bench_accel.run_accel,
+        "run_scaling": bench_scaling.run_scaling,
         "examples.main": main.main,
         "examples.closed_loop_mpc": closed_loop_mpc.main,
         "examples.risk_spectrum": risk_spectrum.main,
@@ -140,6 +152,13 @@ def _entry_points():
 # the command-line entry points and how each is asked for the CPU
 COMMANDS = {
     "raocp_tpu_torch.scripts.bench_configs": ["--configs", "1"],
+    "raocp_tpu_torch.scripts.bench_scale": ["--iters", "25"],
+    "raocp_tpu_torch.scripts.bench_1e6": ["--stages", "3"],
+    "raocp_tpu_torch.scripts.bench_relax": ["--configs", "2"],
+    "raocp_tpu_torch.scripts.bench_accel": ["--configs", "1"],
+    "raocp_tpu_torch.scripts.bench_batch": ["--small"],
+    "raocp_tpu_torch.scripts.bench_scaling": ["--ranks", "1", "--num-stages",
+                                              "3", "--num-states", "4"],
     "raocp_tpu_torch.examples.main": [],
     "raocp_tpu_torch.examples.closed_loop_mpc": ["1"],
     "raocp_tpu_torch.examples.risk_spectrum": [],
@@ -150,7 +169,8 @@ COMMANDS = {
                                   "demo_mpc_controller",
                                   "network_mpc_controller", "build_stacked",
                                   "from_numpy", "upload", "run_config",
-                                  "examples.main",
+                                  "run_tree", "run_relax", "run_accel",
+                                  "run_scaling", "examples.main",
                                   "examples.closed_loop_mpc",
                                   "examples.risk_spectrum"])
 def test_entry_points_default_to_the_card(name):
