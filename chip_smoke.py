@@ -13,6 +13,10 @@
     python3 chip_smoke.py --scale       # the scale runs, the option
         [--parts scale_88573,...]       # sweeps, the batch and scaling
                                         # harnesses: their full rows
+    python3 chip_smoke.py --roofline    # the roofline at 9,841, 88,573
+        [--parts roofline_88573,...]    # and 797,161 nodes, K1 against
+                                        # the stage path, the loop-control
+                                        # sweep: their full rows
 
 Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
 ``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
@@ -21,8 +25,20 @@ card (at the shapes of every path below, BASELINE configs 1-3, config
 batches of 8 and 3 lanes included; each case with its time,
 the plain version's, the least time the card could take for the same
 operations and bytes, and its launches counted in a profile), and then
+measures the CP step's components against the least time the card could
+take for their work, holds K1 against the torch stage path, and then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after:
+
+* ``roofline_headline``: every row of ``scripts/roofline.py`` at the
+  headline (9,841 nodes, float32): each component's operations and
+  compulsory bytes (``ops/work.py``), wall and device time, launches and
+  bound; a device time under its bound fails the run (the count is
+  wrong);
+* ``stage_ab``: ``scripts/bench_pallas.py``'s five trees (its JAX
+  counterpart's four regimes and BASELINE config 5's 88,573 nodes as the
+  closed loop builds them), K1 and the stage path timed and held against
+  each other to ``STAGE_AB_REL``;
 
 * ``parity_*``: the demo's 937 iterations in float64 on the card, and a
   uniform 121-node tree through K1 against the CPU;
@@ -123,6 +139,12 @@ network), ``bench_scaling --device cuda`` at one and two ranks, and
 (``f2``) the eight float32 headline lanes to 1e-3 at the JAX package's
 step size (ROADMAP F2). K1 launches equal ``prox_f`` calls on every row
 whose tree is K1's.
+``--roofline`` runs, each in a process of its own, ``scripts/roofline.py``
+at 8, 10 and 12 stages (9,841, 88,573 and 797,161 nodes; the last at 20
+applies), ``scripts/bench_pallas.py`` (200 applies a path) and
+``scripts/bench_sweep.py`` (five ``(check_every, unroll)`` pairs with K1
+and under ``stage_path()``, 200 iterations, best of 3), with the same
+checks as the smoke's phases.
 ``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
 headline (``check_every=25, unroll=25``) and of config 5 (the closed
 loop's options) with ``solve(profile_dir=...)`` and prints, from each
@@ -154,10 +176,11 @@ from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     network_mpc_controller,
                                     random_network_problem,
                                     soc_network_problem)
-from raocp_tpu_torch.ops import prox, sweep  # noqa: E402
+from raocp_tpu_torch.ops import prox, sweep, work  # noqa: E402
 from raocp_tpu_torch.scripts import (bench_batch,  # noqa: E402
                                      bench_components, bench_configs,
-                                     bench_relax, bench_scale, profile_step)
+                                     bench_pallas, bench_relax, bench_scale,
+                                     profile_step, roofline)
 from raocp_tpu_torch.scripts.bench_batch import batch_lanes  # noqa: E402
 from raocp_tpu_torch.scripts.bench_configs import (CONFIGS,  # noqa: E402
                                                    counted_calls)
@@ -187,13 +210,17 @@ SCALE_NOISE_FLOOR = 1e-6
 JAX_F32_ITERS = 10174
 # K1 launches of each driven path
 PATH_LAUNCHES = {}
-# the card's published peaks (NVIDIA H100 SXM data sheet), by element size:
-# FLOP/s of FMA in that type without loss of digits (float32 outside the
-# tensor cores; float64 through the tensor cores' DMMA, which rounds like
-# fma and so is open to the kernel, at twice the 34e12 of the FMA pipes),
-# and bytes/s of device memory
-PEAK_FLOPS = {4: 67e12, 8: 67e12}
-PEAK_BYTES = 3.35e12
+# roofline_headline: applies timed and traced a row (the script's own are
+# 100 and 20)
+ROOFLINE_APPLIES = 30
+ROOFLINE_TRACED = 10
+# stage_ab: K1 against the stage path, float32, relative to the output's
+# largest entry: both sum the same products in other orders over up to 14
+# stages of up to 300-term sums (config 5: c n = 300), as the K1 cases
+# against the plain version do (1e-4 there)
+STAGE_AB_REL = 1e-4
+STAGE_AB_APPLIES = 20
+STAGE_AB_TRACED = 5
 # how far, as a share of its sequential count, a float32 lane's count may
 # be from its sequential solve's to 1e-3 (baseline_batch); and a float32
 # row's count from the JAX package's float64 count (--baseline): one ulp of
@@ -987,15 +1014,12 @@ def _median_ms(fn, runs=50):
 
 def _plan_fields(sp, lanes=1):
     """The schedule of one apply of ``lanes`` lanes, and the least time the
-    card could take for its work: the larger of its operations over the
-    peak FMA rate of the element type and its compulsory bytes over the
-    memory rate."""
+    card could take for its work (``ops/work.py``'s ``bound``: the larger
+    of its operations over the element type's peak product rate and its
+    compulsory bytes over the memory rate)."""
     plan = sweep.sweep_schedule(sp, lanes)
-    work = sweep.sweep_work(sp, lanes)
-    esize = sweep._esize(sp.dtype)
-    by = {"operations": work["flop"] / PEAK_FLOPS[esize],
-          "bytes": work["bytes"] / PEAK_BYTES}
-    bound_by = max(by, key=by.get)
+    count = sweep.sweep_work(sp, lanes)
+    bound_s, bound_by = work.bound(count, sp.dtype)
     return dict(
         lanes=lanes, launches_per_apply=plan["launch_count"],
         apex_stages=plan["apex_stages"], apex_tile=plan["apex_tile"],
@@ -1004,8 +1028,8 @@ def _plan_fields(sp, lanes=1):
             f"{la['direction'][0]}{la['stages'][0]}:tm{la['tm']}"
             f"xt{la['tile']}xg{la['grid']}"
             for la in plan["launches"] if la["kind"] == "stage"),
-        flop=work["flop"], bytes=work["bytes"],
-        bound_ms=1e3 * by[bound_by], bound_by=bound_by,
+        flop=count["flop"], bytes=count["bytes"],
+        bound_ms=1e3 * bound_s, bound_by=bound_by,
         # no single PyTorch call computes the sweep: the plain version is
         # about eight calls per stage
         library_ms=None)
@@ -1022,6 +1046,59 @@ def phase_matmul_context():
          tflops=2 * 19683 * 300 * 140 / (1e-3 * ms) / 1e12,
          note="the largest single product of config 5's sweep through "
               "torch.matmul, as a yardstick; the port never calls it")
+
+
+def _check_roofline_row(what, row):
+    """A roofline row's numbers are finite and its device time is at or
+    above its bound (below it, ``ops/work.py`` counted too much)."""
+    check(all(np.isfinite(row[k]) for k in ("wall_us", "device_us",
+                                            "bound_us", "launches")),
+          f"{what} {row['component']}: a number is not finite")
+    check(row["launches"] > 0, f"{what} {row['component']}: nothing ran on "
+                               "the card")
+    check(row["device_us"] >= row["bound_us"],
+          f"{what} {row['component']}: {row['device_us']} us on the card, "
+          f"under its bound of {row['bound_us']} us: the count is wrong")
+
+
+def phase_roofline_headline():
+    """Every roofline row at the headline (``scripts/roofline.py``, fewer
+    applies than the script's own)."""
+    sp, x0 = roofline.problem(8, DEV)
+    for row in roofline.rows(sp, x0, applies=ROOFLINE_APPLIES,
+                             traced=ROOFLINE_TRACED):
+        emit("roofline_headline", **row)
+        _check_roofline_row("roofline_headline", row)
+
+
+def _check_ab_row(what, row):
+    """K1 and the stage path agree to ``STAGE_AB_REL`` of the output's
+    largest entry; K1 counted once an apply and the stage path never."""
+    check(row["finite"], f"{what} {row['config']}: not finite")
+    check(row["max_rel_diff"] <= STAGE_AB_REL,
+          f"{what} {row['config']}: K1 and the stage path differ by "
+          f"{row['max_rel_diff']} of the output's largest entry")
+    check(row["k1_counted_per_apply"] == 1
+          and row["stage_counted_per_apply"] == 0,
+          f"{what} {row['config']}: K1 counted "
+          f"{row['k1_counted_per_apply']} / {row['stage_counted_per_apply']}"
+          " an apply of K1 / of the stage path")
+    check(row["stage_k1_launches"] == 0,
+          f"{what} {row['config']}: a K1 kernel in the stage path's trace")
+
+
+def phase_stage_ab():
+    """K1 against the torch stage path (``scripts/bench_pallas.py``) at its
+    five configs, fewer applies than the script's own."""
+    for name in bench_pallas.CONFIGS:
+        tic = time.perf_counter()
+        sp, x0 = bench_pallas.stacked(name, DEV)
+        build = time.perf_counter() - tic
+        row = bench_pallas.ab_row(name, sp, x0, applies=STAGE_AB_APPLIES,
+                                  traced=STAGE_AB_TRACED)
+        emit("stage_ab", build_s=build, **row)
+        _check_ab_row("stage_ab", row)
+        del sp
 
 
 def phase_kernel():
@@ -1763,14 +1840,45 @@ def _check_scale_row(part, row):
                   f"{F32_COUNT_SLACK:.0%} from JAX's float64 {ref}")
 
 
-def scale(parts):
-    """The long rows (module docstring), each part in a process of its
-    own; every part runs, and the run fails after the last if any part
-    failed or a row broke its check."""
+# --roofline's parts, each run in a process of its own: the roofline at
+# each tree size (the 797,161-node tree with fewer applies: its trace is
+# large), the A/B of K1 against the stage path and the loop-control sweep
+ROOFLINE_PARTS = {
+    "roofline_9841": ["-m", _MOD + "roofline", "--stages", "8"],
+    "roofline_88573": ["-m", _MOD + "roofline", "--stages", "10"],
+    "roofline_797161": ["-m", _MOD + "roofline", "--stages", "12",
+                        "--applies", "20", "--traced", "20"],
+    "bench_pallas": ["-m", _MOD + "bench_pallas"],
+    "bench_sweep": ["-m", _MOD + "bench_sweep"],
+}
+
+
+def _check_roofline_part(part, row):
+    """What a --roofline part's row must hold: a roofline row at or above
+    its bound, an A/B row within ``STAGE_AB_REL``, a sweep row finite with
+    K1 launched once per ``prox_f`` call on its K1 path and never on the
+    stage path."""
+    if "component" in row:
+        _check_roofline_row(part, row)
+    elif "max_rel_diff" in row:
+        _check_ab_row(part, row)
+    else:
+        check(row["finite"], f"{part} {row}: not finite")
+        want = row["prox_f_calls"] if row["path"] == "k1" else 0
+        check(row["k1_launches"] == want and row["prox_f_calls"] > 0,
+              f"{part} {row['path']} ({row['check_every']}, "
+              f"{row['unroll']}): K1 launches {row['k1_launches']}, prox_f "
+              f"calls {row['prox_f_calls']}")
+
+
+def run_parts(flag, table, parts, check_row):
+    """The long rows of ``flag`` (module docstring), each part of
+    ``table`` in a process of its own; every part runs, and the run fails
+    after the last if any part failed or a row broke ``check_row``."""
     failed = []
     for part in parts:
         tic = time.perf_counter()
-        proc = subprocess.run([sys.executable, *SCALE_PARTS[part]],
+        proc = subprocess.run([sys.executable, *table[part]],
                               capture_output=True, text=True,
                               cwd=os.path.dirname(os.path.abspath(__file__)),
                               timeout=SCALE_PART_TIMEOUT)
@@ -1778,18 +1886,18 @@ def scale(parts):
                 if line.startswith("{")]
         errors = []
         for row in rows:
-            emit(f"scale_{part}", **row)
+            emit(f"{flag}_{part}", **row)
             try:
-                _check_scale_row(part, row)
+                check_row(part, row)
             except AssertionError as e:
                 errors.append(str(e))
         if proc.returncode != 0:
             errors.append(f"exit {proc.returncode}: {proc.stderr[-3000:]}")
-        emit(f"scale_{part}_done", seconds=time.perf_counter() - tic,
+        emit(f"{flag}_{part}_done", seconds=time.perf_counter() - tic,
              exit=proc.returncode, rows=len(rows), errors=errors)
         if errors or not rows:
             failed.append(part)
-    check(not failed, f"--scale parts failed: {failed}")
+    check(not failed, f"--{flag} parts failed: {failed}")
 
 
 def main():
@@ -1810,8 +1918,12 @@ def main():
     ap.add_argument("--scale", action="store_true",
                     help="run the scale, sweep, batch and partition "
                          "runners' full rows instead")
-    ap.add_argument("--parts", default=",".join(SCALE_PARTS),
-                    help="--scale's parts")
+    ap.add_argument("--roofline", action="store_true",
+                    help="run the roofline at three tree sizes, the A/B of "
+                         "K1 against the stage path and the loop-control "
+                         "sweep instead")
+    ap.add_argument("--parts",
+                    help="--scale's or --roofline's parts (default: all)")
     # one in-process part of --scale (the script starts itself so)
     ap.add_argument("--part", choices=("f2",))
     # one rank of the partitioned phases (the script starts itself so)
@@ -1828,8 +1940,13 @@ def main():
         return 0
     smi = phase_device()
     phase_build()
-    if args.scale:
-        scale(args.parts.split(","))
+    if args.scale or args.roofline:
+        flag, table, check_row = (
+            ("scale", SCALE_PARTS, _check_scale_row) if args.scale
+            else ("roofline", ROOFLINE_PARTS, _check_roofline_part))
+        run_parts(flag, table,
+                  args.parts.split(",") if args.parts else list(table),
+                  check_row)
         print(smi, flush=True)
         return 0
     if args.mesh:
@@ -1853,6 +1970,8 @@ def main():
         return 0
     kernel = phase_kernel()
     phase_matmul_context()
+    phase_roofline_headline()
+    phase_stage_ab()
     demo = phase_parity()
     phase_chunked(demo)
     phase_baseline_configs()

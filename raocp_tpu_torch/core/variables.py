@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["Primal", "Dual", "tree_inf_norm", "tree_dot", "tree_axpy",
-           "tree_scale", "tree_sub", "tree_add", "lane_view", "make_packers"]
+           "tree_scale", "tree_sub", "tree_add", "lane_view", "make_packers",
+           "primal_shapes", "dual_shapes"]
 
 
 class Primal(NamedTuple):
@@ -73,18 +74,29 @@ class Dual(NamedTuple):
     e14: torch.Tensor
 
 
+def primal_shapes(sp) -> Primal:
+    """The shape of each primal leaf of ``sp`` (without a lane axis)."""
+    return Primal(x=(sp.np_pad, sp.n), u=(sp.nl_pad, sp.m),
+                  y=(sp.nl_pad, sp.Y), tau=(sp.np_pad,), s=(sp.np_pad,))
+
+
+def dual_shapes(sp) -> Dual:
+    """The shape of each dual leaf of ``sp`` (without a lane axis)."""
+    return Dual(e1=(sp.nl_pad, sp.Y), e2=(sp.nl_pad,), e3=(sp.np_pad, sp.n),
+                e4=(sp.np_pad, sp.m), e5=(sp.np_pad,), e6=(sp.np_pad,),
+                e7=(sp.nl_pad, sp.nl_rows), e11=(sp.lf_pad, sp.n),
+                e12=(sp.lf_pad,), e13=(sp.lf_pad,),
+                e14=(sp.lf_pad, sp.l_rows))
+
+
 def make_packers(sp):
     """(pack_primal, unpack_primal, pack_dual, unpack_dual) for one problem
     (JAX ``core/variables.py:77``): the 5-leaf primal / 11-leaf dual as one
     flat vector in leaf order. A pack is one concatenation; an unpack is
     views of the flat vector. Padded slots stay zero, so packed norms equal
     the per-leaf ones."""
-    p_shapes = [(sp.np_pad, sp.n), (sp.nl_pad, sp.m), (sp.nl_pad, sp.Y),
-                (sp.np_pad,), (sp.np_pad,)]
-    d_shapes = [(sp.nl_pad, sp.Y), (sp.nl_pad,), (sp.np_pad, sp.n),
-                (sp.np_pad, sp.m), (sp.np_pad,), (sp.np_pad,),
-                (sp.nl_pad, sp.nl_rows), (sp.lf_pad, sp.n), (sp.lf_pad,),
-                (sp.lf_pad,), (sp.lf_pad, sp.l_rows)]
+    p_shapes = list(primal_shapes(sp))
+    d_shapes = list(dual_shapes(sp))
 
     def _mk(shapes, cls):
         offs = [0]

@@ -40,7 +40,8 @@ from raocp_tpu_torch.ops.operator import (_child_rel, _flat_own_children,
                                           _same_child, repad, stage_groups)
 from raocp_tpu_torch.ops.sweep import project_dynamics_sweep, sweep_eligible
 
-__all__ = ["prox_f", "prox_g_conj", "project_dynamics", "project_kernel",
+__all__ = ["prox_f", "prox_g_conj", "project_dynamics",
+           "project_dynamics_stages", "project_kernel",
            "g_conj_projections", "half_shift_dual"]
 
 
@@ -118,7 +119,16 @@ def project_dynamics(sp: StackedProblem, x_in, u_in, x0):
                          "prox_f")
     if sweep_eligible(sp):
         return project_dynamics_sweep(sp, x_in, u_in, x0)
+    return project_dynamics_stages(sp, x_in, u_in, x0)
 
+
+def project_dynamics_stages(sp: StackedProblem, x_in, u_in, x0):
+    """The torch stage path of :func:`project_dynamics`, the path of every
+    tree K1 does not take (JAX ``ops/prox.py``'s XLA path): per stage, the
+    stage-stacked [A | B] contraction or the mode-grouped matvec with its
+    child reduction, then the Riccati step; the same arguments and lane
+    axis. Callable on its own, so that K1 can be timed against it on the
+    trees both take."""
     ss = sp.stage_start
     N, NL, n, m = sp.num_nodes, sp.num_nonleaf, sp.n, sp.m
     ns = sp.num_stages

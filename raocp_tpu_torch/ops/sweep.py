@@ -31,7 +31,9 @@ its index where it is loaded or stored) and whose apex runs one block a
 lane.
 
 ``LAUNCHES`` counts the calls that launched the kernel, so a run can show
-that its main path went through it.
+that its main path went through it. Inside :func:`stage_path` the dispatch
+of ``prox.project_dynamics`` takes the torch stage path on every tree: the
+switch of an A/B of K1 against it (``scripts/bench_sweep.py``).
 """
 
 import contextlib
@@ -48,10 +50,12 @@ import torch
 
 __all__ = ["sweep_eligible", "project_dynamics_sweep",
            "project_dynamics_sweep_ref", "sweep_schedule", "plan_sweep",
-           "sweep_work", "build_library", "DeviceFault", "LAUNCHES",
-           "MAX_SMEM"]
+           "sweep_work", "build_library", "stage_path", "DeviceFault",
+           "LAUNCHES", "MAX_SMEM"]
 
 LAUNCHES = 0
+# set only inside stage_path()
+_STAGE_PATH = False
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raocp_tpu_torch"
@@ -64,7 +68,7 @@ class DeviceFault(RuntimeError):
     """The CUDA runtime refused or faulted a launch of the sweep kernel."""
 
 
-def sweep_eligible(sp) -> bool:
+def _fits(sp) -> bool:
     """The structural gate: every nonleaf stage has a stage-stacked
     [A | B] block and stage-constant Riccati tables, and the problem holds
     whole stages (not a rank's block of the flat partition, which runs the
@@ -73,6 +77,28 @@ def sweep_eligible(sp) -> bool:
     return (sp.flat is None
             and all(w is not None for w in sp.ab_bwd)
             and all(k is not None for k in sp.k_s))
+
+
+def sweep_eligible(sp) -> bool:
+    """Whether ``prox.project_dynamics`` hands ``sp`` to the kernel: the
+    structural gate holds, outside :func:`stage_path`."""
+    return not _STAGE_PATH and _fits(sp)
+
+
+@contextlib.contextmanager
+def stage_path():
+    """Within the block, :func:`sweep_eligible` is false for every problem,
+    so ``prox.project_dynamics`` runs the torch stage path: the switch of
+    an A/B of whole loops (``scripts/bench_sweep.py``), the counterpart of
+    the JAX package's ``RAOCP_TPU_PALLAS=0``. The previous state returns
+    on exit, also on an exception. Only the A/B scripts use it."""
+    global _STAGE_PATH
+    saved = _STAGE_PATH
+    _STAGE_PATH = True
+    try:
+        yield
+    finally:
+        _STAGE_PATH = saved
 
 
 def _nvcc() -> str:
@@ -142,7 +168,7 @@ def _problem(sp):
     not take."""
     record = _PROBLEMS.get(id(sp))
     if record is None:
-        if not sweep_eligible(sp):
+        if not _fits(sp):
             raise ValueError("the sweep kernel needs a stage-constant tree "
                              "(sweep_eligible); use prox.project_dynamics")
         if sp.dtype not in (torch.float32, torch.float64):

@@ -18,8 +18,6 @@ the host's share. It needs a card.
 
 import argparse
 import json
-import os
-import tempfile
 
 import numpy as np
 import torch
@@ -30,8 +28,8 @@ from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
                                       project_dynamics, project_kernel,
                                       prox_f)
 from raocp_tpu_torch.scripts.bench_configs import CONFIGS
-from raocp_tpu_torch.scripts.profile_step import device_events
-from raocp_tpu_torch.solver import Solver, _cp_residuals, _cp_step
+from raocp_tpu_torch.scripts.profile_step import traced_events
+from raocp_tpu_torch.solver import Solver, _cp_step, cp_iteration
 
 __all__ = ["components", "time_components"]
 
@@ -51,8 +49,7 @@ def components(sp, seed: int = 0) -> dict:
     shift = half_shift_dual(sp)
 
     def iteration():
-        zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, a, a, x0, shift)
-        err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, a, a)
+        err, derr = cp_iteration(sp, z, eta, Lz, Lt, a, a, x0, shift)[4:]
         return torch.cat([err, derr]).cpu()
 
     return {
@@ -86,17 +83,7 @@ def _wall_ms(fn, applies: int) -> float:
 def _traced(fn, applies: int):
     """Device ms and device events per apply, from a trace of ``applies``
     applies."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(applies):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as folder:
-        path = os.path.join(folder, "trace.json")
-        prof.export_chrome_trace(path)
-        events = device_events(path)
+    events = traced_events(fn, applies)
     return (1e-3 * sum(ev["dur"] for ev in events) / applies,
             len(events) / applies)
 

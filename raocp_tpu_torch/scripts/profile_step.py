@@ -32,7 +32,7 @@ from raocp_tpu_torch.scripts.bench_scale import tree_problem
 from raocp_tpu_torch.solver import Solver
 
 __all__ = ["PROFILES", "device_events", "is_k1", "profile_solve",
-           "run_profile", "summarize_trace"]
+           "run_profile", "summarize_trace", "traced_events"]
 
 # the device's own work in a torch.profiler Chrome trace
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -43,6 +43,22 @@ def device_events(trace_path: str) -> list:
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
     return [ev for ev in events if ev.get("cat") in _DEVICE_CATS]
+
+
+def traced_events(fn, applies: int) -> list:
+    """The device events of a ``torch.profiler`` trace of ``applies``
+    calls of ``fn``, after which the card is synchronised."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(applies):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as folder:
+        path = os.path.join(folder, "trace.json")
+        prof.export_chrome_trace(path)
+        return device_events(path)
 
 
 def is_k1(name: str) -> bool:

@@ -45,7 +45,7 @@ from raocp_tpu_torch.parallel.sharding import (all_reduce, mesh_device,
 from raocp_tpu_torch.parallel.subtree import (build_subtree_problem,
                                               choose_frontier)
 
-__all__ = ["Solver", "SolverResult", "pin_full_precision"]
+__all__ = ["Solver", "SolverResult", "cp_iteration", "pin_full_precision"]
 
 # The faults a chunked solve retries once from its host snapshot: a failed
 # K1 launch, a CUDA runtime fault, and running out of device memory. Errors
@@ -215,6 +215,20 @@ def _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha1, alpha2):
         err, derr = both[..., :3], both[..., 3:]
     return err, derr
 
+
+def cp_iteration(sp: StackedProblem, z, eta, Lz, Lt, alpha1, alpha2, x0,
+                 shift=None):
+    """One full Chambolle-Pock step and its residuals (three operator
+    applies in all; JAX ``solver.py:230``): :func:`_cp_step` followed by
+    :func:`_cp_residuals`. Returns (z+, eta+, L z+, L'eta+, err, derr),
+    err and derr the [xi_0, xi_1, xi_2] and [delta_0, delta_1, delta_2]
+    max-norms. ``shift`` is :func:`half_shift_dual` (computed when not
+    given)."""
+    zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, alpha1, alpha2, x0,
+                                shift)
+    err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha1,
+                              alpha2)
+    return zn, en, Lzn, Ltn, err, derr
 
 # 'auto' over-relaxation factor (the JAX package's measured default for
 # long solves); plain solve() keeps relax=1.0 for reference parity

@@ -1,5 +1,6 @@
 """K1 on the card: the CUDA sweep kernel against its plain torch version,
-unbatched and batched (B lanes in one launch set); and the subtree partition
+unbatched and batched (B lanes in one launch set), and against the torch
+stage path; the roofline's rows at the headline; and the subtree partition
 on two gloo ranks that share the card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
@@ -17,7 +18,9 @@ torch.set_num_threads(1)
 from raocp_tpu_torch.core.stacked import build_stacked  # noqa: E402
 from raocp_tpu_torch.models import random_network_problem  # noqa: E402
 from raocp_tpu_torch.ops import sweep  # noqa: E402
-from raocp_tpu_torch.ops.prox import project_dynamics  # noqa: E402
+from raocp_tpu_torch.ops.prox import (project_dynamics,  # noqa: E402
+                                      project_dynamics_stages)
+from raocp_tpu_torch.scripts import roofline  # noqa: E402
 from raocp_tpu_torch.scripts.bench_scale import tree_problem  # noqa: E402
 
 # name -> (tree, pad_multiple): the tests/test_pallas.py fixture; a wider
@@ -123,6 +126,63 @@ def test_kernel_matches_plain_version_at_scale(cuda, name):
     torch.testing.assert_close(x, x_ref, rtol=0, atol=1e-6 * scale)
     torch.testing.assert_close(u, u_ref, rtol=0, atol=1e-6 * scale)
     assert torch.isfinite(x).all() and torch.isfinite(u).all()
+
+
+# scripts/bench_pallas.py's four regimes (deep and narrow to wide and
+# shallow) at reduced depth: 2,047, 3,280, 1,093 and 121 nodes
+AB_REGIMES = {
+    "deep_binary_8state": dict(num_states=8, num_inputs=3, num_modes=2,
+                               num_stages=10, stopping_time=10),
+    "deep_tern_16state": dict(num_states=16, num_inputs=6, num_modes=3,
+                              num_stages=7, stopping_time=7),
+    "headline_50state": dict(num_states=50, num_inputs=20, num_modes=3,
+                             num_stages=6, stopping_time=6),
+    "wide_96state": dict(num_states=96, num_inputs=32, num_modes=3,
+                         num_stages=4, stopping_time=4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(AB_REGIMES))
+def test_kernel_matches_stage_path(cuda, name):
+    """K1 against the torch stage path on the same float32 problem (up to
+    300-term sums in other orders: 1e-4 of the output's largest entry);
+    the stage path launches no K1, and inside ``stage_path()`` the
+    dispatch is the stage path, bit for bit."""
+    spec, x0 = random_network_problem(**AB_REGIMES[name])
+    sp = build_stacked(spec, dtype=torch.float32, offline="device",
+                       device=cuda)
+    rng = np.random.default_rng(2)
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                 for a in (rng.standard_normal((sp.np_pad, sp.n)),
+                           rng.standard_normal((sp.nl_pad, sp.m)), x0))
+    before = sweep.LAUNCHES
+    x, u = project_dynamics(sp, *args)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    xs, us = project_dynamics_stages(sp, *args)
+    with sweep.stage_path():
+        xd, ud = project_dynamics(sp, *args)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    assert torch.equal(xd, xs) and torch.equal(ud, us)
+    scale = max(float(xs.abs().max()), float(us.abs().max()))
+    torch.testing.assert_close(x, xs, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(u, us, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_roofline_rows_at_the_headline(cuda):
+    """Every row of ``scripts/roofline.py`` at the headline: finite, and
+    its device time at or above its bound (a count that claims more work
+    than the card did is wrong)."""
+    sp, x0 = roofline.problem(8, cuda)
+    rows = roofline.rows(sp, x0, applies=10, traced=5)
+    assert len(rows) == 9
+    for row in rows:
+        assert row["launches"] > 0, row["component"]
+        assert np.isfinite(row["wall_us"]) and row["bound_us"] > 0
+        assert row["device_us"] >= row["bound_us"], row
 
 
 @pytest.mark.cuda

@@ -79,7 +79,7 @@ def test_example_families_match_jax(name, kwargs):
 
 def test_port_never_imports_jax():
     """A fresh process imports the port (accel, mpc, parallel, utils, the
-    scripts and the examples included),
+    work counts, the scripts and the examples included),
     builds, steps and validates the demo, and finds no JAX module loaded,
     and no matplotlib either (only the plotting functions import it)."""
     code = (
@@ -98,6 +98,10 @@ def test_port_never_imports_jax():
         "import raocp_tpu_torch.scripts.bench_accel\n"
         "import raocp_tpu_torch.scripts.bench_batch\n"
         "import raocp_tpu_torch.scripts.bench_scaling\n"
+        "import raocp_tpu_torch.ops.work\n"
+        "import raocp_tpu_torch.scripts.roofline\n"
+        "import raocp_tpu_torch.scripts.bench_pallas\n"
+        "import raocp_tpu_torch.scripts.bench_sweep\n"
         "import raocp_tpu_torch.examples.main\n"
         "import raocp_tpu_torch.examples.closed_loop_mpc\n"
         "import raocp_tpu_torch.examples.risk_spectrum\n"
