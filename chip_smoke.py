@@ -10,6 +10,8 @@
                                         # config 5's step
     python3 chip_smoke.py --mesh        # the partitioned phases alone
                                         # (subtree and flat)
+    python3 chip_smoke.py --loop        # loop_graph alone: the graph
+                                        # loop against the host loop
     python3 chip_smoke.py --scale       # the scale runs, the option
         [--parts scale_88573,...]       # sweeps, the batch and scaling
                                         # harnesses: their full rows
@@ -55,6 +57,16 @@ it and read just after:
 * ``mpc_config5_f32``: ``network_mpc_controller(offline="device")`` at
   BASELINE config 5's full size (100 states, 40 inputs, 88,573 nodes),
   two closed-loop steps;
+* ``loop_graph_headline_f32`` and ``loop_graph_config5_f32``: the device
+  loop (CUDA graphs of its check periods, every path above and below runs
+  it) against the host loop (``solver._host_loop()``) in one process, in
+  turns, best of ``LOOP_GRAPH_REPEATS``: the headline to 1e-3 and one
+  config-5 closed-loop step. Each loop's iter/s, wall µs beside device µs
+  an iteration (a trace of ``LOOP_GRAPH_PROFILED`` steps), busy share,
+  host reads, wasted steps, capture seconds and peak memory; the graph
+  loop must replay, read at most one flag a period, give the host loop's
+  count and iterates bit for bit, and launch K1 once per ``prox_f`` call
+  per step run;
 * ``scale_88573_f32``: ``scripts/bench_scale.py``'s problem (a 50-state,
   20-input network fully branched for 10 stages, 88,573 nodes) through
   ``bench_scale.run_tree``: the power iteration, then 250 CP steps
@@ -208,8 +220,14 @@ SCALE_NOISE_FLOOR = 1e-6
 # the JAX package's float32 count on this problem (BENCH_configs_r05.jsonl,
 # config 4): context only, not asserted
 JAX_F32_ITERS = 10174
+# the port's float32 count at the headline on an H100 (PERF.md)
+HEADLINE_F32_ITERS = 10175
 # K1 launches of each driven path
 PATH_LAUNCHES = {}
+# loop_graph: runs of each loop, in turns; the steps profiled for device
+# time and busy share
+LOOP_GRAPH_REPEATS = 3
+LOOP_GRAPH_PROFILED = 100
 # roofline_headline: applies timed and traced a row (the script's own are
 # 100 and 20)
 ROOFLINE_APPLIES = 30
@@ -261,12 +279,18 @@ def check(cond, what):
 def counted(path=None):
     """Set the K1 launch count to 0 and count ``prox_f`` calls (the T
     evaluations of a CP step) while a path runs; read both after it, and
-    keep the launches under ``path``."""
+    keep the launches under ``path``. Both count what ran on the card,
+    graph replays included; ``calls["loop"]`` holds what the device loop
+    ran meanwhile (``solver.LOOP_COUNTS``: steps, the steps wasted past
+    convergence, replays, captures, host reads)."""
     torch.cuda.synchronize()
     sweep.LAUNCHES = 0
+    loop = dict(solver_mod.LOOP_COUNTS)
     with counted_calls() as calls:
         yield calls
         torch.cuda.synchronize()
+    calls["loop"] = {k: v - loop[k] for k, v in
+                     solver_mod.LOOP_COUNTS.items()}
     if path is not None:
         PATH_LAUNCHES[path] = calls["k1"]
 
@@ -1244,14 +1268,18 @@ def phase_parity():
             x0, max_iters=20000, tol=1e-3)
     cpu = rt.Solver(problem, dtype=torch.float64, device="cpu").solve(
         x0, max_iters=20000, tol=1e-3)
+    wasted = calls["loop"]["wasted_steps"]
     emit("parity_small_f64", gpu_iters=gpu.num_iters,
          cpu_iters=cpu.num_iters, gpu_objective=gpu.objective,
-         cpu_objective=cpu.objective, k1_launches=calls["k1"])
+         cpu_objective=cpu.objective, k1_launches=calls["k1"],
+         wasted_steps=wasted, graph_replays=calls["loop"]["replays"])
     check(gpu.converged and gpu.num_iters == cpu.num_iters,
           "CUDA and CPU iteration counts differ")
     check(abs(gpu.objective - cpu.objective) <= 1e-9,
           "CUDA and CPU objectives differ")
-    check(calls["k1"] == gpu.num_iters, "K1 not launched once per CP step")
+    check(calls["k1"] == calls["prox_f"] == gpu.num_iters + wasted
+          == calls["loop"]["steps"] and calls["loop"]["replays"] > 0,
+          f"K1 not launched once per CP step run: {calls}")
     return demo
 
 
@@ -1345,13 +1373,147 @@ def phase_headline():
          jax_f32_iters_for_context=JAX_F32_ITERS, solve_s=res.solve_time,
          iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
          objective=res.objective, k1_launches=calls["k1"],
-         prox_f_calls=calls["prox_f"],
+         prox_f_calls=calls["prox_f"], loop=calls["loop"],
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     check(res.converged and np.isfinite(res.xi).all() and finite,
           "headline solve did not converge to finite values")
+    check(res.num_iters == HEADLINE_F32_ITERS,
+          f"the headline took {res.num_iters} iterations, not "
+          f"{HEADLINE_F32_ITERS}")
+    check(calls["loop"]["replays"] > 0
+          and calls["prox_f"] == calls["loop"]["steps"],
+          f"the headline's loop: {calls['loop']}")
     check(res.primal.x.shape == (sp.np_pad, sp.n), "primal shape")
     check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
           f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+
+
+def _loop_runs(solve):
+    """``solve()`` through the graph loop and the host loop
+    (``solver._host_loop()``) in turns, ``LOOP_GRAPH_REPEATS`` times each:
+    per loop the runs' outputs, counts and peak device memory above what
+    was allocated when the run began."""
+    runs = {"graph": [], "host": []}
+    for _ in range(LOOP_GRAPH_REPEATS):
+        for loop in runs:
+            scope = solver_mod._host_loop if loop == "host" \
+                else contextlib.nullcontext
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            with scope(), counted() as calls:
+                out = solve()
+            runs[loop].append(dict(
+                out, calls=calls,
+                peak=torch.cuda.max_memory_allocated() - start))
+    return runs
+
+
+def _loop_row(runs, profiled):
+    """One loop's numbers: the best run's rate and wall µs an iteration;
+    the device µs an iteration of a profile of its steps, and the busy
+    share as that over the best run's wall µs (the trace's own share also
+    counts the solve's set-up in its short window); host reads and wasted
+    steps, its counts, capture seconds and peak device memory."""
+    best = min(runs, key=lambda r: r["seconds"])
+    iters = best["iters"]
+    loop = best["calls"]["loop"]
+    wall_us = 1e6 * best["seconds"] / iters
+    device_us = 1e3 * profiled["device_ms_per_step"]
+    return dict(
+        iters=iters, seconds=[r["seconds"] for r in runs],
+        iters_per_second=iters / best["seconds"],
+        wall_us_per_iter=wall_us, device_us_per_iter=device_us,
+        busy_share=device_us / wall_us,
+        trace_busy_share=profiled["device_busy_share"],
+        profile_wall_us_per_iter=1e3 * profiled["wall_ms_per_step"],
+        profile_launches_per_step=profiled["launches_per_step"],
+        host_reads=loop["host_reads"],
+        host_reads_per_iter=loop["host_reads"] / iters,
+        wasted_steps=loop["wasted_steps"], steps_run=loop["steps"],
+        graph_replays=loop["replays"],
+        capture_seconds=sum(r["calls"]["loop"]["capture_seconds"]
+                            for r in runs),
+        captures=sum(r["calls"]["loop"]["captures"] for r in runs),
+        k1_launches=best["calls"]["k1"], prox_f_calls=best["calls"]["prox_f"],
+        peak_memory_over_start_bytes=max(r["peak"] for r in runs))
+
+
+def _check_loops(phase, runs, graph, period):
+    """The graph loop against the host loop: the same count and iterates
+    in every run, the graph path taken (replays, at most one host read a
+    period and one a chunk), K1 launches equal ``prox_f`` calls equal the
+    steps run."""
+    want = runs["host"][0]
+    for r in runs["graph"] + runs["host"]:
+        check(r["iters"] == want["iters"]
+              and all(np.array_equal(a, b) for a, b in
+                      zip(r["arrays"], want["arrays"])),
+              f"{phase}: a run's iterates differ from the host loop's")
+    check(graph["graph_replays"] > 0,
+          f"{phase}: the graph loop replayed nothing")
+    check(graph["host_reads"] <= -(-graph["iters"] // period) + 2,
+          f"{phase}: {graph['host_reads']} host reads in "
+          f"{graph['iters']} iterations")
+    for r in runs["graph"]:
+        c = r["calls"]
+        check(c["prox_f"] == c["loop"]["steps"] == r["iters"]
+              + c["loop"]["wasted_steps"]
+              and (c["k1"] == c["prox_f"] or not r["k1_path"]),
+              f"{phase}: K1 {c['k1']}, prox_f {c['prox_f']}, steps "
+              f"{c['loop']['steps']}, iterations {r['iters']}")
+
+
+def phase_loop_graph():
+    """The device loop's CUDA graphs against the host loop in one process:
+    the headline (float32, ``check_every=25``, to 1e-3) and one closed-loop
+    step of BASELINE config 5 (88,573 nodes, the closed loop's options),
+    each loop in turns, best of ``LOOP_GRAPH_REPEATS``; device time and
+    busy share from a profile of ``LOOP_GRAPH_PROFILED`` steps of each."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem)             # the default device: the card
+    solver.operator_norm_sq()
+    k1_path = sweep.sweep_eligible(solver.stacked)
+
+    def headline():
+        res = solver.solve(x0, max_iters=20000, tol=1e-3, check_every=25)
+        return dict(iters=res.num_iters, seconds=res.solve_time,
+                    arrays=(*res.primal, *res.dual), k1_path=k1_path)
+
+    controller, cx0 = network_mpc_controller(**CONFIG5, offline="device")
+    csolver = controller.solver_for_mode(0)[0]
+    csolver.operator_norm_sq()
+    copts = dict(check_every=25, unroll=5, chunk_iters=1250, max_iters=2500,
+                 relax="auto")
+
+    def config5_step():
+        run = controller.run(cx0, num_steps=1, initial_mode=0, **copts)
+        res = csolver.result
+        return dict(iters=res.num_iters, seconds=res.solve_time,
+                    arrays=(run.states, run.inputs, *res.primal, *res.dual),
+                    k1_path=sweep.sweep_eligible(csolver.stacked))
+
+    popts = {"headline": dict(check_every=25),
+             "config5": dict(check_every=25, unroll=5, relax="auto")}
+    for name, solve, psolver, px0 in (
+            ("headline", headline, solver, x0),
+            ("config5", config5_step, csolver, cx0)):
+        phase = f"loop_graph_{name}_f32"
+        runs = _loop_runs(solve)
+        rows = {loop: _loop_row(runs[loop], profile_step.profile_solve(
+                    psolver, px0, LOOP_GRAPH_PROFILED, loop=loop,
+                    **popts[name]))
+                for loop in runs}
+        graph, host = rows["graph"], rows["host"]
+        emit(phase, nodes=psolver.stacked.num_nodes, graph=graph, host=host,
+             graph_over_host_iters_per_second=graph["iters_per_second"]
+             / host["iters_per_second"], repeats=LOOP_GRAPH_REPEATS,
+             profiled_steps=LOOP_GRAPH_PROFILED)
+        _check_loops(phase, runs, graph, 25)
+        if name == "headline":
+            check(graph["iters"] == HEADLINE_F32_ITERS,
+                  f"{phase}: {graph['iters']} iterations, not "
+                  f"{HEADLINE_F32_ITERS}")
 
 
 def _timed_solver_for_mode(controller, setup):
@@ -1915,6 +2077,9 @@ def main():
                          "and the headline's components instead")
     ap.add_argument("--mesh", action="store_true",
                     help="run the partitioned phases alone (subtree, flat)")
+    ap.add_argument("--loop", action="store_true",
+                    help="run the loop_graph phase alone (the graph loop "
+                         "against the host loop)")
     ap.add_argument("--scale", action="store_true",
                     help="run the scale, sweep, batch and partition "
                          "runners' full rows instead")
@@ -1949,6 +2114,10 @@ def main():
                   check_row)
         print(smi, flush=True)
         return 0
+    if args.loop:
+        phase_loop_graph()
+        print(smi, flush=True)
+        return 0
     if args.mesh:
         problem, x0 = demo_problem()
         demo = rt.Solver(problem, dtype=torch.float64, device=DEV).solve(
@@ -1977,6 +2146,7 @@ def main():
     phase_baseline_configs()
     phase_headline()
     phase_mpc_config5()
+    phase_loop_graph()
     phase_scale_88573()
     phase_scale_797161()
     phase_relax_config2()

@@ -31,7 +31,10 @@ its index where it is loaded or stored) and whose apex runs one block a
 lane.
 
 ``LAUNCHES`` counts the calls that launched the kernel, so a run can show
-that its main path went through it. Inside :func:`stage_path` the dispatch
+that its main path went through it. A call made while a CUDA graph is
+captured launches nothing: it counts in ``RECORDED``, and the graph's
+owner adds its launches to ``LAUNCHES`` at each replay (the solver's
+device loop). Inside :func:`stage_path` the dispatch
 of ``prox.project_dynamics`` takes the torch stage path on every tree: the
 switch of an A/B of K1 against it (``scripts/bench_sweep.py``).
 """
@@ -51,9 +54,10 @@ import torch
 __all__ = ["sweep_eligible", "project_dynamics_sweep",
            "project_dynamics_sweep_ref", "sweep_schedule", "plan_sweep",
            "sweep_work", "build_library", "stage_path", "DeviceFault",
-           "LAUNCHES", "MAX_SMEM"]
+           "LAUNCHES", "RECORDED", "MAX_SMEM"]
 
 LAUNCHES = 0
+RECORDED = 0
 # set only inside stage_path()
 _STAGE_PATH = False
 
@@ -226,7 +230,7 @@ def project_dynamics_sweep(sp, x_in, u_in, x0):
     if device.type != "cuda":
         raise ValueError(f"the sweep kernel runs on CUDA tensors, not on "
                          f"{device}")
-    global LAUNCHES
+    global LAUNCHES, RECORDED
     call = record["calls"].get(lanes)
     if call is None:
         call = record["calls"][lanes] = _kernel_call(sp, lanes)
@@ -252,7 +256,10 @@ def project_dynamics_sweep(sp, x_in, u_in, x0):
         lib = _library()
         raise DeviceFault(f"the sweep kernel failed to launch: CUDA error "
                           f"{err} ({lib.raocp_error_string(err).decode()})")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED += 1
+    else:
+        LAUNCHES += 1
     return x_out, u_out
 
 

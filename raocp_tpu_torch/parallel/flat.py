@@ -296,7 +296,7 @@ class FlatProblem:
                log_every=None, k0: int = 0):
         """The CP loop on this rank's blocks (iterates in and out in the
         block layout); every host branch reads all-reduced values."""
-        from raocp_tpu_torch.solver import _run_cp
-        return _run_cp(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
-                       max_iters, check_every, unroll, adaptive, relax,
-                       log_every, k0)
+        from raocp_tpu_torch.solver import _run_cp_host
+        return _run_cp_host(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
+                            max_iters, check_every, unroll, adaptive, relax,
+                            log_every, k0)

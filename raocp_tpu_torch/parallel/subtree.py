@@ -387,10 +387,10 @@ class SubtreeProblem:
         """The CP loop on this rank's block: iterates in, iterates out, in
         the block layout; every host branch reads all-reduced values, so
         the ranks take the same branches."""
-        from raocp_tpu_torch.solver import _run_cp
-        return _run_cp(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
-                       max_iters, check_every, unroll, adaptive, relax,
-                       log_every, k0)
+        from raocp_tpu_torch.solver import _run_cp_host
+        return _run_cp_host(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
+                            max_iters, check_every, unroll, adaptive, relax,
+                            log_every, k0)
 
 
 def build_subtree_problem(spec, mesh, dtype=None, offline: str = "host",

@@ -3,6 +3,7 @@
 
     python -m raocp_tpu_torch.scripts.bench_1e6 [--stages 12] [--states 50]
         [--inputs 20] [--iters 50] [--unroll 5] [--tol 0] [--device cpu]
+        [--loop graph|host]
 
 The problem (``bench_scale.tree_problem``): a 50-state, 20-input network on
 a 3-mode chain fully branched for ``--stages`` stages, 12 by default:
@@ -36,17 +37,19 @@ def main(argv=None):
     ap.add_argument("--inputs", type=int, default=20)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--unroll", type=int, default=5,
-                    help="CP steps per trip of the host loop (must divide "
+                    help="CP steps per trip of the loop (must divide "
                          "25); see bench_scale")
     ap.add_argument("--tol", type=float, default=0.0,
                     help="solve to this residual tolerance once, capped at "
                          "MAX_ITERS (0: run --iters steps)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--loop", choices=("graph", "host"), default="graph",
+                    help="see bench_scale")
     args = ap.parse_args(argv)
     iters = MAX_ITERS if args.tol > 0 else args.iters
     row = run_tree(args.stages, args.states, args.inputs, iters=iters,
                    unroll=args.unroll, power_rel_tol=POWER_REL_TOL,
-                   tol=args.tol, device=args.device).row
+                   tol=args.tol, device=args.device, loop=args.loop).row
     print(json.dumps(row), flush=True)
     if not row["finite"]:
         raise SystemExit("the iterates are not finite")

@@ -118,22 +118,30 @@ def reference_row(name: str, solve: dict) -> Optional[dict]:
 @contextlib.contextmanager
 def counted_calls():
     """Count the K1 launches and the ``prox_f`` calls (the T evaluations
-    of a CP step, accelerated or not) while the body runs; the counts are
-    read after it. Nothing is reset, so an outer count goes on counting."""
+    of a CP step, accelerated or not) that ran on the device while the body
+    runs; the counts are read after it. A call made while a CUDA graph is
+    captured runs nothing and is not counted; the device loop's replays
+    add the calls and launches they ran (``solver.LOOP_COUNTS``,
+    ``ops.sweep.LAUNCHES``). Nothing is reset, so an outer count goes on
+    counting."""
     calls = {"prox_f": 0, "k1": 0}
     real = solver_mod.prox_f
+    graphs = torch.cuda.is_available()
 
     def counting(*args, **kwargs):
-        calls["prox_f"] += 1
+        if not (graphs and torch.cuda.is_current_stream_capturing()):
+            calls["prox_f"] += 1
         return real(*args, **kwargs)
 
     before = sweep.LAUNCHES
+    replayed = solver_mod.LOOP_COUNTS["replayed_steps"]
     solver_mod.prox_f = counting
     try:
         yield calls
     finally:
         solver_mod.prox_f = real
         calls["k1"] = sweep.LAUNCHES - before
+        calls["prox_f"] += solver_mod.LOOP_COUNTS["replayed_steps"] - replayed
 
 
 def sync(device):

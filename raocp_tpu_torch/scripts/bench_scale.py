@@ -2,7 +2,7 @@
 the JAX package's ``scripts/bench_scale.py``).
 
     python -m raocp_tpu_torch.scripts.bench_scale [--iters 1000]
-        [--repeats 3] [--unroll 5] [--device cpu]
+        [--repeats 3] [--unroll 5] [--device cpu] [--loop graph|host]
 
 The problem: a 50-state, 20-input network on a 3-mode chain fully branched
 for 10 stages (88,573 nodes), AVaR(0.95), box constraints, float32 on the
@@ -21,6 +21,7 @@ script.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -74,7 +75,7 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
              iters: int = ITERS, repeats: int = 1, unroll: int = 5,
              check_every: int = CHECK_EVERY, power_rel_tol: float = 1e-12,
              tol: float = 0.0, alpha=None, dtype=torch.float32,
-             device="cuda"):
+             device="cuda", loop: str = "graph"):
     """Build :func:`tree_problem` on ``device`` (``offline="device"``), take
     the step size from ``_power_iteration`` at ``power_rel_tol`` (or use
     ``alpha``), run the CP loop (``solver._run_cp``, as the JAX scripts
@@ -82,8 +83,12 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
     start ``repeats`` times, and time each run.
 
     Before the timed runs one run of ``check_every`` steps pays K1's
-    per-problem packing and the allocator's growth (the port compiles
-    nothing per call). Returns a :class:`TreeRun`."""
+    per-problem packing, the allocator's growth and, on a card, the
+    capture of the device loop's CUDA graphs (the port compiles no kernel
+    per call); the row's ``loop_*`` fields are ``solver.LOOP_COUNTS`` over
+    all the runs (captures and their seconds, replays, host reads).
+    ``loop="host"`` runs the host loop instead (``solver._host_loop()``),
+    for an A/B. Returns a :class:`TreeRun`."""
     dtype = _torch_dtype(dtype)
     sync(device)
     tic = time.perf_counter()
@@ -109,13 +114,19 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
     x0t = torch.as_tensor(np.asarray(x0, dtype=np.float64), dtype=sp.dtype,
                           device=sp.device)
 
+    if loop not in ("graph", "host"):
+        raise ValueError(f"unknown loop '{loop}' (graph or host)")
+
     def run(steps):
         z0 = sp.zero_primal()
         z0.x[0] = x0t
-        return solver_mod._run_cp(sp, z0, sp.zero_dual(), x0t, alpha, alpha,
-                                  tol, steps, check_every=check_every,
-                                  unroll=unroll)
+        with (solver_mod._host_loop() if loop == "host"
+              else contextlib.nullcontext()):
+            return solver_mod._run_cp(sp, z0, sp.zero_dual(), x0t, alpha,
+                                      alpha, tol, steps,
+                                      check_every=check_every, unroll=unroll)
 
+    counts = dict(solver_mod.LOOP_COUNTS)
     run(check_every)
     seconds = []
     with counted_calls() as calls:
@@ -136,9 +147,11 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
         **power, alpha=float(alpha), iters=steps, tol=tol,
         converged=bool(tol > 0 and float(err.max()) <= tol),
         seconds=best, all_seconds=seconds, ms_per_step=1e3 * best / steps,
-        repeats=repeats, unroll=unroll, check_every=check_every,
+        repeats=repeats, unroll=unroll, check_every=check_every, loop=loop,
         **device_fields(sp), k1_launches=calls["k1"],
         prox_f_calls=calls["prox_f"],
+        **{f"loop_{k}": solver_mod.LOOP_COUNTS[k] - v
+           for k, v in counts.items()},
         max_memory_allocated_mb=dict(build=peak_build, power=peak_power,
                                      steps=peak_mb(device)),
         xi=err.tolist(), finite=finite)
@@ -150,15 +163,20 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--unroll", type=int, default=5,
-                    help="CP steps per trip of the host loop between its "
-                         "stopping tests (must divide 25). The port's loop "
-                         "is Python on the host, so this moves only where "
-                         "the test is read; the JAX script's while-loop "
+                    help="CP steps per trip of the loop between its "
+                         "stopping tests (must divide 25). The port's "
+                         "device loop runs a check period of 25 steps a "
+                         "graph replay either way, so this moves only "
+                         "where the cap falls; the JAX script's while-loop "
                          "unrolls its body by it")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--loop", choices=("graph", "host"), default="graph",
+                    help="the device loop (CUDA graphs of its check "
+                         "periods) or the host loop, for an A/B")
     args = ap.parse_args(argv)
     row = run_tree(10, iters=args.iters, repeats=args.repeats,
-                   unroll=args.unroll, device=args.device).row
+                   unroll=args.unroll, device=args.device,
+                   loop=args.loop).row
     print(json.dumps(row), flush=True)
     if not row["finite"]:
         raise SystemExit("the iterates are not finite")

@@ -3,7 +3,7 @@
 JAX package's ``scripts/profile_step.py``).
 
     python -m raocp_tpu_torch.scripts.profile_step [--steps 100]
-        [--config headline|config5|tree797161]
+        [--config headline|config5|tree797161] [--loop graph|host]
 
 ``headline`` (BASELINE config 4: 9,841 nodes, float32) runs 100 CP steps
 at ``check_every=25, unroll=25``; ``config5`` (BASELINE config 5's
@@ -12,11 +12,14 @@ at ``check_every=25, unroll=25``; ``config5`` (BASELINE config 5's
 797,161-node tree, float32) at its ``check_every=25, unroll=5``. Each
 prints one JSON line: the trace's wall time and device time a step, the
 card's busy share, the launches a step, K1's share of the device time and
-the kernels that take most of it, and the Solver's power iteration (its
-count and seconds at the Solver's own tolerance). It needs a card.
+the kernels that take most of it, the host's reads a step, and the
+Solver's power iteration (its count and seconds at the Solver's own
+tolerance). ``--loop host`` traces the host loop instead of the solve's
+own (CUDA graphs of its check periods). It needs a card.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
@@ -29,6 +32,7 @@ from raocp_tpu_torch.ops.sweep import sweep_eligible
 from raocp_tpu_torch.scripts.bench_configs import (CONFIG5, CONFIGS,
                                                    counted_calls, sync)
 from raocp_tpu_torch.scripts.bench_scale import tree_problem
+from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.solver import Solver
 
 __all__ = ["PROFILES", "device_events", "is_k1", "profile_solve",
@@ -96,26 +100,48 @@ def summarize_trace(events: list, steps: int, top: int = 8) -> dict:
                      for name, (t, c) in ranked])
 
 
-def profile_solve(solver: Solver, x0, steps: int, **options) -> dict:
+def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
+                  **options) -> dict:
     """``steps`` CP steps of ``solver`` from ``x0`` (tolerance 1e-12, so
-    every step runs) under ``solve(profile_dir=...)``, after one untraced
-    solve of the same steps (K1's packing, the allocator's warm-up): the
-    trace's :func:`summarize_trace`, beside the traced solve's K1 launches
-    and ``prox_f`` calls."""
+    every step runs; a multiple of the check period, so that the device
+    loop runs no eager tail) under ``solve(profile_dir=...)``, after one
+    untraced
+    solve of the same steps (K1's packing, the allocator's warm-up, the
+    graphs' capture): the trace's :func:`summarize_trace`, beside the
+    traced solve's K1 launches, ``prox_f`` calls and the device loop's
+    replays and host reads. ``loop`` is ``"graph"`` (the solve's own
+    loop: CUDA graphs of its check periods) or ``"host"`` (the host loop,
+    ``solver._host_loop()``)."""
     if solver.stacked.device.type != "cuda":
         raise RuntimeError("the step's profile reads the card's trace; the "
                            "solver is not on a card")
-    opts = dict(max_iters=steps, tol=1e-12, **options)
-    solver.solve(x0, **opts)
-    with tempfile.TemporaryDirectory() as folder, counted_calls() as calls:
-        res = solver.solve(x0, profile_dir=folder, **opts)
-        events = device_events(os.path.join(folder, "trace.json"))
+    if loop not in ("graph", "host"):
+        raise ValueError(f"unknown loop '{loop}' (graph or host)")
+    # the loop's cap runs unroll * ceil((max_iters + 2 - unroll) / unroll)
+    # steps: exactly ``steps`` (whole check periods, no eager tail, where
+    # they divide it)
+    unroll = options.get("unroll", 1)
+    opts = dict(max_iters=steps + unroll - 2, tol=1e-12, **options)
+    scope = solver_mod._host_loop if loop == "host" \
+        else contextlib.nullcontext
+    with scope():
+        solver.solve(x0, **opts)
+        before = dict(solver_mod.LOOP_COUNTS)
+        with tempfile.TemporaryDirectory() as folder, \
+                counted_calls() as calls:
+            res = solver.solve(x0, profile_dir=folder, **opts)
+            events = device_events(os.path.join(folder, "trace.json"))
+    ran = {k: solver_mod.LOOP_COUNTS[k] - before[k]
+           for k in ("replays", "host_reads", "steps")}
     return dict(summarize_trace(events, res.num_iters),
                 nodes=solver.stacked.num_nodes,
                 dtype=str(solver.stacked.dtype),
                 device=str(solver.stacked.device),
                 k1_path=sweep_eligible(solver.stacked),
                 k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
+                loop=loop, graph_replays=ran["replays"],
+                device_loop_steps=ran["steps"],
+                host_reads_per_step=ran["host_reads"] / res.num_iters,
                 options=options)
 
 
@@ -146,8 +172,9 @@ PROFILES = {
 
 
 def run_profile(name: str = "headline", steps: int = 100,
-                device="cuda") -> dict:
-    """The step profile of ``PROFILES[name]`` on ``device`` (a card)."""
+                device="cuda", loop: str = "graph") -> dict:
+    """The step profile of ``PROFILES[name]`` on ``device`` (a card),
+    through ``loop`` (:func:`profile_solve`)."""
     make, options = PROFILES[name]
     solver, x0 = make(device)
     sync(device)
@@ -157,15 +184,17 @@ def run_profile(name: str = "headline", steps: int = 100,
     power_s = time.perf_counter() - tic
     return dict(profile=name, power_iterations=solver.power_iterations,
                 power_seconds=power_s,
-                **profile_solve(solver, x0, steps, **options))
+                **profile_solve(solver, x0, steps, loop, **options))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--config", choices=sorted(PROFILES), default="headline")
+    ap.add_argument("--loop", choices=("graph", "host"), default="graph")
     args = ap.parse_args(argv)
-    print(json.dumps(run_profile(args.config, args.steps)), flush=True)
+    print(json.dumps(run_profile(args.config, args.steps, loop=args.loop)),
+          flush=True)
 
 
 if __name__ == "__main__":

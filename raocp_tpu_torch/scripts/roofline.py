@@ -14,7 +14,9 @@ carried L z and L'eta, alpha = 0.01.
 For each component of the step (L, L', K1's dynamics projection, the
 kernel projection, ``prox_f``, the dual prox's projections, the step, the
 step with its residuals, and one trip of the production loop per
-iteration: ``--unroll`` steps, the residuals of the last, the host's read)
+iteration: ``--unroll`` steps, the residuals of the last, the host's read;
+eagerly, and as the solver runs it on a card, replayed from the device
+loop's CUDA graphs with the host reading the period's flag)
 it prints one JSON line and a table row: the operations and compulsory
 bytes (:mod:`raocp_tpu_torch.ops.work`), their intensity, the wall time of
 an apply (CUDA events around ``--applies`` back-to-back applies, best of
@@ -46,8 +48,8 @@ from raocp_tpu_torch.scripts.profile_step import traced_events
 from raocp_tpu_torch.solver import (Solver, _cp_residuals, _cp_step,
                                     cp_iteration, pin_full_precision)
 
-__all__ = ["NODES", "UNROLL", "problem", "inputs", "trip", "components",
-           "rows", "wall_us", "chain", "require_card"]
+__all__ = ["NODES", "UNROLL", "problem", "inputs", "trip", "graph_trip",
+           "components", "rows", "wall_us", "chain", "require_card"]
 
 NODES = {8: 9841, 10: 88573, 12: 797161}
 UNROLL = 25
@@ -103,6 +105,31 @@ def trip(sp, z, eta, Lz, Lt, a1, a2, x0, shift, unroll: int = UNROLL):
     return z, eta, Lz, Lt, torch.cat([err, derr]).cpu()
 
 
+def graph_trip(sp, v: dict, unroll: int = UNROLL, capacity: int = 1 << 16):
+    """An apply of one trip as the solver's device loop runs it on a card:
+    a period of ``unroll`` steps (the residuals of the last, its history
+    row, the running flag) replayed from the loop's CUDA graphs, the two
+    carries taking turns, then the host's read of the flag. It starts from
+    the inputs ``v`` (:func:`inputs`); the first apply captures."""
+    from raocp_tpu_torch import solver as solver_mod
+
+    loop = solver_mod._DeviceLoop(sp, v["z"], v["eta"], v["Lz"], v["Lt"],
+                                  None, unroll, False, 1.0, capacity)
+    loop.load(v["z"], v["eta"], v["Lz"], v["Lt"], v["x0"], v["a1"], v["a2"],
+              0.0, capacity, 0, math.nan)
+    done = [0]
+
+    def apply():
+        n = done[0]
+        if (n + 1) * unroll > capacity:
+            raise RuntimeError("the trip's history is full")
+        loop.launch(sp, n)
+        loop.flag(sp, n)
+        done[0] = n + 1
+
+    return apply
+
+
 def chain(fn, *state):
     """An apply of ``fn`` that takes the previous apply's outputs (the
     first ``len(state)`` of them), starting from ``state``."""
@@ -143,6 +170,8 @@ def components(sp, x0, unroll: int = UNROLL) -> list:
          work.cp_iteration(sp), 1),
         ("production trip / iteration",
          chain(lambda *s: trip(sp, *s, a1, a2, x0t, shift, unroll), *state),
+         work.production_trip(sp, unroll), unroll),
+        ("production trip / iteration (graph)", graph_trip(sp, v, unroll),
          work.production_trip(sp, unroll), unroll),
     ]
 

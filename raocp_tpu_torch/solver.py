@@ -1,19 +1,23 @@
 """Chambolle-Pock solver for RAOCPs on torch tensors (counterpart of
 :mod:`raocp_tpu.solver` on one device).
 
-Parity: reference ``raocp/core/solver.py:12`` (``Solver.chock``). The loop
-is a host Python loop over eager tensor ops; the host reads the device only
-when a residual is checked (every iteration at ``check_every=1``, once per
-period otherwise). Like the JAX package it carries L z and L'eta between
-iterations, so a step costs two operator applies, plus one for the xi_0
-residual at a check. Chunked solves (:func:`_chunked_loop`), batch solves
-(:func:`_run_cp_batch`: B initial states, every op on all lanes at once),
+Parity: reference ``raocp/core/solver.py:12`` (``Solver.chock``). As the
+JAX package's jitted ``while_loop`` does, the loop keeps its state on the
+device and runs a check period at a time (:func:`_device_loop`): on a card
+each period is a replay of a captured CUDA graph and the host reads one
+flag a period; on the CPU the same period runs eagerly. Like the JAX
+package it carries L z and L'eta between iterations, so a step costs two
+operator applies, plus one for the xi_0 residual at a check. Chunked
+solves (:func:`_chunked_loop`), batch solves (:func:`_run_cp_batch`: B
+initial states, every op on all lanes at once),
 the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
 helpers (``validate``, plots, pgfplots exports) keep the JAX package's
 semantics. Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
 one process a rank, on the replicated-spine subtree partition
 (:mod:`raocp_tpu_torch.parallel.subtree`) or the flat node partition
-(:mod:`raocp_tpu_torch.parallel.flat`).
+(:mod:`raocp_tpu_torch.parallel.flat`), whose collectives are staged on the
+host: they run the host loop (:func:`_run_cp_host`), which reads the device
+at every check.
 """
 
 import contextlib
@@ -22,6 +26,7 @@ import functools
 import math
 import os
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -35,6 +40,8 @@ from raocp_tpu_torch.core.stacked import (StackedProblem, _dedup_dynamics,
 from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
                                             tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
+from raocp_tpu_torch.ops import prox as prox_mod
+from raocp_tpu_torch.ops import sweep as sweep_mod
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
                                       prox_f)
@@ -266,12 +273,28 @@ def _log_residuals(k, err):
           f"xi_2={float(err[2]):.3e}")
 
 
-def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
-            max_iters: int, check_every: int = 1, unroll: int = 1,
-            adaptive: bool = False, relax: float = 1.0,
-            log_every: Optional[int] = None, k0: int = 0):
-    """The CP loop with the JAX package's semantics. Returns (z, eta,
-    iters, final errors as NumPy [3], history NumPy [iters, 6]).
+# What the CP loops ran, summed since import (read deltas around a run, as
+# for ``ops.sweep.LAUNCHES``). ``host_reads`` counts the host's reads of
+# the device inside a loop: a check's residuals in the host loops, a
+# period's flag (and a logged period's rows) in the device loop. The rest
+# is the device loop's: periods (eager or replayed), of them graph replays;
+# captures and their seconds (the eager first period and both graphs); CP
+# steps run on the device, and of them those run past convergence (the
+# period enqueued ahead of the flag that stopped the loop) and those that
+# replays ran. A replayed step is a prox_f call that Python made once, at
+# capture (``scripts.bench_configs.counted_calls`` adds them to its count).
+LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
+                   host_reads=0, steps=0, wasted_steps=0, replayed_steps=0)
+
+
+def _run_cp_host(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
+                 max_iters: int, check_every: int = 1, unroll: int = 1,
+                 adaptive: bool = False, relax: float = 1.0,
+                 log_every: Optional[int] = None, k0: int = 0):
+    """The CP loop driven from the host, step by step, with the JAX
+    package's semantics: the loop of the partitions, whose collectives are
+    staged on the host (:func:`_run_cp` runs the single device's). Returns
+    (z, eta, iters, final errors as NumPy [3], history NumPy [iters, 6]).
 
     ``log_every=j`` prints the last checked residuals after every step
     whose loop index is a multiple of j (JAX ``solver.py:442``), with the
@@ -316,6 +339,7 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
                 if adaptive:
                     a1, a2, phi = _rebalance(a1, a2, phi, err)
                 row = torch.cat([err, derr]).cpu().numpy()   # the one sync
+                LOOP_COUNTS["host_reads"] += 1
                 hist[k + i] = row
                 err_np = row[:3]
             if log_every is not None and (k + i) % log_every == 0:
@@ -342,10 +366,11 @@ def _running_lanes(keep, new, old):
         else tuple(kept)
 
 
-def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
-                  max_iters: int, check_every: int = 1, unroll: int = 1,
-                  adaptive: bool = False, relax: float = 1.0):
-    """The CP loop of :func:`_run_cp` for B lanes at once (the JAX
+def _run_cp_batch_host(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2,
+                       tol, max_iters: int, check_every: int = 1,
+                       unroll: int = 1, adaptive: bool = False,
+                       relax: float = 1.0):
+    """The CP loop of :func:`_run_cp_host` for B lanes at once (the JAX
     package's ``jax.vmap`` of its loop): the iterates carry a leading lane
     axis, x0s is [B, n], and every step of every operator is one call for
     all lanes. Returns (z, eta, iters [B], final errors [B, 3], history
@@ -391,6 +416,7 @@ def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
                     a1, a2, phi = _running_lanes(
                         keep, _rebalance(a1, a2, phi, err), (a1, a2, phi))
                 rows = torch.cat([err, derr], dim=1).cpu().numpy()  # sync
+                LOOP_COUNTS["host_reads"] += 1
                 hist[running, k + i] = rows[running]
                 err_np[running] = rows[running, :3]
             if relax != 1.0:
@@ -408,6 +434,445 @@ def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
     return z, eta, iters, err_np, hist
 
 
+# -- the device-resident loop (JAX: _run_cp's jitted while_loop) -----------
+
+# set only inside _host_loop()
+_HOST_LOOP = False
+# the loop of each problem on a card: id(sp) -> (key, _DeviceLoop)
+_LOOPS = {}
+
+
+@contextlib.contextmanager
+def _host_loop():
+    """Within the block :func:`_run_cp` and :func:`_run_cp_batch` run the
+    host loops (:func:`_run_cp_host`, :func:`_run_cp_batch_host`): the
+    switch of an A/B of the two loops (``chip_smoke.py``'s ``loop_graph``,
+    ``scripts/bench_sweep.py``). The previous state returns on exit, also
+    on an exception."""
+    global _HOST_LOOP
+    saved = _HOST_LOOP
+    _HOST_LOOP = True
+    try:
+        yield
+    finally:
+        _HOST_LOOP = saved
+
+
+def _lookahead(device: torch.device) -> int:
+    """Periods enqueued ahead of the flag the host reads: one on a card (it
+    never waits for the host), none on the CPU (nothing runs ahead)."""
+    return 1 if device.type == "cuda" else 0
+
+
+def _trip_cap(max_iters: int, unroll: int) -> int:
+    """The step count at which the loop's cap stops it: the first trip
+    always runs, later ones while k + unroll < max_iters + 2."""
+    return max(unroll, unroll * -(-(max_iters + 2 - unroll) // unroll))
+
+
+@dataclasses.dataclass
+class _Carry:
+    """One set of the loop's state on the device: the iterates and their
+    operator images, the step sizes and phi, the last checked residuals,
+    the step count and the running flag; in a batch the flag is [B] and
+    ``iters`` each lane's count."""
+    z: Primal
+    eta: Dual
+    Lz: Dual
+    Lt: Primal
+    a1: torch.Tensor
+    a2: torch.Tensor
+    phi: torch.Tensor
+    err: torch.Tensor
+    derr: torch.Tensor
+    k: torch.Tensor
+    running: torch.Tensor
+    iters: Optional[torch.Tensor] = None
+
+    def parts(self):
+        """What a period carries, each as a tuple of leaves."""
+        return (self.z, self.eta, self.Lz, self.Lt, (self.a1,), (self.a2,),
+                (self.phi,), (self.err,), (self.derr,))
+
+
+def _store(dst, new, old, keep):
+    """``dst`` <- ``new`` leaf by leaf; in a batch (``keep`` [B]) only on
+    the running lanes, ``old`` on the others (a number shared by every
+    lane never changes)."""
+    for d, n, o in zip(dst, new, old):
+        if keep is None or n.dim() == 0:
+            d.copy_(n)
+        else:
+            torch.where(lane_view(keep, n), n, o, out=d)
+
+
+def _period(sp: StackedProblem, src: _Carry, dst: _Carry, steps: int,
+            checked: bool, adaptive: bool, relax: float, x0, shift, hist,
+            tol, limit):
+    """``steps`` CP steps from ``src`` into ``dst`` with no host read (the
+    JAX loop's body over a period; what a CUDA graph captures). With
+    ``checked`` the last step is a check (a period of ``check_every``
+    steps; the tail has none): its residuals are evaluated, rebalance the
+    steps under ``adaptive`` and write their [err, derr] row of ``hist``
+    at the device's count (``index_copy_``). ``relax`` over-relaxes each
+    step after its residuals. ``running`` then
+    takes the loop's condition: the last checked residual above ``tol``
+    (compared in float64, as on the host) and k + unroll < max_iters + 2
+    (k < ``limit``).
+
+    In a batch (``src.iters`` set) the lanes that ``src.running`` marks
+    move; the others keep their carry, rows, count and flag. The mask is
+    constant over a period and the lanes' arithmetic is independent, so
+    one :func:`_store` at its end gives the host loop's per-step masking
+    (:func:`_running_lanes`)."""
+    keep = src.running if src.iters is not None else None
+    z, eta, Lz, Lt = src.z, src.eta, src.Lz, src.Lt
+    a1, a2, phi, err, derr = src.a1, src.a2, src.phi, src.err, src.derr
+    for i in range(steps):
+        zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, a1, a2, x0, shift)
+        if checked and i == steps - 1:
+            err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn,
+                                      a1, a2)
+            if adaptive:
+                a1, a2, phi = _rebalance(a1, a2, phi, err)
+            row = torch.cat([err, derr], dim=-1)
+            at = (src.k + i).reshape(1)
+            if keep is None:
+                hist.index_copy_(0, at, row[None])
+            else:
+                # a stopped lane's rows keep what they hold
+                hist.index_copy_(1, at, torch.where(
+                    keep[:, None, None], row[:, None],
+                    hist.index_select(1, at)))
+        if relax != 1.0:
+            z, eta, Lz, Lt = (
+                type(cur)(*(c + relax * (p - c) for c, p in zip(cur, nw)))
+                for cur, nw in ((z, zn), (eta, en), (Lz, Lzn), (Lt, Ltn)))
+        else:
+            z, eta, Lz, Lt = zn, en, Lzn, Ltn
+    k = src.k + steps
+    for d, n, o in zip(dst.parts(), (z, eta, Lz, Lt, (a1,), (a2,), (phi,),
+                                     (err,), (derr,)), src.parts()):
+        _store(d, n, o, keep)
+    dst.k.copy_(k)
+    dst.running.copy_(src.running & (err.double().amax(dim=-1) > tol)
+                      & (k < limit))
+    if keep is not None:
+        torch.where(keep, k, src.iters, out=dst.iters)
+
+
+class _DeviceLoop:
+    """The device loop's buffers for one problem and one shape of period:
+    two carries that periods alternate between (0 -> 1, then 1 -> 0, so a
+    period run past convergence never overwrites the converged one), the
+    history, x0, tol and the cap; on a card the two CUDA graphs of a
+    period, captured at first use, and the pinned flags the host reads."""
+
+    def __init__(self, sp, z0, eta0, Lz0, Lt0, lanes: Optional[int],
+                 steps: int, adaptive: bool, relax: float, capacity: int):
+        dev, dt = sp.device, sp.dtype
+        lead = () if lanes is None else (lanes,)
+        step_shape = lead if adaptive else ()
+
+        def like(tree):
+            return type(tree)(*(torch.empty_like(
+                v, memory_format=torch.contiguous_format) for v in tree))
+
+        def carry():
+            return _Carry(
+                z=like(z0), eta=like(eta0), Lz=like(Lz0), Lt=like(Lt0),
+                **{name: torch.empty(step_shape, dtype=dt, device=dev)
+                   for name in ("a1", "a2", "phi")},
+                err=torch.empty(lead + (3,), dtype=dt, device=dev),
+                derr=torch.empty(lead + (3,), dtype=dt, device=dev),
+                k=torch.zeros((), dtype=torch.int64, device=dev),
+                running=torch.ones(lead, dtype=torch.bool, device=dev),
+                iters=None if lanes is None else torch.zeros(
+                    lead, dtype=torch.int64, device=dev))
+
+        self.sets = (carry(), carry())
+        self.hist = torch.empty(lead + (capacity, 6), dtype=dt, device=dev)
+        self.x0 = torch.empty(lead + (sp.n,), dtype=dt, device=dev)
+        self.tol = torch.zeros((), dtype=torch.float64, device=dev)
+        self.limit = torch.zeros((), dtype=torch.int64, device=dev)
+        self.shift = half_shift_dual(sp)
+        self.steps, self.adaptive, self.relax = steps, adaptive, relax
+        self.graphs = None
+        self.k1_per_period = 0
+        if dev.type == "cuda":
+            self.flags = [torch.empty(lead, dtype=torch.bool,
+                                      pin_memory=True) for _ in range(2)]
+            self.events = [torch.cuda.Event() for _ in range(2)]
+
+    def load(self, z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol, limit,
+             rows, fill):
+        """Start a solve: carry 0 from the inputs, the history's first
+        ``rows`` rows set to ``fill``."""
+        c = self.sets[0]
+        for dst, src in ((c.z, z0), (c.eta, eta0), (c.Lz, Lz0),
+                         (c.Lt, Lt0)):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        c.a1.fill_(alpha1)
+        c.a2.fill_(alpha2)
+        c.phi.fill_(_ADAPT_PHI)
+        c.err.fill_(math.inf)
+        c.derr.fill_(math.inf)
+        c.k.zero_()
+        c.running.fill_(True)
+        if c.iters is not None:
+            c.iters.zero_()
+        self.hist[..., :rows, :].fill_(fill)
+        self.x0.copy_(x0)
+        self.tol.fill_(float(tol))
+        self.limit.fill_(limit)
+
+    def run_period(self, sp, parity: int, steps: Optional[int] = None):
+        """One period from carry ``parity`` into the other, eagerly; with
+        ``steps``, the tail: that many steps and no check."""
+        _period(sp, self.sets[parity], self.sets[1 - parity],
+                self.steps if steps is None else steps, steps is None,
+                self.adaptive, self.relax, self.x0, self.shift, self.hist,
+                self.tol, self.limit)
+
+    def capture(self, sp):
+        """Run period 0 eagerly on a side stream (it builds K1's library,
+        packs its weights and grows the allocator, outside any graph), then
+        capture a period from each carry into the other, sharing one
+        memory pool (they never run at once). The K1 launches recorded in
+        a graph are what each of its replays adds to
+        ``ops.sweep.LAUNCHES``."""
+        tic = time.perf_counter()
+        side = torch.cuda.Stream(sp.device)
+        side.wait_stream(torch.cuda.current_stream(sp.device))
+        with torch.cuda.stream(side):
+            self.run_period(sp, 0)
+        torch.cuda.current_stream(sp.device).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = []
+        for parity in (0, 1):
+            graph = torch.cuda.CUDAGraph()
+            recorded = sweep_mod.RECORDED
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                self.run_period(sp, parity)
+            self.k1_per_period = sweep_mod.RECORDED - recorded
+            graphs.append(graph)
+        self.graphs = graphs
+        LOOP_COUNTS["captures"] += 1
+        LOOP_COUNTS["capture_seconds"] += time.perf_counter() - tic
+
+    def launch(self, sp, n: int):
+        """Period ``n`` (from carry n % 2): a graph replay, or on the first
+        use of a card's loop its capture; eagerly on the CPU. On a card its
+        flag then goes to pinned memory behind an event."""
+        parity = n % 2
+        if sp.device.type != "cuda":
+            self.run_period(sp, parity)
+        elif self.graphs is None:
+            self.capture(sp)            # period 0 runs eagerly in it
+        else:
+            self.graphs[parity].replay()
+            LOOP_COUNTS["replays"] += 1
+            LOOP_COUNTS["replayed_steps"] += self.steps
+            sweep_mod.LAUNCHES += self.k1_per_period
+        LOOP_COUNTS["periods"] += 1
+        LOOP_COUNTS["steps"] += self.steps
+        if sp.device.type == "cuda":
+            self.flags[parity].copy_(self.sets[1 - parity].running,
+                                     non_blocking=True)
+            self.events[parity].record()
+
+    def flag(self, sp, n: int) -> np.ndarray:
+        """Period ``n``'s running flag (the loop's condition after it), as
+        the host reads it."""
+        LOOP_COUNTS["host_reads"] += 1
+        parity = n % 2
+        if sp.device.type != "cuda":
+            return self.sets[1 - parity].running.numpy().copy()
+        self.events[parity].synchronize()
+        return self.flags[parity].numpy().copy()
+
+
+def _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive, relax,
+              rows) -> _DeviceLoop:
+    """The problem's device loop for this shape of period: on a card the
+    cached one (one a problem, kept while the key holds, so a solver's
+    later solves, chunks and closed-loop steps replay its graphs), else a
+    new one. The key is what changes the captured program: the lanes, the
+    period, ``adaptive``, ``relax``, the dynamics projection's
+    dispatch (K1, the stage path, or a patched sweep) and the history's
+    capacity (a power of two, at least 1,024 rows)."""
+    capacity = max(1024, 1 << (rows - 1).bit_length())
+    if sp.device.type != "cuda":
+        return _DeviceLoop(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
+                           relax, rows)
+    key = (lanes, steps, adaptive, relax, sweep_mod.sweep_eligible(sp),
+           prox_mod.project_dynamics_sweep, capacity)
+    cached = _LOOPS.get(id(sp))
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    if id(sp) not in _LOOPS:
+        weakref.finalize(sp, _LOOPS.pop, id(sp), None)
+    _LOOPS[id(sp)] = None           # drop the old loop's memory first
+    loop = _DeviceLoop(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
+                       relax, capacity)
+    _LOOPS[id(sp)] = (key, loop)
+    return loop
+
+
+def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
+                 check_every, unroll, adaptive, relax, log_every=None,
+                 k0=0, lanes=None):
+    """The CP loop with its state on the device (the JAX package's jitted
+    ``while_loop``): a period is ``check_every`` steps, its last a check
+    (``unroll`` divides it, or is 1 at ``check_every=1``), so the tolerance
+    can stop the loop only at a period's end, and the host reads one flag
+    a period. On a card each
+    period is a replay of a captured CUDA graph, the next one enqueued
+    before the host reads the last one's flag; on the CPU it runs eagerly.
+    The cap is known to the host: full periods up to it, then the tail's
+    steps (no check falls in them) eagerly. Returns (the final carry, the
+    steps taken, the loop)."""
+    if unroll > 1 and check_every % unroll != 0:
+        raise ValueError("unroll must divide check_every")
+    steps = check_every
+    cap = _trip_cap(max_iters, unroll)
+    full, tail = divmod(cap, steps)
+    z0, eta0 = Primal(*z0), Dual(*eta0)
+    Lz0, Lt0 = ell(sp, z0), ell_t(sp, eta0)
+    rows = max_iters + unroll
+    fill = 0.0 if check_every == 1 else math.nan
+    with (torch.cuda.device(sp.device) if sp.device.type == "cuda"
+          else contextlib.nullcontext()):
+        loop = _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
+                         relax, rows)
+        loop.load(z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol,
+                  max_iters + 2 - unroll, rows, fill)
+        ahead = _lookahead(sp.device)
+        err_np = np.full(3, np.inf)
+        done = 0
+        stopped = False
+        if full:
+            loop.launch(sp, 0)
+        for n in range(full):
+            if ahead and n + 1 < full:
+                loop.launch(sp, n + 1)
+            running = loop.flag(sp, n).any()
+            done = n + 1
+            if log_every is not None:
+                err_np = _log_period(loop.hist, n * steps, steps, True,
+                                     log_every, k0, err_np)
+            if not running:
+                stopped = True
+                if ahead and n + 1 < full:
+                    LOOP_COUNTS["wasted_steps"] += steps
+                break
+            if not ahead and n + 1 < full:
+                loop.launch(sp, n + 1)
+        k = done * steps
+        final = loop.sets[done % 2]
+        if not stopped and tail:
+            loop.run_period(sp, done % 2, tail)
+            LOOP_COUNTS["steps"] += tail
+            if log_every is not None:
+                _log_period(loop.hist, k, tail, False, log_every, k0,
+                            err_np)
+            k += tail
+            final = loop.sets[(done + 1) % 2]
+    return final, k, loop
+
+
+def _log_period(hist, start, steps, checked, log_every, k0, err_np):
+    """``log_every``'s lines of the steps [start, start + steps), in the
+    host loop's order: each step's index with the last residuals checked at
+    or before it. Reads the check's row of a ``checked`` period; returns
+    the last checked residuals."""
+    for j in range(start, start + steps):
+        if checked and j == start + steps - 1:
+            err_np = hist[j, :3].cpu().numpy()
+            LOOP_COUNTS["host_reads"] += 1
+        if j % log_every == 0:
+            _log_residuals(k0 + j, err_np)
+    return err_np
+
+
+def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
+            max_iters: int, check_every: int = 1, unroll: int = 1,
+            adaptive: bool = False, relax: float = 1.0,
+            log_every: Optional[int] = None, k0: int = 0):
+    """The CP loop with the JAX package's semantics, its state on the
+    device (:func:`_device_loop`). Returns (z, eta, iters, final errors as
+    NumPy [3], history NumPy [iters, 6]): the same iterates, count and
+    history rows as :func:`_run_cp_host`, bit for bit.
+
+    ``log_every=j`` prints the last checked residuals after every step
+    whose loop index is a multiple of j (JAX ``solver.py:442``), with the
+    index offset by ``k0`` (the iterations of earlier chunks): the host
+    loop's lines in its order, printed as each period's flag is read.
+
+    ``check_every=k`` evaluates the residuals (and the stopping test) only
+    at every k-th iteration; unchecked history rows are NaN (all rows are
+    written when k = 1). ``unroll=u`` is the number of steps per loop trip:
+    the iteration cap is ``k + u < max_iters + 2`` as in the JAX loop (u
+    must divide check_every, or be 1); at ``check_every=1`` a period is u
+    steps. ``adaptive`` rebalances alpha1/alpha2 at each check keeping
+    their product; ``relax=rho`` over-relaxes each step after the residual
+    evaluation (Condat).
+
+    On a card the loop captures its periods as CUDA graphs (cached per
+    problem) and a capture or replay that fails raises; nothing reruns on
+    the host. Inside :func:`_host_loop` it is :func:`_run_cp_host`."""
+    if _HOST_LOOP:
+        return _run_cp_host(sp, z0, eta0, x0, alpha1, alpha2, tol,
+                            max_iters, check_every, unroll, adaptive, relax,
+                            log_every, k0)
+    if sp.spmd_group is not None:
+        raise ValueError("a partition's collectives are staged on the "
+                         "host: its loop is _run_cp_host")
+    final, k, loop = _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol,
+                                  max_iters, check_every, unroll, adaptive,
+                                  relax, log_every, k0)
+    cached = sp.device.type == "cuda"
+    z = Primal(*(v.clone() if cached else v for v in final.z))
+    eta = Dual(*(v.clone() if cached else v for v in final.eta))
+    hist = loop.hist[:k].cpu().numpy().astype(np.float64)
+    err = final.err.cpu().numpy()
+    return z, eta, k, err, hist
+
+
+def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
+                  max_iters: int, check_every: int = 1, unroll: int = 1,
+                  adaptive: bool = False, relax: float = 1.0):
+    """The CP loop of :func:`_run_cp` for B lanes at once (the JAX
+    package's ``jax.vmap`` of its loop): the iterates carry a leading lane
+    axis, x0s is [B, n], and every step of every operator is one call for
+    all lanes. Returns (z, eta, iters [B], final errors [B, 3], history
+    [B, max_iters + unroll, 6]).
+
+    Each lane keeps the semantics of its own solve, as in
+    :func:`_run_cp_batch_host`: once its loop condition is false it keeps
+    its carry, writes no more history and stops counting; the loop ends
+    when no lane runs, which the host reads as one [B] flag a period.
+    Lanes are never taken out of the batch. Inside :func:`_host_loop` it is
+    :func:`_run_cp_batch_host`."""
+    if _HOST_LOOP:
+        return _run_cp_batch_host(sp, z0, eta0, x0s, alpha1, alpha2, tol,
+                                  max_iters, check_every, unroll, adaptive,
+                                  relax)
+    if sp.spmd_group is not None:
+        raise ValueError("a partition's collectives are staged on the "
+                         "host: its loop is _run_cp_batch_host")
+    final, _, loop = _device_loop(sp, z0, eta0, x0s, alpha1, alpha2, tol,
+                                  max_iters, check_every, unroll, adaptive,
+                                  relax, lanes=x0s.shape[0])
+    cached = sp.device.type == "cuda"
+    z = Primal(*(v.clone() if cached else v for v in final.z))
+    eta = Dual(*(v.clone() if cached else v for v in final.eta))
+    hist = loop.hist[:, :max_iters + unroll].cpu().numpy()
+    return (z, eta, final.iters.cpu().numpy(), final.err.cpu().numpy(),
+            hist.astype(np.float64))
+
+
 def _to_numpy(tree):
     return type(tree)(*(v.detach().cpu().numpy() for v in tree))
 
@@ -421,7 +886,8 @@ def _chunked_loop(run_chunk, z0, eta0, tol, max_iters,
     indices, so they are global. The iterates stay on the device between
     chunks, and each completed chunk's iterate is also copied to host
     memory. A device fault (:data:`_DEVICE_FAULTS`: a failed K1 launch, a
-    CUDA runtime fault, or device memory running out) mid-chunk retries
+    CUDA runtime fault, or device memory running out; a fault during a
+    graph replay surfaces at the next flag the host reads) mid-chunk retries
     that chunk once from the last host snapshot. If the retry fails too
     and ``checkpoint_on_fault`` is set, ``write_checkpoint(z_np, eta_np,
     iters, path)`` writes the snapshot before the error is raised.
@@ -836,7 +1302,10 @@ class Solver:
         if sp.device.type == "cuda":
             torch.cuda.synchronize(sp.device)
         tic = time.perf_counter()
-        z, eta, iters, err, hist = _run_cp_batch(
+        # the flat partition's collectives are staged on the host: its
+        # batch runs the host loop
+        run = _run_cp_batch if flat is None else _run_cp_batch_host
+        z, eta, iters, err, hist = run(
             sp, z0, eta0, x0s, alpha * step_ratio, alpha / step_ratio, tol,
             max_iters, check_every, unroll, adaptive, relax)
         if sp.device.type == "cuda":

@@ -1,13 +1,16 @@
 """K1 on the card: the CUDA sweep kernel against its plain torch version,
 unbatched and batched (B lanes in one launch set), and against the torch
-stage path; the roofline's rows at the headline; and the subtree partition
-on two gloo ranks that share the card.
+stage path; the roofline's rows at the headline; the CP loop's CUDA graphs
+against the host loop; and the subtree partition on two gloo ranks that
+share the card.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -178,7 +181,7 @@ def test_roofline_rows_at_the_headline(cuda):
     than the card did is wrong)."""
     sp, x0 = roofline.problem(8, cuda)
     rows = roofline.rows(sp, x0, applies=10, traced=5)
-    assert len(rows) == 9
+    assert len(rows) == 10
     for row in rows:
         assert row["launches"] > 0, row["component"]
         assert np.isfinite(row["wall_us"]) and row["bound_us"] > 0
@@ -327,6 +330,8 @@ def test_partitioned_demo_on_the_card(cuda, tmp_path):
         x0, max_iters=200, tol=1e-3)
     (res, arrays), (res1, arrays1) = ranks
     assert res["cuda_demo"]["device"].startswith("cuda")
+    # the partition's collectives are staged on the host: its host loop
+    assert res["cuda_demo"]["device_loop_periods"] == 0
     assert res["cuda_demo"]["iters"] == single.num_iters == 201
     assert res["cuda_demo"]["alpha"] == pytest.approx(single.alpha,
                                                       rel=1e-10)
@@ -339,3 +344,145 @@ def test_partitioned_demo_on_the_card(cuda, tmp_path):
         <= 1e-12 * np.abs(hist).max()
     for k in arrays:
         np.testing.assert_array_equal(arrays1[k], arrays[k], err_msg=k)
+
+
+# -- the device loop's CUDA graphs ------------------------------------------
+
+def _loop_start(sp, x0):
+    x0t = torch.as_tensor(np.asarray(x0, dtype=np.float64), dtype=sp.dtype,
+                          device=sp.device)
+    z0 = sp.zero_primal()
+    z0.x[0] = x0t
+    return z0, sp.zero_dual(), x0t
+
+
+def _graph_and_host(sp, x0, alpha, **opts):
+    """``solver._run_cp`` (the graph loop) and the same under
+    ``_host_loop()``, each with the counts of what it ran."""
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.scripts.bench_configs import counted_calls
+
+    out = {}
+    for name, scope in (("graph", None), ("host", solver_mod._host_loop)):
+        z0, eta0, x0t = _loop_start(sp, x0)
+        loop = dict(solver_mod.LOOP_COUNTS)
+        with scope() if scope else contextlib.nullcontext(), \
+                counted_calls() as calls:
+            got = solver_mod._run_cp(sp, z0, eta0, x0t, alpha, alpha,
+                                     **opts)
+            torch.cuda.synchronize()
+        out[name] = got, calls, {k: v - loop[k] for k, v
+                                 in solver_mod.LOOP_COUNTS.items()}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["demo_f64", "headline_f32"])
+def test_graph_loop_is_the_host_loop(cuda, case):
+    """The graph loop and the host loop on the card: the same count, the
+    same iterates and history bit for bit (the demo's 937 in float64; 200
+    iterations of the headline in float32 at stride 25); K1 launches equal
+    ``prox_f`` calls equal the steps each ran (the graph loop's include
+    the period run past convergence), and the graph loop read one flag a
+    period."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.models import demo_problem
+
+    if case == "demo_f64":
+        problem, x0 = demo_problem()
+        solver = rt.Solver(problem, dtype=torch.float64, device=cuda)
+        opts = dict(tol=1e-3, max_iters=2000)
+    else:
+        problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+        solver = rt.Solver(problem, device=cuda)
+        opts = dict(tol=0.0, max_iters=200, check_every=25)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    # (steps, flags read): the demo a flag a step; the headline's 201
+    # steps (the loop's cap) are 8 periods of 25 and a tail of one
+    steps, flags = (937, 937) if case == "demo_f64" else (201, 8)
+    for _ in range(2):                  # the capture, then replays alone
+        out = _graph_and_host(sp, x0, alpha, **opts)
+        (g, g_calls, g_loop), (h, h_calls, h_loop) = out["graph"], \
+            out["host"]
+        assert g[2] == h[2] == steps
+        for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
+            assert torch.equal(a, b)
+        np.testing.assert_array_equal(g[3], h[3])
+        np.testing.assert_array_equal(g[4], h[4])
+        assert h_loop["periods"] == 0
+        assert g_loop["replays"] > 0 and g_loop["host_reads"] == flags
+        assert g_loop["steps"] == steps + g_loop["wasted_steps"]
+        assert g_calls["prox_f"] == g_loop["steps"]
+        assert h_calls["prox_f"] == h[2]
+        if sweep.sweep_eligible(sp):
+            assert g_calls["k1"] == g_calls["prox_f"]
+            assert h_calls["k1"] == h_calls["prox_f"]
+
+
+@pytest.mark.cuda
+def test_graph_loop_batch_is_the_host_loop(cuda):
+    """``solve_batch`` of the demo's three lanes in float64 on the card:
+    the graph loop's counts, histories and iterates are the host loop's."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.models import demo_problem
+
+    problem, x0 = demo_problem()
+    solver = rt.Solver(problem, dtype=torch.float64, device=cuda)
+    x0 = np.asarray(x0)
+    x0s = np.stack([x0, 0.5 * x0, -0.3 * x0])
+    got = solver.solve_batch(x0s, max_iters=2000, tol=1e-3, check_every=25,
+                             adaptive=True)
+    with solver_mod._host_loop():
+        want = solver.solve_batch(x0s, max_iters=2000, tol=1e-3,
+                                  check_every=25, adaptive=True)
+    for a, b in zip(got, want):
+        assert a.num_iters == b.num_iters
+        np.testing.assert_array_equal(a.xi_history, b.xi_history)
+        np.testing.assert_array_equal(a.delta_history, b.delta_history)
+        for u, v in zip((*a.primal, *a.dual), (*b.primal, *b.dual)):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_capture_unsafe_step_raises(cuda, tmp_path):
+    """A host read patched into the CP step makes the capture fail: the
+    solve raises and does not rerun on the host loop. (In a process of its
+    own: a failed capture may leave the card's context unusable.)"""
+    import subprocess
+    import sys
+    import textwrap
+
+    script = tmp_path / "unsafe.py"
+    script.write_text(textwrap.dedent("""
+        import torch
+        import raocp_tpu_torch as rt
+        from raocp_tpu_torch import solver as solver_mod
+        from raocp_tpu_torch.models import demo_problem
+
+        real = solver_mod._cp_residuals
+
+        def reads_the_host(*args):
+            err, derr = real(*args)
+            float(err.max())            # a device-to-host read
+            return err, derr
+
+        solver_mod._cp_residuals = reads_the_host
+        problem, x0 = demo_problem()
+        solver = rt.Solver(problem, dtype=torch.float64)
+        try:
+            solver.solve(x0, max_iters=200, tol=1e-3, check_every=25)
+        except Exception as exc:
+            print("RAISED", type(exc).__name__,
+                  solver_mod.LOOP_COUNTS["captures"], flush=True)
+            raise SystemExit(3)
+        print("RETURNED", flush=True)
+    """))
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, str(script)], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "RAISED" in proc.stdout and "RETURNED" not in proc.stdout

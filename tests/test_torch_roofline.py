@@ -433,14 +433,17 @@ def test_xla_cost_beside_the_port_count(capsys):
 # -- the scripts ----------------------------------------------------------
 
 def test_roofline_rows_are_the_jax_scripts_and_two_more():
-    """The JAX script's seven rows and K1's and the kernel projection's;
-    every apply runs on the CPU and takes its previous outputs."""
+    """The JAX script's seven rows and K1's and the kernel projection's,
+    and the production trip as the device loop replays it; every apply
+    runs on the CPU (the device loop's period eagerly) and takes its
+    previous outputs."""
     sp, x0 = _port("network3")
     rows = roofline.components(sp, x0, unroll=2)
     assert [r[0] for r in rows] == [
         "L apply", "L' apply", "project_dynamics (K1)", "project_kernel",
         "prox_f", "g* projections", "cp_step (2 applies + prox)",
-        "cp_iteration (step + residuals)", "production trip / iteration"]
+        "cp_iteration (step + residuals)", "production trip / iteration",
+        "production trip / iteration (graph)"]
     for name, apply, count, per in rows:
         apply()
         apply()

@@ -35,6 +35,7 @@ torch.set_num_threads(1)
 
 import raocp_tpu_torch as rt  # noqa: E402
 import raocp_tpu_torch.models as port_models  # noqa: E402
+import raocp_tpu_torch.solver as solver_mod  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNIFORM = dict(num_states=8, num_inputs=3, num_modes=3, num_stages=5,
@@ -426,9 +427,12 @@ def check_cuda_demo(mesh, args):
     share the card, for the card's own tests."""
     problem, x0 = port_models.demo_problem()
     solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh)
+    periods = solver_mod.LOOP_COUNTS["periods"]
     res = solver.solve(x0, max_iters=200, tol=1e-3)
     return dict(iters=res.num_iters, device=str(solver.subtree.sp.device),
-                alpha=res.alpha), _global(res, "cuda_demo")
+                alpha=res.alpha,
+                device_loop_periods=solver_mod.LOOP_COUNTS["periods"]
+                - periods), _global(res, "cuda_demo")
 
 
 CHECKS = {name[len("check_"):]: fn for name, fn in globals().items()
