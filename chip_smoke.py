@@ -266,8 +266,14 @@ MESH_CONFIG5_ROUNDING = 3.0
 MESH_CONFIG5_INPUT_TOL = 1e-3
 
 
+_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``, with the seconds since the script
+    started (``elapsed_s``: where the run's time limit goes)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def check(cond, what):
@@ -984,41 +990,68 @@ def _sweep_inputs(cfg, dtype, pad, lanes=None):
     return sp, x_in, u_in, torch.as_tensor(x0, dtype=dtype, device=DEV)
 
 
-def _k1_profile(fn, applies, planned, attempts=3):
+def _recorded_calls(events, prefix):
+    """The device records of each range named ``prefix...`` in a Chrome
+    trace whose every launch, copy and set made on the host has its record
+    from the card; a range with a record missing is left out."""
+    records = {ev["args"]["correlation"]: ev for ev in events
+               if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and "correlation" in ev.get("args", {})}
+    launches = [ev for ev in events if ev.get("cat") == "cuda_runtime"
+                and any(w in ev["name"]
+                        for w in ("LaunchKernel", "Memcpy", "Memset"))]
+    out = []
+    for span in events:
+        if span.get("cat") != "user_annotation" \
+                or not span["name"].startswith(prefix):
+            continue
+        made = [records.get(ev["args"].get("correlation"))
+                for ev in launches
+                if span["ts"] <= ev["ts"] <= span["ts"] + span["dur"]]
+        if made and all(made):
+            out.append(made)
+    return out
+
+
+def _k1_profile(fn, applies, attempts=3):
     """K1 on the card per call of ``fn``, from a profile of ``applies``
-    calls: the kernels it launches, their device time in ms, and the
-    profiles taken. ``fn`` launches the same ``planned`` kernels on every
-    call, so a profile holding fewer lost device events: it happened on
-    the card twice, on launches whose results were right, once losing all
-    of a trace's kernels and once one of 60. Each profile first puts a
-    marker kernel on the card and waits for it, so that the tracer is
-    recording before K1 launches; a profile that still holds fewer K1
-    kernels than planned is taken again, up to ``attempts`` times in all.
-    A profile with more is never retaken."""
-    from torch.profiler import ProfilerActivity, profile
+    calls, each in a range of its own: the kernels it launches, their
+    device time in ms, the profiles taken, and the calls left out. The
+    card's tracer loses device records (seen on the card, on launches whose
+    results were right: all of a trace's kernels, one of 60, three of 20
+    in three profiles running, at least one of 420 in five), but it keeps the
+    host's launch calls. So a call counts only where every launch, copy
+    and set it made on the host has its record from the card, and the
+    numbers are those of the calls that count; where fewer than half of
+    them count, the profile is taken again, up to ``attempts`` times in
+    all. A call that counts and holds other K1 kernels than planned is
+    the kernel's fault, not the tracer's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device=DEV).add_(1)
+            time.sleep(solver_mod.TRACE_PAD_S)
+            for i in range(applies):
+                with record_function(f"k1_apply_{i}"):
+                    fn()
             torch.cuda.synchronize()
-            for _ in range(applies):
-                fn()
-            torch.cuda.synchronize()
+            time.sleep(solver_mod.TRACE_PAD_S)
         with tempfile.TemporaryDirectory() as folder:
             path = os.path.join(folder, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
-        k1 = [ev for ev in events if ev.get("cat") == "kernel"
-              and ("stage_kernel" in ev["name"]
-                   or "apex_kernel" in ev["name"])]
-        if len(k1) >= planned * applies:
+        counted = [[ev for ev in made if profile_step.is_k1(ev["name"])]
+                   for made in _recorded_calls(events, "k1_apply_")]
+        if 2 * len(counted) >= applies:
             break
-    return (len(k1) / applies, 1e-3 * sum(ev["dur"] for ev in k1) / applies,
-            attempt)
+    k1 = [ev for call in counted for ev in call]
+    calls = max(len(counted), 1)
+    return (len(k1) / calls, 1e-3 * sum(ev["dur"] for ev in k1) / calls,
+            attempt, applies - len(counted))
 
 
 def _median_ms(fn, runs=50):
@@ -1205,9 +1238,9 @@ def phase_kernel():
                    ghost_rows_zero=ghosts_zero, second_apply_same=same_bits,
                    **_plan_fields(sp, lanes or 1))
         (row["device_launches_per_apply"], row["device_ms"],
-         row["profiles_taken"]) = _k1_profile(
-            lambda: sweep.project_dynamics_sweep(sp, x_in, u_in, x0), 20,
-            row["launches_per_apply"])
+         row["profiles_taken"], row["profiled_calls_left_out"]) = \
+            _k1_profile(lambda: sweep.project_dynamics_sweep(
+                sp, x_in, u_in, x0), 20)
         if lanes is not None:
             lane_err = 0.0
             for b in range(lanes):

@@ -49,20 +49,30 @@ def device_events(trace_path: str) -> list:
     return [ev for ev in events if ev.get("cat") in _DEVICE_CATS]
 
 
-def traced_events(fn, applies: int) -> list:
+def traced_events(fn, applies: int, attempts: int = 3) -> list:
     """The device events of a ``torch.profiler`` trace of ``applies``
-    calls of ``fn``, after which the card is synchronised."""
+    calls of ``fn``, after which the card is synchronised; the card idles
+    ``solver.TRACE_PAD_S`` at both ends of the trace's window. A trace
+    that holds no device event at all lost them and is taken again, up to
+    ``attempts`` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(applies):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as folder:
-        path = os.path.join(folder, "trace.json")
-        prof.export_chrome_trace(path)
-        return device_events(path)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(solver_mod.TRACE_PAD_S)
+            for _ in range(applies):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(solver_mod.TRACE_PAD_S)
+        with tempfile.TemporaryDirectory() as folder:
+            path = os.path.join(folder, "trace.json")
+            prof.export_chrome_trace(path)
+            events = device_events(path)
+        if events:
+            break
+    return events
 
 
 def is_k1(name: str) -> bool:

@@ -952,21 +952,35 @@ def _write_global_checkpoint(stp, z_np, eta_np, num_iters, path):
     dist.barrier(stp.group)
 
 
+# the card's tracer can lose every device record of a short trace (seen on
+# an H100 in traces whose window began and ended next to their kernels, not
+# since a trace of the card idles this long at both ends); single records
+# lost inside a trace, which it also loses, no pad prevents
+TRACE_PAD_S = 0.05
+
+
 @contextlib.contextmanager
 def _profiled(profile_dir: Optional[str], device: torch.device,
               name: str = "trace.json"):
     """``torch.profiler`` around the solve (CUDA activity only on a CUDA
-    device), its Chrome trace written to ``profile_dir/name``."""
+    device, the card idle ``TRACE_PAD_S`` at both ends of the window), its
+    Chrome trace written to ``profile_dir/name``."""
     if not profile_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        if cuda:
+            time.sleep(TRACE_PAD_S)
         yield
+        if cuda:
+            torch.cuda.synchronize(device)
+            time.sleep(TRACE_PAD_S)
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, name))
 
