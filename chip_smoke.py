@@ -12,6 +12,9 @@
                                         # (subtree and flat)
     python3 chip_smoke.py --loop        # loop_graph alone: the graph
                                         # loop against the host loop
+    python3 chip_smoke.py --accel-loop  # the accelerated loops' graphs
+                                        # against their host loops to
+                                        # 1e-3, and the power iteration's
     python3 chip_smoke.py --scale       # the scale runs, the option
         [--parts scale_88573,...]       # sweeps, the batch and scaling
                                         # harnesses: their full rows
@@ -20,8 +23,10 @@
                                         # the stage path, the loop-control
                                         # sweep: their full rows
 
-Builds the port's CUDA kernel (K1, the dynamics-projection sweep) from
-``raocp_tpu_torch/csrc``, holds it against its plain torch version on the
+Builds the port's CUDA kernels (K1, the dynamics-projection sweep, and
+the conditional nodes' set kernel, ``csrc/cond.cu``, held against the eager
+branch in ``cond_kernel_vs_plain``) from ``raocp_tpu_torch/csrc``, one
+``nvcc`` each at once, holds K1 against its plain torch version on the
 card (at the shapes of every path below, BASELINE configs 1-3, config
 5's width, the 88,573- and 797,161-node trees of the scale runs and
 batches of 8 and 3 lanes included; each case with its time,
@@ -60,7 +65,8 @@ it and read just after:
 * ``loop_graph_headline_f32`` and ``loop_graph_config5_f32``: the device
   loop (CUDA graphs of its check periods, every path above and below runs
   it) against the host loop (``solver._host_loop()``) in one process, in
-  turns, best of ``LOOP_GRAPH_REPEATS``: the headline to 1e-3 and one
+  turns, best of ``LOOP_GRAPH_REPEATS`` (``--loop``; 2 in the smoke, to
+  keep its time): the headline to 1e-3 and one
   config-5 closed-loop step. Each loop's iter/s, wall µs beside device µs
   an iteration (a trace of ``LOOP_GRAPH_PROFILED`` steps), busy share,
   host reads, wasted steps, capture seconds and peak memory; the graph
@@ -80,10 +86,26 @@ it and read just after:
   (``SCALE_STEPS_REL``);
 * ``relax_config2_f64``: ``scripts/bench_relax.py``'s relax-1.8 row of
   BASELINE config 2 in float64, its count the JAX package's;
-* ``accel_headline_f32``: SuperMann on the headline; SuperMann on the
-  uniform tree (through K1) and Anderson on the demo, in float64 against
-  the CPU port (the same T evaluations and iterates over the first 80 /
-  60 iterations), and Anderson's convergence after;
+* ``accel_headline_f32``: SuperMann on the headline through its device
+  loop (a check period one CUDA graph replay, the branches conditional
+  nodes), capped at 1,000 iterations: the first solve of
+* ``accel_loop_headline_f32``: SuperMann and Anderson there through the
+  graph loop and the host loop (``solver._host_loop()``) in turns in one
+  process: each loop's count and T evaluations, iter/s, wall µs beside
+  device µs an iteration (traces of ``ACCEL_LOOP_PROFILED`` iterations, in
+  a process of their own, ``--part accel_traces``),
+  busy share, host reads an iteration, capture seconds and peak memory;
+  the graph loop must give the host loop's iterates and history bit for
+  bit, read the host at most once a period and twice at the end, and in
+  a trace K1's kernels must equal the T evaluations times K1's launches
+  an apply (a body not taken runs nothing); ``power_headline_f32``: the
+  power iteration's device loop (periods enqueued, and replayed as a
+  graph) against its host loop, the same lambda and count;
+* ``accel_supermann_small_window_f64``, ``accel_anderson_demo_*``:
+  SuperMann on the uniform tree (through K1) and Anderson on the demo,
+  through the device loop, in float64 against the CPU port (the same T
+  evaluations and iterates over the first 80 / 60 iterations), and
+  Anderson's convergence after;
 * ``batch_demo_f64``: ``solve_batch`` on the demo's three lanes in float64
   (lane 0: 937 iterations, every lane converged and valid);
 * ``batch_headline_f32``: ``Solver(problem).solve_batch(x0s, ...)`` of the
@@ -157,6 +179,11 @@ applies), ``scripts/bench_pallas.py`` (200 applies a path) and
 ``scripts/bench_sweep.py`` (five ``(check_every, unroll)`` pairs with K1
 and under ``stage_path()``, 200 iterations, best of 3), with the same
 checks as the smoke's phases.
+``--accel-loop`` runs ``accel_loop_headline_f32_to_tol`` (SuperMann and
+Anderson at the headline to 1e-3, each loop best of
+``ACCEL_LOOP_REPEATS``, with the same checks) and the power iteration's
+three loops at the headline and at 88,573 and 797,161 nodes
+(``power_*``).
 ``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
 headline (``check_every=25, unroll=25``) and of config 5 (the closed
 loop's options) with ``solve(profile_dir=...)`` and prints, from each
@@ -167,6 +194,7 @@ component's wall ms beside its device ms and launches.
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -188,7 +216,7 @@ from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     network_mpc_controller,
                                     random_network_problem,
                                     soc_network_problem)
-from raocp_tpu_torch.ops import prox, sweep, work  # noqa: E402
+from raocp_tpu_torch.ops import cond, prox, sweep, work  # noqa: E402
 from raocp_tpu_torch.scripts import (bench_batch,  # noqa: E402
                                      bench_components, bench_configs,
                                      bench_pallas, bench_relax, bench_scale,
@@ -222,12 +250,24 @@ SCALE_NOISE_FLOOR = 1e-6
 JAX_F32_ITERS = 10174
 # the port's float32 count at the headline on an H100 (PERF.md)
 HEADLINE_F32_ITERS = 10175
-# K1 launches of each driven path
+# K1 launches of each driven path, and the conditional nodes' set kernels
+# of each path whose replays ran some
 PATH_LAUNCHES = {}
+PATH_COND_LAUNCHES = {}
 # loop_graph: runs of each loop, in turns; the steps profiled for device
 # time and busy share
 LOOP_GRAPH_REPEATS = 3
+LOOP_GRAPH_REPEATS_SMOKE = 2
 LOOP_GRAPH_PROFILED = 100
+# the accelerated loops' A/B (accel_loop): the smoke's cap and --accel-
+# loop's repeats; the iterations of a traced solve, and the traces of the
+# graph loop (records lost inside a replay lower a trace's counts)
+ACCEL_LOOP_ITERS = 1000
+ACCEL_LOOP_REPEATS = 3
+ACCEL_LOOP_PROFILED = 50
+ACCEL_LOOP_TRACES = 2
+# cond_kernel_vs_plain: branches in the captured period
+COND_BRANCHES = 64
 # roofline_headline: applies timed and traced a row (the script's own are
 # 100 and 20)
 ROOFLINE_APPLIES = 30
@@ -285,20 +325,26 @@ def check(cond, what):
 def counted(path=None):
     """Set the K1 launch count to 0 and count ``prox_f`` calls (the T
     evaluations of a CP step) while a path runs; read both after it, and
-    keep the launches under ``path``. Both count what ran on the card,
+    add the launches to those kept under ``path``. Both count what ran on
+    the card,
     graph replays included; ``calls["loop"]`` holds what the device loop
     ran meanwhile (``solver.LOOP_COUNTS``: steps, the steps wasted past
-    convergence, replays, captures, host reads)."""
+    convergence, replays, captures, host reads), ``calls["accel_loop"]``
+    what the accelerated loops ran (``accel.LOOP_COUNTS``) and
+    ``calls["cond"]`` the conditional nodes' set kernels that their
+    replays ran (``ops.cond.LAUNCHES``, kept under ``path`` too)."""
     torch.cuda.synchronize()
     sweep.LAUNCHES = 0
-    loop = dict(solver_mod.LOOP_COUNTS)
+    cond.LAUNCHES = 0
     with counted_calls() as calls:
         yield calls
         torch.cuda.synchronize()
-    calls["loop"] = {k: v - loop[k] for k, v in
-                     solver_mod.LOOP_COUNTS.items()}
+    calls["cond"] = cond.LAUNCHES
     if path is not None:
-        PATH_LAUNCHES[path] = calls["k1"]
+        PATH_LAUNCHES[path] = PATH_LAUNCHES.get(path, 0) + calls["k1"]
+        if calls["cond"]:
+            PATH_COND_LAUNCHES[path] = (PATH_COND_LAUNCHES.get(path, 0)
+                                        + calls["cond"])
 
 
 def phase_device():
@@ -317,9 +363,17 @@ def phase_device():
 
 
 def phase_build():
+    """K1's library and the conditional nodes' library, one ``nvcc`` each,
+    both started at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tic = time.perf_counter()
-    lib = sweep.build_library()
-    emit("build", kernel="K1 sweep", library=str(lib.name),
+    with ThreadPoolExecutor(2) as pool:
+        libs = [pool.submit(build) for build in (sweep.build_library,
+                                                 cond.build_library)]
+        libs = [lib.result() for lib in libs]
+    emit("build", kernels=["K1 sweep", "conditional-node set"],
+         libraries=[lib.name for lib in libs],
          seconds=time.perf_counter() - tic)
 
 
@@ -1284,6 +1338,56 @@ def phase_kernel():
     return out
 
 
+def phase_cond_kernel():
+    """The conditional nodes' set kernel (``csrc/cond.cu``, through
+    ``ops.cond.branch``) against its plain version, the eager branch that
+    reads each flag on the host: a period of ``COND_BRANCHES`` branches,
+    each adding +1 or -1 to its own entry as its flag says, run eagerly
+    (the plain version), then captured and replayed (one set kernel and
+    one IF node a side), under a random pattern of flags and its
+    negation. Returns the kernel's row: ms a branch by CUDA events around
+    replays, the plain version's, and the bound (one flag byte read a
+    branch)."""
+    rng = np.random.default_rng(0)
+    flags = torch.as_tensor(rng.random(COND_BRANCHES) < 0.5, device=DEV)
+    x = torch.zeros(COND_BRANCHES, device=DEV)
+    running = torch.ones((), dtype=torch.bool, device=DEV)
+
+    def period():
+        for i in range(COND_BRANCHES):
+            cond.branch(flags[i], lambda i=i: x[i].add_(1.0),
+                        lambda i=i: x[i].sub_(1.0))
+
+    counts = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
+                  host_reads=0)
+    loop = cond.Periods(DEV, period, running, True, counts)
+    err = 0.0
+    for pattern in (flags.clone(), ~flags):
+        flags.copy_(pattern)
+        x.zero_()
+        if loop.graph is None:
+            loop.launch(0)                  # the eager period, the capture
+        else:
+            period()
+        plain = x.clone()
+        x.zero_()
+        loop.graph.replay()
+        torch.cuda.synchronize()
+        want = torch.where(pattern, 1.0, -1.0)
+        check(torch.equal(plain, want), "the eager branches are wrong")
+        err = max(err, float((x - plain).abs().max()))
+    ms = _median_ms(loop.graph.replay) / COND_BRANCHES
+    plain_ms = _median_ms(period, runs=5) / COND_BRANCHES
+    row = dict(branches=COND_BRANCHES, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, nodes=loop.nodes,
+               bound_ms=1e3 / work.PEAK_BYTES, bound_by="bytes",
+               library_ms=None)
+    emit("cond_kernel_vs_plain", **row)
+    check(err == 0.0 and loop.nodes == [2 * COND_BRANCHES],
+          f"the conditional nodes differ from the eager branches: {row}")
+    return row
+
+
 def phase_parity():
     # the demo (a ragged tree: the torch branches) on the card, float64
     problem, x0 = demo_problem()
@@ -1421,13 +1525,13 @@ def phase_headline():
           f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
 
 
-def _loop_runs(solve):
+def _loop_runs(solve, repeats):
     """``solve()`` through the graph loop and the host loop
-    (``solver._host_loop()``) in turns, ``LOOP_GRAPH_REPEATS`` times each:
+    (``solver._host_loop()``) in turns, ``repeats`` times each:
     per loop the runs' outputs, counts and peak device memory above what
     was allocated when the run began."""
     runs = {"graph": [], "host": []}
-    for _ in range(LOOP_GRAPH_REPEATS):
+    for _ in range(repeats):
         for loop in runs:
             scope = solver_mod._host_loop if loop == "host" \
                 else contextlib.nullcontext
@@ -1497,11 +1601,11 @@ def _check_loops(phase, runs, graph, period):
               f"{c['loop']['steps']}, iterations {r['iters']}")
 
 
-def phase_loop_graph():
+def phase_loop_graph(repeats=LOOP_GRAPH_REPEATS):
     """The device loop's CUDA graphs against the host loop in one process:
     the headline (float32, ``check_every=25``, to 1e-3) and one closed-loop
     step of BASELINE config 5 (88,573 nodes, the closed loop's options),
-    each loop in turns, best of ``LOOP_GRAPH_REPEATS``; device time and
+    each loop in turns, best of ``repeats``; device time and
     busy share from a profile of ``LOOP_GRAPH_PROFILED`` steps of each."""
     problem, x0 = random_network_problem(**HEADLINE)
     solver = rt.Solver(problem)             # the default device: the card
@@ -1532,7 +1636,7 @@ def phase_loop_graph():
             ("headline", headline, solver, x0),
             ("config5", config5_step, csolver, cx0)):
         phase = f"loop_graph_{name}_f32"
-        runs = _loop_runs(solve)
+        runs = _loop_runs(solve, repeats)
         rows = {loop: _loop_row(runs[loop], profile_step.profile_solve(
                     psolver, px0, LOOP_GRAPH_PROFILED, loop=loop,
                     **popts[name]))
@@ -1540,7 +1644,7 @@ def phase_loop_graph():
         graph, host = rows["graph"], rows["host"]
         emit(phase, nodes=psolver.stacked.num_nodes, graph=graph, host=host,
              graph_over_host_iters_per_second=graph["iters_per_second"]
-             / host["iters_per_second"], repeats=LOOP_GRAPH_REPEATS,
+             / host["iters_per_second"], repeats=repeats,
              profiled_steps=LOOP_GRAPH_PROFILED)
         _check_loops(phase, runs, graph, 25)
         if name == "headline":
@@ -1743,18 +1847,268 @@ def _accel_window(phase, problem, x0, iters, **kw):
     return solvers, kw, calls["gpu"]
 
 
-def phase_accel():
-    """SuperMann on the headline (1,000 iterations at most); SuperMann on
-    the uniform fixture (through K1) and Anderson on the demo, each in
-    float64 on the card against the CPU port."""
+def _accel_runs(solver, x0, method, loops, repeats, path, **opts):
+    """``solver.solve(x0, accel=method)`` through ``loops`` ("graph": the
+    device loop, "host": ``solver._host_loop()``) in turns, ``repeats``
+    times each: per loop the runs' results, counts (``counted(path)``) and
+    peak device memory above what was allocated when the run began."""
+    runs = {loop: [] for loop in loops}
+    for _ in range(repeats):
+        for loop in loops:
+            scope = solver_mod._host_loop if loop == "host" \
+                else contextlib.nullcontext
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            with scope(), counted(path) as calls:
+                res = solver.solve(x0, accel=method, **opts)
+            runs[loop].append(dict(
+                res=res, calls=calls,
+                peak=torch.cuda.max_memory_allocated() - start))
+    return runs
+
+
+def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
+    """``traces`` solves of ``iters`` iterations through ``loop``, each
+    traced on its own: per trace the device µs an iteration, K1's share of
+    it, the launches an iteration and the kernels that take most of it,
+    the card's busy share of the trace's wall time, and the K1 and
+    conditional-node set kernels it recorded, beside the solve's T
+    evaluations and the set kernels the loop counted. Only the device
+    events inside the solve's host range count
+    (``profile_step.traced_call_events``: the card's tracer can add
+    records of earlier kernels); records lost inside a graph's replay
+    only lower a count, so a count above the expected one is a body that
+    ran untaken."""
+    scope = solver_mod._host_loop if loop == "host" \
+        else contextlib.nullcontext
+    out = []
+    for _ in range(traces):
+        got = {}
+
+        def solve():
+            with counted() as got["calls"]:
+                got["res"] = solver.solve(x0, accel=method,
+                                          **dict(opts, max_iters=iters - 1,
+                                                 tol=1e-12))
+
+        with scope():
+            events = profile_step.traced_call_events(solve)
+        summary = profile_step.summarize_trace(events, got["res"].num_iters)
+        out.append(dict(
+            iters=got["res"].num_iters,
+            device_us_per_iter=1e3 * summary["device_ms_per_step"],
+            k1_share_of_device=summary["k1_share_of_device"],
+            launches_per_iter=summary["launches_per_step"],
+            top_kernels=summary["top_kernels"][:5],
+            trace_busy_share=summary["device_busy_share"],
+            t_evals=got["calls"]["prox_f"],
+            k1_kernels=sum(profile_step.is_k1(ev["name"]) for ev in events),
+            set_kernels=sum("set_conditional" in ev["name"]
+                            for ev in events),
+            set_kernels_counted=got["calls"]["cond"]))
+    return out
+
+
+def part_accel_traces():
+    """``_accel_trace``'s traces of SuperMann and Anderson at the headline
+    (memory 5, ``check_every=25``): ``ACCEL_LOOP_TRACES`` of a graph solve,
+    after the solve that captures it, and one of a host-loop solve, each
+    of ``ACCEL_LOOP_PROFILED`` iterations; one JSON line a method."""
     problem, x0 = random_network_problem(**HEADLINE)
     solver = rt.Solver(problem, device=DEV)
     solver.operator_norm_sq()
-    reads = accel_mod.HOST_READS
-    with counted("accel_headline_f32") as calls:
-        res = solver.solve(x0, max_iters=1000, tol=1e-3, accel="supermann",
-                           accel_memory=5, check_every=25)
-    reads = accel_mod.HOST_READS - reads
+    opts = dict(accel_memory=5, check_every=25)
+    for method in ("supermann", "anderson"):
+        accel_mod._LOOPS.clear()
+        gc.collect()
+        solver.solve(x0, accel=method, max_iters=ACCEL_LOOP_PROFILED - 1,
+                     tol=1e-12, **opts)
+        print(json.dumps(dict(method=method, **{
+            loop: _accel_trace(solver, x0, method, loop, ACCEL_LOOP_PROFILED,
+                               1 if loop == "host" else ACCEL_LOOP_TRACES,
+                               **opts)
+            for loop in ("graph", "host")})), flush=True)
+
+
+def _accel_traces():
+    """:func:`part_accel_traces` in a process of its own (this script,
+    ``--part accel_traces``): method -> loop -> traces. In a process that
+    had run other traces and graphs before, the card's tracer reported
+    kernels that the bodies taken do not launch (more K1 kernels, more set
+    kernels than the replays ran; seen on an H100 with CUDA 12.8, where
+    the same solves traced in a fresh process held exactly the kernels
+    counted), so the count is taken where nothing ran before."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--part",
+         "accel_traces"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
+    check(proc.returncode == 0,
+          f"accel traces: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    return {row.pop("method"): row for row in
+            (json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{"))}
+
+
+def _accel_loop_rows(solver, x0, repeats, path, warm_paths, **opts):
+    """SuperMann and Anderson at the headline through the graph loop and
+    the host loop in turns, after one graph solve that captures (counted
+    under ``warm_paths[method]``; the rest under ``path``): each loop's
+    count, T evaluations, rate, wall µs beside device µs an iteration
+    (traces of ``ACCEL_LOOP_PROFILED`` iterations, taken in a process of
+    their own: :func:`_accel_traces`), busy share, host reads
+    an iteration, capture seconds and peak memory; the graph loop held to
+    the host loop's iterates and history bit for bit, its host reads to
+    one a period and two at the end, K1's launches to the ``prox_f``
+    calls, and K1's kernels in a trace to T evaluations times K1's
+    launches an apply. Returns the rows and each method's capturing
+    solve (its result, counts and peak memory)."""
+    per_apply = sweep.sweep_schedule(solver.stacked)["launch_count"]
+    period = opts["check_every"]
+    traced = _accel_traces()
+    rows, warm_runs = {}, {}
+    for method in ("supermann", "anderson"):
+        # one graph with conditional nodes alive at a time: with another
+        # alive, the card's tracer reported some of one method's replayed
+        # kernels twice or not at all (seen on an H100, CUDA 12.8)
+        accel_mod._LOOPS.clear()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        with counted(warm_paths.get(method, path)) as warm:
+            warm_res = solver.solve(x0, accel=method, **opts)
+        warm_runs[method] = dict(res=warm_res, calls=warm,
+                                 peak=torch.cuda.max_memory_allocated())
+        check(warm["k1"] == warm["prox_f"] > 0,
+              f"accel_loop {method}: K1 {warm['k1']} != prox_f "
+              f"{warm['prox_f']}")
+        runs = _accel_runs(solver, x0, method, ("graph", "host"), repeats,
+                           path, **opts)
+        row = dict(warm_captures=warm["accel_loop"]["captures"],
+                   capture_seconds=warm["accel_loop"]["capture_seconds"],
+                   capture_host_reads=warm["accel_loop"]["host_reads"])
+        for loop, rs in runs.items():
+            best = min(rs, key=lambda r: r["res"].solve_time)
+            res, calls = best["res"], best["calls"]
+            traces = traced[method][loop]
+            wall_us = 1e6 * res.solve_time / res.num_iters
+            device_us = min(t["device_us_per_iter"] for t in traces)
+            row[loop] = dict(
+                iters=res.num_iters, t_evals=calls["prox_f"],
+                k1_launches=calls["k1"], seconds=[r["res"].solve_time
+                                                  for r in rs],
+                iters_per_second=res.num_iters / res.solve_time,
+                wall_us_per_iter=wall_us, device_us_per_iter=device_us,
+                busy_share=device_us / wall_us,
+                host_reads=calls["host_reads"],
+                host_reads_per_iter=calls["host_reads"] / res.num_iters,
+                loop_counts=calls["accel_loop"],
+                set_kernels=calls["cond"],
+                peak_memory_over_start_bytes=max(r["peak"] for r in rs),
+                traces=traces, xi=res.xi.tolist())
+        graph, host = row["graph"], row["host"]
+        row["graph_over_host_iters_per_second"] = \
+            graph["iters_per_second"] / host["iters_per_second"]
+        rows[method] = row
+        want = runs["host"][0]["res"]
+        for r in runs["graph"] + runs["host"] + [warm_runs[method]]:
+            got = r["res"]
+            check(got.num_iters == want.num_iters
+                  and r["calls"]["prox_f"] == runs["host"][0]["calls"][
+                      "prox_f"]
+                  and np.array_equal(got.xi_history, want.xi_history,
+                                     equal_nan=True)
+                  and np.array_equal(got.delta_history, want.delta_history,
+                                     equal_nan=True)
+                  and all(np.array_equal(a, b) for a, b in
+                          zip((*got.primal, *got.dual),
+                              (*want.primal, *want.dual))),
+                  f"accel_loop {method}: a run differs from the host loop's")
+            check(r["calls"]["k1"] == r["calls"]["prox_f"],
+                  f"accel_loop {method}: K1 {r['calls']['k1']} != prox_f "
+                  f"{r['calls']['prox_f']}")
+        for r in runs["graph"]:
+            loop = r["calls"]["accel_loop"]
+            check(loop["replays"] > 0 and loop["captures"] == 0
+                  and r["calls"]["host_reads"]
+                  <= -(-r["res"].num_iters // period) + 2,
+                  f"accel_loop {method}: graph loop {loop}, "
+                  f"{r['calls']['host_reads']} host reads")
+        for t in graph["traces"]:
+            check(t["k1_kernels"] <= t["t_evals"] * per_apply
+                  and t["set_kernels"] <= t["set_kernels_counted"],
+                  f"accel_loop {method}: a trace holds more kernels than "
+                  f"the bodies taken launch: {t}")
+        check(max(t["k1_kernels"] for t in graph["traces"])
+              == graph["traces"][0]["t_evals"] * per_apply
+              and max(t["set_kernels"] for t in graph["traces"])
+              == graph["traces"][0]["set_kernels_counted"] > 0,
+              f"accel_loop {method}: no trace holds every kernel the "
+              f"bodies taken launch: {graph['traces']}")
+    return rows, warm_runs
+
+
+def _power_rows(solver, repeats):
+    """The power iteration at ``solver``'s problem: the device loop's
+    periods enqueued and replayed as a graph, and the host loop, in turns,
+    ``repeats`` times each: lambda, the count, seconds and host reads; the
+    device loops held to the host loop's lambda and count, and to one read
+    a period and one at the end."""
+    sp = solver.stacked
+    runs = {"eager": [], "graph": [], "host": []}
+    for _ in range(repeats):
+        for mode in runs:
+            before = dict(solver_mod.POWER_COUNTS)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            if mode == "host":
+                lam, k = solver_mod._power_iteration_host(sp)
+            else:
+                lam, k = solver_mod._power_iteration(sp,
+                                                     graph=mode == "graph")
+            torch.cuda.synchronize()
+            runs[mode].append(dict(
+                lam=lam, iters=k, seconds=time.perf_counter() - tic,
+                **{key: solver_mod.POWER_COUNTS[key] - before[key]
+                   for key in ("host_reads", "captures", "replays",
+                               "capture_seconds")}))
+    want = runs["host"][0]
+    for mode, rs in runs.items():
+        for r in rs:
+            check(r["lam"] == want["lam"] and r["iters"] == want["iters"],
+                  f"power iteration ({mode}): {r['lam']}, {r['iters']} "
+                  f"against the host loop's {want['lam']}, {want['iters']}")
+            if mode != "host":
+                check(r["host_reads"] <= -(-r["iters"]
+                                           // solver_mod.POWER_PERIOD) + 1,
+                      f"power iteration ({mode}): {r['host_reads']} reads")
+    return dict(nodes=sp.num_nodes, lam=want["lam"], iters=want["iters"],
+                period=solver_mod.POWER_PERIOD,
+                default="graph" if solver_mod.POWER_GRAPH else "eager",
+                **{mode: dict(seconds=[r["seconds"] for r in rs],
+                              best_ms=1e3 * min(r["seconds"] for r in rs),
+                              host_reads=rs[0]["host_reads"],
+                              captures=rs[0]["captures"],
+                              capture_seconds=rs[0]["capture_seconds"])
+                   for mode, rs in runs.items()})
+
+
+def phase_accel():
+    """SuperMann on the headline (1,000 iterations at most) through the
+    device loop; the A/B of the accelerated loops there
+    (``accel_loop_headline_f32``); the power iteration's loops at the
+    headline; SuperMann on the uniform fixture (through K1) and Anderson
+    on the demo, each in float64 on the card against the CPU port."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem, device=DEV)
+    solver.operator_norm_sq()
+    opts = dict(max_iters=ACCEL_LOOP_ITERS, tol=1e-3, accel_memory=5,
+                check_every=25)
+    rows, warm = _accel_loop_rows(
+        solver, x0, 1, "accel_loop_headline_f32",
+        {"supermann": "accel_headline_f32"}, **opts)
+    # accel_headline_f32: SuperMann's first solve, which captures
+    res, calls = warm["supermann"]["res"], warm["supermann"]["calls"]
+    reads = calls["host_reads"]
     checked = res.xi_history[~np.isnan(res.xi_history).any(axis=1)]
     first = float(checked[0].max())
     emit("accel_headline_f32", accel="supermann", memory=5, check_every=25,
@@ -1762,11 +2116,19 @@ def phase_accel():
          k1_launches=calls["k1"], seconds=res.solve_time,
          iters_per_second=res.iters_per_second, xi=res.xi.tolist(),
          first_checked_xi=first, host_reads=reads,
-         host_reads_per_iter=reads / res.num_iters)
-    check(calls["k1"] > 0 and calls["k1"] == calls["prox_f"],
-          f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
+         host_reads_per_iter=reads / res.num_iters,
+         loop=calls["accel_loop"], set_kernels=calls["cond"],
+         max_memory_allocated_bytes=warm["supermann"]["peak"])
     check(np.isfinite(res.xi).all() and float(res.xi.max()) < first,
           f"SuperMann xi {res.xi} not below its first check {first}")
+    check(calls["accel_loop"]["captures"] == 1,
+          "SuperMann on the headline captured no graph")
+    emit("accel_loop_headline_f32", nodes=solver.stacked.num_nodes,
+         memory=5, check_every=25, max_iters=ACCEL_LOOP_ITERS,
+         profiled_iters=ACCEL_LOOP_PROFILED, **rows)
+    check(rows["supermann"]["graph"]["iters"] == res.num_iters,
+          "accel_loop: SuperMann's count moved between solves")
+    emit("power_headline_f32", **_power_rows(solver, 1))
 
     # SuperMann on the uniform fixture runs K1 on the card. There one ulp
     # on alpha moves the CPU iterates by 2e-11 after 80 iterations and by
@@ -1783,18 +2145,46 @@ def phase_accel():
     problem, x0 = demo_problem()
     solvers, kw, _ = _accel_window("accel_anderson_demo_window_f64", problem,
                                    x0, 60, accel="anderson")
-    gpu = solvers["gpu"].solve(x0, max_iters=2000, tol=1e-3, **kw)
+    with counted("accel_anderson_demo_f64") as calls:
+        gpu = solvers["gpu"].solve(x0, max_iters=2000, tol=1e-3, **kw)
     cpu = solvers["cpu"].solve(x0, max_iters=2000, tol=1e-3, **kw)
     valid = solvers["gpu"].validate(gpu)
     emit("accel_anderson_demo_f64", gpu_iters=gpu.num_iters,
          cpu_iters=cpu.num_iters, gpu_xi=gpu.xi.tolist(),
          cpu_xi=cpu.xi.tolist(), gpu_seconds=gpu.solve_time,
-         gpu_validate=valid)
+         gpu_validate=valid, loop=calls["accel_loop"])
     check(gpu.converged and gpu.num_iters < 937,
           f"Anderson on the demo: {gpu.num_iters} iterations, status "
           f"{gpu.status}")
     check(max(valid.values()) < 1e-3,
           "Anderson's solution on the card fails validate")
+    check(calls["accel_loop"]["replays"] > 0,
+          "Anderson on the demo replayed no graph")
+
+
+def phase_accel_loop():
+    """``--accel-loop``: the accelerated loops' A/B at the headline to 1e-3
+    (best of ``ACCEL_LOOP_REPEATS`` for each loop), and the power
+    iteration's loops at the headline and at 88,573 and 797,161 nodes
+    (best of the same)."""
+    problem, x0 = random_network_problem(**HEADLINE)
+    solver = rt.Solver(problem, device=DEV)
+    solver.operator_norm_sq()
+    rows, _ = _accel_loop_rows(solver, x0, ACCEL_LOOP_REPEATS,
+                               "accel_loop_headline_f32_to_tol", {},
+                               max_iters=20000, tol=1e-3, accel_memory=5,
+                               check_every=25)
+    emit("accel_loop_headline_f32_to_tol", nodes=solver.stacked.num_nodes,
+         memory=5, check_every=25, repeats=ACCEL_LOOP_REPEATS,
+         profiled_iters=ACCEL_LOOP_PROFILED, **rows)
+    emit("power_headline_f32", **_power_rows(solver, ACCEL_LOOP_REPEATS))
+    del solver
+    for stages in (10, 12):
+        spec, _ = bench_scale.tree_problem(stages)
+        scale = rt.Solver(spec, device=DEV, offline="device")
+        emit(f"power_scale_{scale.stacked.num_nodes}_f32",
+             **_power_rows(scale, ACCEL_LOOP_REPEATS))
+        del scale
 
 
 def phase_batch_demo():
@@ -2113,6 +2503,9 @@ def main():
     ap.add_argument("--loop", action="store_true",
                     help="run the loop_graph phase alone (the graph loop "
                          "against the host loop)")
+    ap.add_argument("--accel-loop", action="store_true",
+                    help="run the accelerated loops' A/B to 1e-3 and the "
+                         "power iteration's A/B alone")
     ap.add_argument("--scale", action="store_true",
                     help="run the scale, sweep, batch and partition "
                          "runners' full rows instead")
@@ -2122,8 +2515,9 @@ def main():
                          "sweep instead")
     ap.add_argument("--parts",
                     help="--scale's or --roofline's parts (default: all)")
-    # one in-process part of --scale (the script starts itself so)
-    ap.add_argument("--part", choices=("f2",))
+    # one in-process part of --scale, or accel_loop's traces (the script
+    # starts itself so)
+    ap.add_argument("--part", choices=("f2", "accel_traces"))
     # one rank of the partitioned phases (the script starts itself so)
     ap.add_argument("--rank", type=int)
     ap.add_argument("--world", type=int)
@@ -2132,9 +2526,9 @@ def main():
     args = ap.parse_args()
     if args.rank is not None:
         return rank_main(args)
-    if args.part == "f2":
+    if args.part is not None:
         solver_mod.pin_full_precision()
-        part_f2()
+        {"f2": part_f2, "accel_traces": part_accel_traces}[args.part]()
         return 0
     smi = phase_device()
     phase_build()
@@ -2149,6 +2543,10 @@ def main():
         return 0
     if args.loop:
         phase_loop_graph()
+        print(smi, flush=True)
+        return 0
+    if args.accel_loop:
+        phase_accel_loop()
         print(smi, flush=True)
         return 0
     if args.mesh:
@@ -2171,6 +2569,7 @@ def main():
         print(smi, flush=True)
         return 0
     kernel = phase_kernel()
+    cond_row = phase_cond_kernel()
     phase_matmul_context()
     phase_roofline_headline()
     phase_stage_ab()
@@ -2179,7 +2578,7 @@ def main():
     phase_baseline_configs()
     phase_headline()
     phase_mpc_config5()
-    phase_loop_graph()
+    phase_loop_graph(LOOP_GRAPH_REPEATS_SMOKE)
     phase_scale_88573()
     phase_scale_797161()
     phase_relax_config2()
@@ -2207,7 +2606,20 @@ def main():
         **{k: c[k] for k in shape_keys},
         "library_note": "no single PyTorch call computes the sweep",
         "per_shape": {name: {k: r[k] for k in shape_keys}
-                      for name, r in kernel.items()}}]}), flush=True)
+                      for name, r in kernel.items()}}, {
+        "name": "conditional-node set (lax.cond in a CUDA graph)",
+        "route": "cuda",
+        "source": "raocp_tpu_torch/csrc/cond.cu",
+        "replaces": "raocp_tpu/accel.py:219",
+        "replaces_note": "no Pallas kernel: the lax.cond branches of the "
+                         "JAX package's jitted while_loops",
+        "launches": sum(PATH_COND_LAUNCHES.values()),
+        "launches_per_path": PATH_COND_LAUNCHES,
+        "max_abs_err": cond_row["max_abs_err"],
+        **{k: cond_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "library_note": "PyTorch 2.11 has no call that puts a branch "
+                        "into a CUDA graph"}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,47 +22,98 @@ The JAX package's layout carries over:
 * **Circular histories.** Each history is a tuple of tensors with a leading
   ``[memory]`` axis, preallocated once and written in place at ``slot``
   (never rolled). Anderson's Gram matrix is kept one row and column at a
-  time; the ``[memory, memory]`` normal equations are ``torch.linalg.solve``.
+  time; the ``[memory, memory]`` normal equations go to
+  ``torch.linalg.solve_ex`` (:func:`_solve`: no check of its ``info``, which
+  would read the device).
 
-What differs from the JAX package: ``lax.cond`` / ``lax.while_loop`` become
-Python branches on a 0-d tensor, and a branch needs its condition on the
-host. That is one device-to-host read per accepted iteration (Anderson's
-safeguard; SuperMann's residual norm), plus one per SuperMann line-search
-try, plus the read of each residual check as in the plain loop. Each read
-waits for the device to drain its queue. Every read goes through
-:func:`_read`, which counts it in :data:`HOST_READS` and marks it as a
-``raocp.accel.host_read`` span in a ``torch.profiler`` trace.
+As in the JAX package, each loop keeps its state, its branch decisions and
+its counters on the device (:func:`_device_loop`, the jitted
+``while_loop``): every iteration runs under a guard on the device's
+``running`` flag, ``lax.cond`` is :func:`raocp_tpu_torch.ops.cond.branch`
+(the bodies write into fixed buffers), and the loop runs a period of
+iterations at a time (:class:`raocp_tpu_torch.ops.cond.Periods`). On a
+card a period is one replay of a CUDA graph whose branches are conditional
+nodes, captured at a problem's first solve and cached per problem and
+options (``_LOOPS``); the host reads one flag a period, and the T
+evaluations, the iterations and the final residuals once at the end. On
+the CPU the same periods run eagerly.
 
-On a rank's block of the flat partition every norm and inner product that
-a host branch reads (safeguards, line search, restarts) sums over all
-ranks with one all-reduce (:func:`_allsum`), so every rank takes the same
-branches; the residual checks are all-reduced in ``_cp_residuals``.
+The host loops (:func:`_run_cp_anderson_host`,
+:func:`_run_cp_supermann_host`) take each branch on the host: one
+device-to-host read per accepted iteration (Anderson's safeguard;
+SuperMann's residual norm), plus one per SuperMann line-search try, plus
+the read of each residual check. They run on the flat partition, whose
+norms and inner products sum over the ranks with a gloo all-reduce
+(:func:`_allsum`) that a graph cannot capture, so every rank takes the
+same branches; and inside ``solver._host_loop()``, the switch of an A/B of
+the two loops. Both loops take the same decisions in the same precision
+(SuperMann's safeguard scalars in float64, as the host loop's Python
+floats), so they give the same iterates, counts and history bit for bit.
+
+Every read goes through :func:`_read`, which counts it in
+:data:`HOST_READS` and marks it as a ``raocp.accel.host_read`` span in a
+``torch.profiler`` trace; :data:`LOOP_COUNTS` counts what the device loops
+ran.
 """
+
+import contextlib
+import math
+import types
+import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.core.stacked import StackedProblem
 from raocp_tpu_torch.core.variables import Dual, Primal
+from raocp_tpu_torch.ops import cond as cond_mod
+from raocp_tpu_torch.ops import prox as prox_mod
+from raocp_tpu_torch.ops import sweep as sweep_mod
+from raocp_tpu_torch.ops.cond import Periods, branch, capturing
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import half_shift_dual
 from raocp_tpu_torch.parallel.sharding import all_reduce
 from raocp_tpu_torch.solver import _cp_residuals, _cp_step
 
-__all__ = ["run_cp_anderson", "run_cp_supermann", "HOST_READS"]
+__all__ = ["run_cp_anderson", "run_cp_supermann", "HOST_READS",
+           "LOOP_COUNTS"]
 
 HOST_READS = 0
+
+# What the device loops ran, summed since import (read deltas around a
+# run): periods (eager or replayed), of them graph replays; captures and
+# their seconds (the eager first period, the warm-up capture and the
+# graph); the device loops' host reads (a flag a period, the final counts
+# and history; the capture's eager branches); T evaluations and iterations
+# (the device's counts), and of the T evaluations those that replays ran.
+# A replayed T evaluation is a prox_f call that Python made once, at
+# capture (``scripts.bench_configs.counted_calls`` adds them to its count).
+LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
+                   host_reads=0, t_evals=0, iterations=0,
+                   replayed_t_evals=0)
+
+# guarded iterations in a period of a loop that checks every iteration
+PERIOD_CHECK_EVERY_1 = 16
 
 _NP = len(Primal._fields)          # 5 primal leaves
 _ND = len(Dual._fields)            # 11 dual leaves
 _TRUE = _NP + _ND                  # the (z, eta) leaves of an extended W
 
+# T evaluations run eagerly (not captured), summed since import
+_EAGER_T = 0
 
-def _read(t):
-    """One device-to-host read (a sync), counted and marked in traces."""
+# each problem's device loops on a card: (id(sp), kind) -> (key, loop)
+_LOOPS = {}
+
+
+def _read(t, loop=False):
+    """One device-to-host read (a sync), counted and marked in traces;
+    ``loop``: a device loop's read, also in ``LOOP_COUNTS``."""
     global HOST_READS
     HOST_READS += 1
+    LOOP_COUNTS["host_reads"] += loop
     with torch.profiler.record_function("raocp.accel.host_read"):
         return t.cpu().numpy()
 
@@ -75,6 +126,8 @@ def _split(W):
 def _t_ext(sp, W, alpha, x0, shift):
     """One CP step on an extended point: T(W), extended. Two operator
     applies; the images of the input ride in W."""
+    global _EAGER_T
+    _EAGER_T += not capturing(W[0])
     z, eta, Lz, Lt = _split(W)
     zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, alpha, alpha, x0, shift)
     return (*zn, *en, *Lzn, *Ltn)
@@ -86,6 +139,12 @@ def _add(a, b):
 
 def _sub(a, b):
     return tuple(x - y for x, y in zip(a, b))
+
+
+def _put(dst, src):
+    """Copy the leaves of ``src`` into the buffers ``dst``."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _allsum(sp, t):
@@ -108,6 +167,14 @@ def _norm(sp, W):
     return torch.sqrt(_sq(sp, W))
 
 
+def _solve(Gm, b):
+    """Anderson's normal equations ``Gm gamma = b`` (LU, as
+    ``torch.linalg.solve``), without the check of the factorisation's
+    ``info`` that would read the device: Gm is the masked Gram matrix plus
+    ``reg`` on its diagonal, symmetric positive definite."""
+    return torch.linalg.solve_ex(Gm, b, check_errors=False)[0]
+
+
 def _h_zeros(template, memory):
     return tuple(torch.zeros((memory,) + tuple(v.shape), dtype=v.dtype,
                              device=v.device) for v in template)
@@ -116,6 +183,13 @@ def _h_zeros(template, memory):
 def _h_set(hist, slot, row):
     for h, r in zip(hist, row):
         h[slot].copy_(r)
+
+
+def _h_put(hist, slot, row):
+    """Row ``slot`` (a [1] int64 tensor on the device) of every history
+    leaf set to ``row``."""
+    for h, r in zip(hist, row):
+        h.index_copy_(0, slot, r[None])
 
 
 def _h_dot(sp, hist, vec):
@@ -140,18 +214,326 @@ def _start(sp, z0, eta0, alpha, x0):
     return a, shift, W0, _t_ext(sp, W0, a, x0, shift)
 
 
+def _residuals(sp, W, T, alpha):
+    """The [xi_0..2] and [delta_0..2] stopping residuals of W -> T(W) (one
+    extra operator apply), on the device."""
+    z, eta, Lz, Lt = _split(W)
+    zn, en, Lzn, Ltn = _split(T)
+    return _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha, alpha)
+
+
 def _residual_row(sp, W, T, alpha):
     """The [xi_0..2, delta_0..2] stopping residuals of W -> T(W) as a NumPy
     row (one extra operator apply, one host read)."""
-    z, eta, Lz, Lt = _split(W)
-    zn, en, Lzn, Ltn = _split(T)
-    err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn,
-                              alpha, alpha)
-    return _read(torch.cat([err, derr]))
+    return _read(torch.cat(_residuals(sp, W, T, alpha)))
 
 
 def _history(max_iters, check_every):
     return np.full((max_iters + 1, 6), 0.0 if check_every == 1 else np.nan)
+
+
+def _host_loops(sp) -> bool:
+    """Whether the accelerated loops take their branches on the host: on
+    the flat partition (its sums are gloo all-reduces, which a graph
+    cannot capture) and inside ``solver._host_loop()``."""
+    return solver_mod._HOST_LOOP or sp.spmd_group is not None
+
+
+# -- the device loops (JAX: the jitted while_loops) --------------------------
+
+def _buffers(template):
+    return tuple(torch.empty_like(v, memory_format=torch.contiguous_format)
+                 for v in template)
+
+
+def _loop_state(sp, W0, memory, capacity, scalars):
+    """The buffers of one accelerated loop: the iterate W and residual R,
+    the step's result (Wn, Rn), err/derr at the last check, the history
+    rows, the counters k and evals (int64), the running flag, the
+    constants a solve loads (alpha, x0, tol as float64, the cap) and the
+    loop's own ``scalars`` (name -> dtype, 0-d)."""
+    dt, dev = sp.dtype, sp.device
+    L = types.SimpleNamespace(
+        W=_buffers(W0), R=_buffers(W0), Wn=_buffers(W0), Rn=_buffers(W0),
+        err=torch.empty(3, dtype=dt, device=dev),
+        derr=torch.empty(3, dtype=dt, device=dev),
+        hist=torch.empty((capacity, 6), dtype=dt, device=dev),
+        k=torch.zeros((), dtype=torch.int64, device=dev),
+        evals=torch.zeros((), dtype=torch.int64, device=dev),
+        running=torch.ones((), dtype=torch.bool, device=dev),
+        a=torch.empty((), dtype=dt, device=dev),
+        x0=torch.empty(sp.n, dtype=dt, device=dev),
+        tol=torch.zeros((), dtype=torch.float64, device=dev),
+        limit=torch.zeros((), dtype=torch.int64, device=dev),
+        shift=half_shift_dual(sp), memory=memory)
+    for name, dtype in scalars.items():
+        setattr(L, name, torch.zeros((), dtype=dtype, device=dev))
+    return L
+
+
+def _load(L, W0, R0, err, derr, alpha, x0, tol, max_iters, check_every):
+    """Start a solve: the state from the start point, the history's first
+    ``max_iters + 1`` rows set to 0 (``check_every`` 1) or NaN."""
+    _put(L.W, W0)
+    _put(L.R, R0)
+    L.err.copy_(err)
+    L.derr.copy_(derr)
+    L.hist[:max_iters + 1].fill_(0.0 if check_every == 1 else math.nan)
+    L.k.zero_()
+    L.evals.fill_(1)
+    L.running.fill_(True)
+    L.a.fill_(float(alpha))
+    L.x0.copy_(x0)
+    L.tol.fill_(float(tol))
+    L.limit.fill_(max_iters + 1)
+
+
+def _check(sp, L, W, T):
+    """The residual check of the step W -> T(W): err/derr and the history
+    row at k (``index_copy_`` at the device's count)."""
+    err, derr = _residuals(sp, W, T, L.a)
+    L.err.copy_(err)
+    L.derr.copy_(derr)
+    L.hist.index_copy_(0, L.k.reshape(1), torch.cat([err, derr])[None])
+
+
+def _advance(L):
+    """W <- Wn, R <- Rn, k += 1, and the loop's condition after it: the
+    last checked residual above tol (compared in float64, as the host
+    loop's NumPy rows are) and k < max_iters + 1."""
+    _put(L.W, L.Wn)
+    _put(L.R, L.Rn)
+    L.k.add_(1)
+    L.running.copy_((L.err.double().amax() > L.tol) & (L.k < L.limit))
+
+
+def _anderson_iteration(sp, L, checked, theta):
+    """One iteration of :func:`run_cp_anderson`'s loop on the device state
+    ``L``, in place, under the guard of ``L.running`` (JAX
+    ``accel.py:190``): the candidate and its T evaluation, then the
+    accepted body or the fallback (its own T evaluation); the check when
+    ``checked``; the slot's history rows and Gram row and column."""
+    dt = sp.dtype
+
+    def body():
+        valid = (L.slots < L.pushes).to(dt)
+        Gm = L.G * (valid[:, None] * valid[None, :]) + L.reg_eye
+        b = _h_dot(sp, L.dR, L.R) * valid
+        gamma = _solve(Gm, b) * valid
+        W_cand = _sub(_add(L.W, L.R), _add(_h_combo(L.dW, gamma),
+                                           _h_combo(L.dR, gamma)))
+        T_cand = _t_ext(sp, W_cand, L.a, L.x0, L.shift)
+        R_cand = _sub(T_cand, W_cand)
+        accept = (L.pushes > 0) & (_norm(sp, R_cand)
+                                   <= theta * _norm(sp, L.R))
+
+        def accepted():
+            _put(L.Wn, W_cand)
+            _put(L.Rn, R_cand)
+            L.evals.add_(1)
+
+        def fallback():
+            # the plain step w+ = T(w) = w + r; one more T evaluation
+            # refreshes the residual there
+            W_p = _add(L.W, L.R)
+            _put(L.Wn, W_p)
+            _put(L.Rn, _sub(_t_ext(sp, W_p, L.a, L.x0, L.shift), W_p))
+            L.evals.add_(2)
+
+        branch(accept, accepted, fallback)
+        if checked:
+            _check(sp, L, L.Wn, _add(L.Wn, L.Rn))
+        slot = (L.pushes % L.memory).reshape(1)
+        row = _sub(L.Rn, L.R)
+        _h_put(L.dR, slot, row)
+        _h_put(L.dW, slot, _sub(L.Wn, L.W))
+        g_row = _h_dot(sp, L.dR, row)        # the slot's row + column
+        L.G.index_copy_(0, slot, g_row[None, :])
+        L.G.index_copy_(1, slot, g_row[:, None])
+        L.pushes.add_(1)
+        _advance(L)
+
+    branch(L.running, body)
+
+
+def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
+    """One iteration of :func:`run_cp_supermann`'s loop on the device
+    state ``L``, in place, under the guard of ``L.running`` (JAX
+    ``accel.py:352``). K0 (blind), the line search's ``ls_max`` tries
+    (each under the guard "admitted and not yet accepted", at the host
+    loop's constant tau = beta^j) and the plain fallback are bodies of
+    their own, each writing (Wn, Rn); then the Broyden push and the check.
+    The safeguard scalars (eta_safe, r_safe, eps, the norms they meet) are
+    float64, as the host loop's Python floats."""
+    dt = sp.dtype
+
+    def apply_h(V):
+        w = _h_dot(sp, L.Y, V) * L.valid
+        return _add(V, _h_combo(L.U, w))
+
+    def body():
+        norm_r = _norm(sp, L.R).double()
+        d = tuple(-v for v in apply_h(L.R))
+        blind = norm_r <= c0 * L.eta_safe
+        admit = ~blind & (norm_r <= L.r_safe)
+        L.ok.fill_(False)
+        L.tries.zero_()
+        tau = 1.0
+        for _ in range(ls_max):
+            def attempt(tau=tau):
+                # backtrack: the candidate w + tau d and its residual
+                W_c = _add(L.W, tuple(tau * v for v in d))
+                _put(L.Wn, W_c)
+                _put(L.Rn, _sub(W_c, _t_ext(sp, W_c, L.a, L.x0, L.shift)))
+                norm_c = _norm(sp, L.Rn).double()
+                L.norm_c.copy_(norm_c)
+                L.ok.copy_(norm_c <= c1 * norm_r)
+                L.tries.add_(1)
+
+            branch(admit & ~L.ok, attempt)
+            tau *= beta
+        accepted = admit & L.ok
+
+        def blind_step():
+            # K0: accept w + d without a test; eta_safe tightens
+            W_n = _add(L.W, d)
+            _put(L.Wn, W_n)
+            _put(L.Rn, _sub(W_n, _t_ext(sp, W_n, L.a, L.x0, L.shift)))
+            L.eta_safe.copy_(norm_r)
+            L.evals.add_(1)
+
+        def accept_step():
+            # K1: the line search's candidate is already in (Wn, Rn)
+            L.r_safe.copy_(L.norm_c + L.eps)
+            L.evals.add_(L.tries)
+
+        def plain_step():
+            W_p = _sub(L.W, L.R)
+            _put(L.Wn, W_p)
+            _put(L.Rn, _sub(W_p, _t_ext(sp, W_p, L.a, L.x0, L.shift)))
+            L.evals.add_(L.tries + 1)
+
+        branch(blind, blind_step)
+        branch(accepted, accept_step)
+        branch(~blind & ~accepted, plain_step)
+
+        # Broyden push: u = (s - H y) / (y.y); degenerate pairs are masked
+        s = _sub(L.Wn, L.W)
+        y = _sub(L.Rn, L.R)
+        yy = _sq(sp, y)
+        good = yy > 1e-30
+        denom = torch.where(good, yy, torch.ones_like(yy))
+        gz = good.to(dt)
+        Hy = apply_h(y)
+        slot = L.slot.reshape(1)
+        _h_put(L.U, slot, tuple((si - hi) / denom * gz
+                                for si, hi in zip(s, Hy)))
+        _h_put(L.Y, slot, y)
+        L.valid.index_copy_(0, slot, gz.reshape(1))
+        L.slot.copy_((L.slot + 1) % L.memory)
+        if checked:
+            _check(sp, L, L.Wn, _sub(L.Wn, L.Rn))
+        L.eps.mul_(q_eps)
+        _advance(L)
+
+    branch(L.running, body)
+
+
+def _loop_for(sp, kind, memory, period, check_every, options, capacity,
+              make):
+    """The problem's device loop of ``kind`` for these options: on a card
+    the cached one (kept while the key holds and its history holds
+    ``capacity`` rows, so a solver's later solves replay its graph), else a
+    new one (``make()``). The key is what changes the captured program: the
+    options, the period and the dynamics projection's dispatch (K1, the
+    stage path, or a patched sweep)."""
+    if sp.device.type != "cuda":
+        return make()
+    key = (memory, period, check_every, options,
+           sweep_mod.sweep_eligible(sp), prox_mod.project_dynamics_sweep)
+    slot = (id(sp), kind)
+    cached = _LOOPS.get(slot)
+    if cached is not None and cached[0] == key \
+            and cached[1].hist.shape[0] >= capacity:
+        return cached[1]
+    if slot not in _LOOPS:
+        weakref.finalize(sp, _LOOPS.pop, slot, None)
+    _LOOPS[slot] = None             # drop the old loop's memory first
+    loop = make()
+    _LOOPS[slot] = (key, loop)
+    return loop
+
+
+def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
+                 check_every, options, iteration, scalars, init):
+    """The accelerated loop ``kind`` with its state on the device: a period
+    is ``check_every`` guarded iterations, its last a check (at
+    ``check_every=1`` every iteration checks and a period is
+    ``PERIOD_CHECK_EVERY_1`` of them), the cap and the tolerance stop it in
+    mid-period, and the host reads one flag a period
+    (:class:`~raocp_tpu_torch.ops.cond.Periods`; on a card one period is
+    enqueued ahead of the flag). ``iteration(L, checked)`` is one guarded
+    iteration, ``scalars`` the loop's own 0-d buffers and ``init(L, W0,
+    R0)`` sets what a solve starts from. Returns (z, eta, iters, t_evals,
+    err NumPy [3], hist NumPy [iters, 6])."""
+    global HOST_READS
+    if check_every < 1:
+        raise ValueError("check_every must be at least 1")
+    period = PERIOD_CHECK_EVERY_1 if check_every == 1 else check_every
+    capacity = max(1024, 1 << max_iters.bit_length())
+    cuda = sp.device.type == "cuda"
+    eager_t = _EAGER_T
+    before = dict(LOOP_COUNTS)
+    with (torch.cuda.device(sp.device) if cuda
+          else contextlib.nullcontext()):
+        a, shift, W0, T0 = _start(sp, z0, eta0, alpha, x0)
+        R0 = _sub(T0, W0) if kind == "anderson" else _sub(W0, T0)
+        err, derr = _residuals(sp, W0, T0, a)
+
+        def make():
+            L = _loop_state(sp, W0, memory, capacity, scalars)
+            checks = [check_every == 1 or i == period - 1
+                      for i in range(period)]
+
+            def run_period():
+                for checked in checks:
+                    iteration(L, checked)
+
+            L.periods = Periods(sp.device, run_period, L.running, True,
+                                LOOP_COUNTS)
+            return L
+
+        L = _loop_for(sp, kind, memory, period, check_every, options,
+                      capacity, make)
+        _load(L, W0, R0, err, derr, alpha, x0, tol, max_iters, check_every)
+        init(L, W0, R0)
+        L.periods.run(-(-(max_iters + 1) // period),
+                      solver_mod._lookahead(sp.device))
+        HOST_READS += LOOP_COUNTS["host_reads"] - before["host_reads"]
+        out = _read(torch.cat([torch.stack([L.k, L.evals]).double(),
+                               L.err.double()]), loop=True)
+        iters, evals = int(out[0]), int(out[1])
+        hist = _read(L.hist[:iters], loop=True).astype(np.float64)
+        z, eta, _, _ = _split(L.W)
+        if cuda:                     # the buffers stay with the cached loop
+            z, eta = (type(t)(*(v.clone() for v in t)) for t in (z, eta))
+    replayed = evals - (_EAGER_T - eager_t)
+    LOOP_COUNTS["t_evals"] += evals
+    LOOP_COUNTS["iterations"] += iters
+    LOOP_COUNTS["replayed_t_evals"] += replayed
+    # every T evaluation calls prox_f once, and prox_f K1 once on its path
+    sweep_mod.LAUNCHES += replayed * (L.periods.recorded > 0)
+    replays = LOOP_COUNTS["replays"] - before["replays"]
+    if replays:
+        # a replay sets every guard of its period, and the branches' nodes
+        # of each iteration that ran (the capture's eager first period ran
+        # the first iterations)
+        outer, inner = L.periods.nodes
+        eager = min(period, iters) if LOOP_COUNTS["captures"] \
+            > before["captures"] else 0
+        cond_mod.LAUNCHES += replays * outer + (iters - eager) * inner \
+            // period
+    return z, eta, iters, evals, out[2:], hist
 
 
 def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
@@ -162,8 +544,90 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     hist NumPy [iters, 6] (NaN rows between strided checks).
 
     Accept the Anderson candidate iff ||r_cand|| <= theta ||r||, else take
-    the plain step w+ = T(w) and evaluate T once more there.
+    the plain step w+ = T(w) and evaluate T once more there. The loop runs
+    on the device (:func:`_device_loop`); on the flat partition and inside
+    ``solver._host_loop()`` it is :func:`_run_cp_anderson_host`.
     """
+    if _host_loops(sp):
+        return _run_cp_anderson_host(sp, z0, eta0, x0, alpha, tol, max_iters,
+                                     memory, theta, reg, check_every)
+    dt, dev = sp.dtype, sp.device
+    scalars = dict(pushes=torch.int64)
+
+    def init(L, W0, R0):
+        if not hasattr(L, "dW"):
+            L.dW = _h_zeros(W0, memory)
+            L.dR = _h_zeros(W0, memory)
+            L.G = torch.zeros((memory, memory), dtype=dt, device=dev)
+            L.reg_eye = reg * torch.eye(memory, dtype=dt, device=dev)
+            L.slots = torch.arange(memory, device=dev)
+        for h in (*L.dW, *L.dR, L.G):
+            h.zero_()
+        L.pushes.zero_()
+
+    return _device_loop(
+        sp, "anderson", z0, eta0, x0, alpha, tol, max_iters, memory,
+        check_every, (theta, reg),
+        lambda L, checked: _anderson_iteration(sp, L, checked, theta),
+        scalars, init)
+
+
+def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
+                     max_iters: int, memory: int = 5, ls_max: int = 1,
+                     c0: float = 0.99, c1: float = 1.0, q_eps: float = 0.95,
+                     beta: float = 0.5, check_every: int = 1):
+    """SuperMann-style globalised quasi-Newton acceleration of the CP fixed
+    point with limited-memory (type-I) Broyden directions (JAX
+    ``accel.py:254``): H = I + sum_i u_i y_i' on the residual map
+    R(w) = w - T(w).
+
+    * **K0 (blind)**: while ``|R w| <= c0 * eta_safe``, take w + d.
+    * **K1 (educated)**: if ``|R w| <= r_safe``, backtrack tau (at most
+      ``ls_max`` tries) until ``|R(w + tau d)| <= c1 |R w|``.
+    * **Fallback**: the plain CP step w+ = T(w).
+
+    Returns (z, eta, iters, t_evals, err, hist) as
+    :func:`run_cp_anderson` does. The loop runs on the device
+    (:func:`_device_loop`); on the flat partition and inside
+    ``solver._host_loop()`` it is :func:`_run_cp_supermann_host`.
+    """
+    if _host_loops(sp):
+        return _run_cp_supermann_host(sp, z0, eta0, x0, alpha, tol,
+                                      max_iters, memory, ls_max, c0, c1,
+                                      q_eps, beta, check_every)
+    dt, dev = sp.dtype, sp.device
+    f64 = torch.float64
+    scalars = dict(eta_safe=f64, r_safe=f64, eps=f64, norm_c=f64,
+                   ok=torch.bool, tries=torch.int64, slot=torch.int64)
+
+    def init(L, W0, R0):
+        if not hasattr(L, "U"):
+            L.U = _h_zeros(W0, memory)      # Broyden vectors u_i
+            L.Y = _h_zeros(W0, memory)      # y_i = r_{i+1} - r_i
+            L.valid = torch.zeros((memory,), dtype=dt, device=dev)
+        for h in (*L.U, *L.Y, L.valid):
+            h.zero_()
+        nr0 = _norm(sp, R0).double()
+        for v in (L.eta_safe, L.r_safe, L.eps):
+            v.copy_(nr0)
+        L.slot.zero_()
+
+    return _device_loop(
+        sp, "supermann", z0, eta0, x0, alpha, tol, max_iters, memory,
+        check_every, (ls_max, c0, c1, q_eps, beta),
+        lambda L, checked: _supermann_iteration(sp, L, checked, ls_max, c0,
+                                                c1, q_eps, beta),
+        scalars, init)
+
+
+# -- the host loops (the flat partition's, and the A/B's) ---------------------
+
+def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
+                    max_iters: int, memory: int = 5, theta: float = 1.0,
+                    reg: float = 1e-10, check_every: int = 1):
+    """:func:`run_cp_anderson` with its branches taken on the host: one
+    read of the safeguard an iteration (from the second) and one of each
+    residual check."""
     dt, dev = sp.dtype, sp.device
     a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
     R = _sub(T, W)                          # r = T(w) - w, extended
@@ -179,7 +643,7 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         valid = (slots < pushes).to(dt)
         Gm = G * (valid[:, None] * valid[None, :]) + reg_eye
         b = _h_dot(sp, dR, R) * valid
-        gamma = torch.linalg.solve(Gm, b) * valid
+        gamma = _solve(Gm, b) * valid
         W_cand = _sub(_add(W, R), _add(_h_combo(dW, gamma),
                                        _h_combo(dR, gamma)))
         T_cand = _t_ext(sp, W_cand, a, x0, shift)
@@ -211,23 +675,13 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     return z, eta, k, evals, err, hist[:k]
 
 
-def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
+def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
                      max_iters: int, memory: int = 5, ls_max: int = 1,
                      c0: float = 0.99, c1: float = 1.0, q_eps: float = 0.95,
                      beta: float = 0.5, check_every: int = 1):
-    """SuperMann-style globalised quasi-Newton acceleration of the CP fixed
-    point with limited-memory (type-I) Broyden directions (JAX
-    ``accel.py:254``): H = I + sum_i u_i y_i' on the residual map
-    R(w) = w - T(w).
-
-    * **K0 (blind)**: while ``|R w| <= c0 * eta_safe``, take w + d.
-    * **K1 (educated)**: if ``|R w| <= r_safe``, backtrack tau (at most
-      ``ls_max`` tries) until ``|R(w + tau d)| <= c1 |R w|``.
-    * **Fallback**: the plain CP step w+ = T(w).
-
-    Returns (z, eta, iters, t_evals, err, hist) as
-    :func:`run_cp_anderson` does.
-    """
+    """:func:`run_cp_supermann` with its branches taken on the host: one
+    read of the residual norm an iteration, one of each line-search try and
+    one of each residual check; the safeguard scalars are Python floats."""
     dt, dev = sp.dtype, sp.device
     a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
     R = _sub(W, T)                          # R(w) = w - T(w), extended

@@ -113,24 +113,25 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build_library() -> Path:
-    """Compile ``csrc/sweep.cu`` into ``build/raocp_tpu_torch/`` (keyed by a
-    hash of the source and flags) unless that library exists; return its
-    path. A failed build raises with nvcc's output."""
-    src = _SOURCE.read_bytes()
+def build_library(source: Path = _SOURCE) -> Path:
+    """Compile ``source`` (``csrc/sweep.cu`` by default) into
+    ``build/raocp_tpu_torch/`` (keyed by a hash of the source and flags)
+    unless that library exists; return its path. A failed build raises
+    with nvcc's output."""
+    src = source.read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f"sweep_{key[:16]}.so"
+    lib = _BUILD_DIR / f"{source.stem}_{key[:16]}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n"
+            f"nvcc failed ({proc.returncode}) building {source.name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)            # atomic: concurrent builds agree
     return lib

@@ -377,8 +377,8 @@ class SubtreeProblem:
     def power_iteration(self):
         """lambda_max(L'L) by SPMD power iteration over the ranks (the same
         value on every rank)."""
-        from raocp_tpu_torch.solver import _power_iteration
-        return _power_iteration(self.sp)
+        from raocp_tpu_torch.solver import _power_iteration_host
+        return _power_iteration_host(self.sp)
 
     def run_cp(self, z0, eta0, x0, alpha1, alpha2, tol, max_iters: int,
                check_every: int = 1, unroll: int = 1,

@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raocp_tpu_torch import models
+from raocp_tpu_torch import accel, models
 from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.core.stacked import _torch_dtype, default_dtype
 from raocp_tpu_torch.ops import sweep
@@ -119,9 +119,12 @@ def reference_row(name: str, solve: dict) -> Optional[dict]:
 def counted_calls():
     """Count the K1 launches and the ``prox_f`` calls (the T evaluations
     of a CP step, accelerated or not) that ran on the device while the body
-    runs; the counts are read after it. A call made while a CUDA graph is
-    captured runs nothing and is not counted; the device loop's replays
-    add the calls and launches they ran (``solver.LOOP_COUNTS``,
+    runs; the counts are read after it, beside what the loops ran
+    (``loop``: ``solver.LOOP_COUNTS``, ``accel_loop``:
+    ``accel.LOOP_COUNTS``) and every host read they made (``host_reads``).
+    A call made while a CUDA graph is captured runs nothing and is not
+    counted; the device loops' replays add the calls and launches they ran
+    (``solver.LOOP_COUNTS``, ``accel.LOOP_COUNTS``,
     ``ops.sweep.LAUNCHES``). Nothing is reset, so an outer count goes on
     counting."""
     calls = {"prox_f": 0, "k1": 0}
@@ -134,14 +137,23 @@ def counted_calls():
         return real(*args, **kwargs)
 
     before = sweep.LAUNCHES
-    replayed = solver_mod.LOOP_COUNTS["replayed_steps"]
+    loops = dict(solver_mod.LOOP_COUNTS), dict(accel.LOOP_COUNTS)
+    reads = accel.HOST_READS
     solver_mod.prox_f = counting
     try:
         yield calls
     finally:
         solver_mod.prox_f = real
         calls["k1"] = sweep.LAUNCHES - before
-        calls["prox_f"] += solver_mod.LOOP_COUNTS["replayed_steps"] - replayed
+        calls["loop"], calls["accel_loop"] = (
+            {k: v - old[k] for k, v in new.items()} for new, old in
+            zip((solver_mod.LOOP_COUNTS, accel.LOOP_COUNTS), loops))
+        calls["prox_f"] += (calls["loop"]["replayed_steps"]
+                            + calls["accel_loop"]["replayed_t_evals"])
+        # every read of the host in the loops: the plain loops' and the
+        # accelerated loops' (their host loops' reads included)
+        calls["host_reads"] = (calls["loop"]["host_reads"]
+                               + accel.HOST_READS - reads)
 
 
 def sync(device):
@@ -229,7 +241,9 @@ def keyed_rows(cfg: Config, keys: dict, dtype, device, repeats: int):
             prox_f_calls=calls["prox_f"],
             max_memory_allocated_mb=peak_mb(device),
             jax_iterations=ref.get("iterations"), xi=res.xi.tolist(),
-            alpha=res.alpha, solve=key), ref
+            alpha=res.alpha, solve=key, host_reads=calls["host_reads"],
+            loop_counts=calls["loop"], accel_loop_counts=calls["accel_loop"]
+            ), ref
 
 
 def _solve_rows(cfg: Config, dtype, device, repeats: int, options: dict):

@@ -3,10 +3,13 @@
 JAX package's ``scripts/profile_step.py``).
 
     python -m raocp_tpu_torch.scripts.profile_step [--steps 100]
-        [--config headline|config5|tree797161] [--loop graph|host]
+        [--config headline|config5|tree797161|headline_supermann|
+                  headline_anderson] [--loop graph|host]
 
 ``headline`` (BASELINE config 4: 9,841 nodes, float32) runs 100 CP steps
-at ``check_every=25, unroll=25``; ``config5`` (BASELINE config 5's
+at ``check_every=25, unroll=25``; ``headline_supermann`` and
+``headline_anderson`` 100 accelerated iterations of the same problem
+(memory 5, ``check_every=25``); ``config5 (BASELINE config 5's
 88,573-node per-step tree, float32) at the closed loop's
 ``check_every=25, unroll=5, relax="auto"``; ``tree797161`` (``bench_1e6``'s
 797,161-node tree, float32) at its ``check_every=25, unroll=5``. Each
@@ -15,7 +18,9 @@ card's busy share, the launches a step, K1's share of the device time and
 the kernels that take most of it, the host's reads a step, and the
 Solver's power iteration (its count and seconds at the Solver's own
 tolerance). ``--loop host`` traces the host loop instead of the solve's
-own (CUDA graphs of its check periods). It needs a card.
+own (CUDA graphs of its check periods; for the accelerated loops, whose
+branches are conditional nodes of the graphs, the loops that take their
+branches on the host). It needs a card.
 """
 
 import argparse
@@ -27,7 +32,7 @@ import time
 
 import torch
 
-from raocp_tpu_torch import models
+from raocp_tpu_torch import accel, models
 from raocp_tpu_torch.ops.sweep import sweep_eligible
 from raocp_tpu_torch.scripts.bench_configs import (CONFIG5, CONFIGS,
                                                    counted_calls, sync)
@@ -36,7 +41,8 @@ from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.solver import Solver
 
 __all__ = ["PROFILES", "device_events", "is_k1", "profile_solve",
-           "run_profile", "summarize_trace", "traced_events"]
+           "run_profile", "summarize_trace", "traced_call_events",
+           "traced_events"]
 
 # the device's own work in a torch.profiler Chrome trace
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -73,6 +79,42 @@ def traced_events(fn, applies: int, attempts: int = 3) -> list:
         if events:
             break
     return events
+
+
+def traced_call_events(fn, attempts: int = 3) -> list:
+    """The device events of a ``torch.profiler`` trace of one call of
+    ``fn`` (which ends with the card synchronised) that fall inside the
+    call's host range, one a kernel. The card's tracer can hand a trace
+    records of kernels that ran before it began (seen on an H100 after
+    other traces in the process), which the range leaves out. A trace
+    with no device event in the range is taken again, up to ``attempts``
+    times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(solver_mod.TRACE_PAD_S)
+            with record_function("raocp.traced_call"):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(solver_mod.TRACE_PAD_S)
+        with tempfile.TemporaryDirectory() as folder:
+            path = os.path.join(folder, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        (span,) = [ev for ev in events if ev.get("cat") == "user_annotation"
+                   and ev["name"] == "raocp.traced_call"]
+        # one record a kernel: (name, start, duration) on the device
+        inside = list({(ev["name"], ev["ts"], ev.get("dur")): ev
+                       for ev in events if ev.get("cat") in _DEVICE_CATS
+                       and span["ts"] <= ev["ts"]
+                       <= span["ts"] + span["dur"]}.values())
+        if inside:
+            break
+    return inside
 
 
 def is_k1(name: str) -> bool:
@@ -134,15 +176,24 @@ def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
     opts = dict(max_iters=steps + unroll - 2, tol=1e-12, **options)
     scope = solver_mod._host_loop if loop == "host" \
         else contextlib.nullcontext
+    # an accelerated solve's loop counts its iterations and host reads in
+    # accel.LOOP_COUNTS (every host read of both of its loops in
+    # accel.HOST_READS)
+    counts, steps_key = ((accel.LOOP_COUNTS, "iterations")
+                         if options.get("accel") else
+                         (solver_mod.LOOP_COUNTS, "steps"))
     with scope():
         solver.solve(x0, **opts)
-        before = dict(solver_mod.LOOP_COUNTS)
+        before = dict(counts)
+        reads = accel.HOST_READS
         with tempfile.TemporaryDirectory() as folder, \
                 counted_calls() as calls:
             res = solver.solve(x0, profile_dir=folder, **opts)
             events = device_events(os.path.join(folder, "trace.json"))
-    ran = {k: solver_mod.LOOP_COUNTS[k] - before[k]
-           for k in ("replays", "host_reads", "steps")}
+    ran = {k: counts[k] - before[k]
+           for k in ("replays", "host_reads", steps_key)}
+    if options.get("accel"):
+        ran["host_reads"] = accel.HOST_READS - reads
     return dict(summarize_trace(events, res.num_iters),
                 nodes=solver.stacked.num_nodes,
                 dtype=str(solver.stacked.dtype),
@@ -150,7 +201,7 @@ def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
                 k1_path=sweep_eligible(solver.stacked),
                 k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
                 loop=loop, graph_replays=ran["replays"],
-                device_loop_steps=ran["steps"],
+                device_loop_steps=ran[steps_key],
                 host_reads_per_step=ran["host_reads"] / res.num_iters,
                 options=options)
 
@@ -178,6 +229,10 @@ PROFILES = {
     "headline": (_headline, dict(check_every=25, unroll=25)),
     "config5": (_config5, dict(check_every=25, unroll=5, relax="auto")),
     "tree797161": (_tree797161, dict(check_every=25, unroll=5)),
+    "headline_supermann": (_headline, dict(accel="supermann",
+                                           accel_memory=5, check_every=25)),
+    "headline_anderson": (_headline, dict(accel="anderson", accel_memory=5,
+                                          check_every=25)),
 }
 
 

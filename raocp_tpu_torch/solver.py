@@ -12,12 +12,15 @@ solves (:func:`_chunked_loop`), batch solves (:func:`_run_cp_batch`: B
 initial states, every op on all lanes at once),
 the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
 helpers (``validate``, plots, pgfplots exports) keep the JAX package's
-semantics. Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
+semantics; the accelerated loops and the power iteration keep their state
+on the device too (:mod:`raocp_tpu_torch.accel`, :func:`_power_iteration`).
+Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
 one process a rank, on the replicated-spine subtree partition
 (:mod:`raocp_tpu_torch.parallel.subtree`) or the flat node partition
 (:mod:`raocp_tpu_torch.parallel.flat`), whose collectives are staged on the
-host: they run the host loop (:func:`_run_cp_host`), which reads the device
-at every check.
+host: they run the host loops (:func:`_run_cp_host`,
+:func:`_power_iteration_host`, the accelerated host loops), which read the
+device at every check.
 """
 
 import contextlib
@@ -40,6 +43,7 @@ from raocp_tpu_torch.core.stacked import (StackedProblem, _dedup_dynamics,
 from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
                                             tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
+from raocp_tpu_torch.ops import cond
 from raocp_tpu_torch.ops import prox as prox_mod
 from raocp_tpu_torch.ops import sweep as sweep_mod
 from raocp_tpu_torch.ops.operator import ell, ell_t
@@ -144,15 +148,12 @@ def _sp_primal_dot(sp: StackedProblem, a, b):
                       sp.spmd_group)[0]
 
 
-def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
-                     rel_tol: float = 1e-12):
-    """lambda_max(L'L) by power iteration on the primal space, started from
-    ``numpy.random.default_rng(0)`` normals (one draw per leaf, in leaf
-    order). Returns (lambda as float, iterations). Under the subtree
+def _power_start(sp: StackedProblem):
+    """The power iteration's start: ``numpy.random.default_rng(0)`` normals
+    (one draw per leaf, in leaf order), normalised. Under the subtree
     partition every rank draws the same normals for its local shapes, so
     the replicated spine rows start alike; under the flat partition each
-    rank takes its block of the single-device draws. The convergence test
-    reads an all-reduced value, the same on every rank."""
+    rank takes its block of the single-device draws."""
     rng = np.random.default_rng(0)
     if sp.flat is not None:
         z = FlatProblem(sp).power_start(rng)
@@ -160,7 +161,16 @@ def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
         z = Primal(*(torch.as_tensor(rng.standard_normal(tuple(l.shape)),
                                      dtype=sp.dtype, device=sp.device)
                      for l in sp.zero_primal()))
-    z = _normalise(z, torch.sqrt(_sp_primal_dot(sp, z, z)))
+    return _normalise(z, torch.sqrt(_sp_primal_dot(sp, z, z)))
+
+
+def _power_iteration_host(sp: StackedProblem, max_iters: int = 10000,
+                          rel_tol: float = 1e-12):
+    """:func:`_power_iteration` with its test on the host: one read of the
+    Rayleigh quotient an iteration. The partitions' loop (their inner
+    products are gloo all-reduces; the test reads an all-reduced value, the
+    same on every rank), and the loop inside :func:`_host_loop`."""
+    z = _power_start(sp)
     lam, lam_prev = 0.0, -1.0
     k = 0
     while (k < 2 or abs(lam - lam_prev) > rel_tol * abs(lam)) \
@@ -168,9 +178,95 @@ def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
         w = ell_t(sp, ell(sp, z))
         # Rayleigh quotient
         lam_prev, lam = lam, float(_sp_primal_dot(sp, z, w))
+        POWER_COUNTS["host_reads"] += 1
         z = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
         k += 1
+    POWER_COUNTS["iterations"] += k
     return lam, k
+
+
+# The power iteration's device loop: iterations a period, and whether a
+# period is a CUDA graph replay (else it is enqueued eagerly: on an H100 as
+# fast as the host loop at 88,573 and 797,161 nodes, where a graph's
+# capture costs more than its replays save; PERF.md); its counts since
+# import (periods, replays, captures and their seconds, host reads,
+# iterations), as LOOP_COUNTS
+POWER_PERIOD = 4
+POWER_GRAPH = False
+POWER_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
+                    host_reads=0, iterations=0)
+
+
+def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
+                     rel_tol: float = 1e-12, graph: Optional[bool] = None):
+    """lambda_max(L'L) by power iteration on the primal space (JAX
+    ``solver.py:135``), from :func:`_power_start`. Returns (lambda as
+    float, iterations).
+
+    The loop keeps lambda (in float64, as the host loop's Python float),
+    the count and the running flag on the device, ``POWER_PERIOD``
+    iterations a period (:class:`~raocp_tpu_torch.ops.cond.Periods`): the
+    host reads one flag a period and lambda with the count at the end. An
+    iteration past convergence moves neither z, lambda nor the count, so
+    both give the host loop's lambda and count bit for bit. ``graph``
+    (default ``POWER_GRAPH``) replays a captured period on a card, each
+    iteration under a conditional node on the flag (not run past
+    convergence); otherwise each period is enqueued eagerly, an iteration
+    past convergence masked (``torch.where``). The partitions and
+    :func:`_host_loop` run :func:`_power_iteration_host`."""
+    if sp.spmd_group is not None or _HOST_LOOP:
+        return _power_iteration_host(sp, max_iters, rel_tol)
+    graph = POWER_GRAPH if graph is None else graph
+    dev = sp.device
+    z = _power_start(sp)
+    lam = torch.zeros((), dtype=torch.float64, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    running = torch.full((), max_iters > 0, device=dev)
+
+    def step():
+        """One iteration and the loop's condition after it."""
+        w = ell_t(sp, ell(sp, z))
+        lam_new = _sp_primal_dot(sp, z, w).double()     # Rayleigh quotient
+        z_new = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
+        k_new = k + 1
+        going = ((k_new < 2)
+                 | ((lam_new - lam).abs() > rel_tol * lam_new.abs())) \
+            & (k_new < max_iters)
+        return z_new, lam_new, k_new, going
+
+    def masked():
+        # enqueued eagerly: an iteration past convergence runs, masked
+        for _ in range(POWER_PERIOD):
+            z_new, lam_new, k_new, going = step()
+            for d, n in zip(z, z_new):
+                d.copy_(torch.where(running, n, d))
+            lam.copy_(torch.where(running, lam_new, lam))
+            k.copy_(torch.where(running, k_new, k))
+            running.copy_(running & going)
+
+    def guarded():
+        # a graph's period: an iteration past convergence does not run
+        def body():
+            z_new, lam_new, k_new, going = step()
+            for d, n in zip(z, z_new):
+                d.copy_(n)
+            lam.copy_(lam_new)
+            k.copy_(k_new)
+            running.copy_(going)
+
+        for _ in range(POWER_PERIOD):
+            cond.branch(running, body)
+
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()):
+        # a graph's eager first period is the masked one: no host read
+        periods = cond.Periods(dev, guarded if graph else masked, running,
+                               graph, POWER_COUNTS, first=masked)
+        periods.run(max(1, -(-max_iters // POWER_PERIOD)), _lookahead(dev))
+        out = torch.stack([lam, k.double()]).cpu().numpy()
+    POWER_COUNTS["host_reads"] += 1
+    POWER_COUNTS["iterations"] += int(out[1])
+    return float(out[0]), int(out[1])
 
 
 def _cp_step(sp: StackedProblem, z, eta, Lz, Lt, alpha1, alpha2, x0,
@@ -445,9 +541,12 @@ _LOOPS = {}
 @contextlib.contextmanager
 def _host_loop():
     """Within the block :func:`_run_cp` and :func:`_run_cp_batch` run the
-    host loops (:func:`_run_cp_host`, :func:`_run_cp_batch_host`): the
-    switch of an A/B of the two loops (``chip_smoke.py``'s ``loop_graph``,
-    ``scripts/bench_sweep.py``). The previous state returns on exit, also
+    host loops (:func:`_run_cp_host`, :func:`_run_cp_batch_host`), and so
+    do :func:`_power_iteration` and the accelerated loops
+    (``accel._run_cp_anderson_host``, ``accel._run_cp_supermann_host``):
+    the switch of an A/B of the two loops (``chip_smoke.py``'s
+    ``loop_graph`` and ``accel_loop``, ``scripts/bench_sweep.py``,
+    ``scripts/bench_accel.py``). The previous state returns on exit, also
     on an exception."""
     global _HOST_LOOP
     saved = _HOST_LOOP
@@ -1152,7 +1251,17 @@ class Solver:
             ``"supermann"`` (aliases ``"broyden"``, ``"lbfgs"``); see
             :mod:`raocp_tpu_torch.accel`. Accelerated solves step with
             ``alpha`` itself and ignore ``step_ratio``, ``adaptive``,
-            ``relax``, ``unroll`` and ``chunk_iters``.
+            ``relax``, ``unroll`` and ``chunk_iters``. On one device their
+            loops keep state and branches on the device (on a card a check
+            period is one CUDA graph replay whose branches are conditional
+            nodes, and the host reads one flag a period); on the flat
+            partition, whose sums are gloo all-reduces, and inside
+            :func:`_host_loop` they take their branches on the host.
+
+        The plain loop runs on the device as well (:func:`_run_cp`), and
+        so does the power iteration that sets the default ``alpha``
+        (:func:`_power_iteration`, once a Solver); a partition runs their
+        host loops.
         :param accel_memory: Anderson / Broyden history depth
         :param check_every: evaluate the residuals every k-th iteration
         :param unroll: CP steps per loop trip (must divide check_every)

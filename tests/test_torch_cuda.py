@@ -486,3 +486,203 @@ def test_capture_unsafe_step_raises(cuda, tmp_path):
                           env={**os.environ, "PYTHONPATH": root})
     assert proc.returncode == 3, proc.stdout + proc.stderr
     assert "RAISED" in proc.stdout and "RETURNED" not in proc.stdout
+
+
+def _accel_runs(sp, x0, alpha, name, **opts):
+    """``accel.run_cp_<name>`` through the graph loop (its first call
+    captures: run twice) and the host loop, each with its counts."""
+    from raocp_tpu_torch import accel
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.scripts.bench_configs import counted_calls
+
+    out = {}
+    for loop, scope in (("capture", None), ("graph", None),
+                        ("host", solver_mod._host_loop)):
+        z0, eta0, x0t = _loop_start(sp, x0)
+        with scope() if scope else contextlib.nullcontext(), \
+                counted_calls() as calls:
+            got = getattr(accel, f"run_cp_{name}")(sp, z0, eta0, x0t, alpha,
+                                                   **opts)
+            torch.cuda.synchronize()
+        out[loop] = got, calls
+    return out
+
+
+# name -> (problem, dtype, method, the loop's options)
+ACCEL_CASES = {
+    "uniform_supermann_f32": ("small", torch.float32, "supermann",
+                              dict(tol=1e-12, max_iters=80)),
+    "uniform_supermann_ls3_f64": ("small", torch.float64, "supermann",
+                                  dict(tol=1e-12, max_iters=60, ls_max=3,
+                                       check_every=5)),
+    "uniform_anderson_f32": ("small", torch.float32, "anderson",
+                             dict(tol=1e-4, max_iters=300, check_every=5)),
+    "demo_anderson_f64": ("demo", torch.float64, "anderson",
+                          dict(tol=1e-3, max_iters=2000, check_every=25)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ACCEL_CASES))
+def test_graph_accel_loop_is_host_loop(cuda, case):
+    """The accelerated loops' CUDA graphs (branches as conditional nodes)
+    against their host loops on the card: the same count, T evaluations,
+    iterates and history bit for bit; K1 launches equal ``prox_f`` calls
+    equal T evaluations (on the uniform tree, K1's); at most one host read
+    a period and two at the end."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.models import demo_problem
+
+    where, dtype, name, opts = ACCEL_CASES[case]
+    if where == "demo":
+        problem, x0 = demo_problem()
+    else:
+        problem, x0 = random_network_problem(**FIXTURES["small"][0])
+    solver = rt.Solver(problem, dtype=dtype, device=cuda)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    out = _accel_runs(sp, x0, alpha, name, **opts)
+    (h, h_calls) = out["host"]
+    period = 16 if opts.get("check_every", 1) == 1 else opts["check_every"]
+    for loop in ("capture", "graph"):
+        g, calls = out[loop]
+        assert g[2] == h[2] and g[3] == h[3]
+        for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
+            assert torch.equal(a, b)
+        np.testing.assert_array_equal(g[5], h[5])
+        assert calls["prox_f"] == calls["accel_loop"]["t_evals"] == g[3]
+        if sweep.sweep_eligible(sp):
+            assert calls["k1"] == calls["prox_f"]
+    g_loop = out["graph"][1]["accel_loop"]
+    assert g_loop["replays"] > 0 and g_loop["captures"] == 0
+    assert g_loop["host_reads"] <= -(-g[2] // period) + 2
+    assert h_calls["prox_f"] == h[3] and h_calls["host_reads"] > h[2]
+
+
+@pytest.mark.cuda
+def test_untaken_bodies_do_not_run(cuda, tmp_path):
+    """A profile of a graph solve of SuperMann (three line-search tries)
+    on the uniform tree (its device events inside the solve's range): K1's
+    kernels equal T evaluations times K1's launches per apply, so no body
+    that was not taken ran (every try and the fallback hold a T
+    evaluation), and the conditional nodes' set kernels equal those the
+    replays ran. In a process of its own: in one that had run other traces
+    and graphs the card's tracer reported kernels the bodies taken do not
+    launch."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    script = tmp_path / "untaken.py"
+    script.write_text(textwrap.dedent("""
+        import json
+        import torch
+        import raocp_tpu_torch as rt
+        from raocp_tpu_torch import accel
+        from raocp_tpu_torch.models import random_network_problem
+        from raocp_tpu_torch.ops import cond, sweep
+        from raocp_tpu_torch.scripts import profile_step
+
+        problem, x0 = random_network_problem(
+            num_states=6, num_inputs=3, num_modes=3, num_stages=4,
+            stopping_time=4)
+        solver = rt.Solver(problem, device="cuda")
+        sp = solver.stacked
+        alpha = 0.999 / solver.operator_norm_sq()
+        x0t = torch.as_tensor(x0, dtype=sp.dtype, device=sp.device)
+        got = {}
+
+        def solve():
+            z0 = sp.zero_primal()
+            z0.x[0] = x0t
+            launches = cond.LAUNCHES
+            got["out"] = accel.run_cp_supermann(
+                sp, z0, sp.zero_dual(), x0t, alpha, 1e-12, 80, ls_max=3,
+                check_every=5)
+            got["sets"] = cond.LAUNCHES - launches
+
+        solve()                                     # the capture
+        events = profile_step.traced_call_events(solve)
+        print(json.dumps(dict(
+            iters=got["out"][2], t_evals=got["out"][3],
+            sets_counted=got["sets"],
+            per_apply=sweep.sweep_schedule(sp)["launch_count"],
+            k1=sum(profile_step.is_k1(ev["name"]) for ev in events),
+            sets=sum("set_conditional" in ev["name"] for ev in events))))
+    """))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, str(script)], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = json.loads(proc.stdout.splitlines()[-1])
+    assert got["t_evals"] > got["iters"] + 1       # tries and fallbacks ran
+    assert got["k1"] == got["t_evals"] * got["per_apply"]
+    assert got["sets"] == got["sets_counted"] > 0
+
+
+@pytest.mark.cuda
+def test_capture_unsafe_body_raises(cuda, tmp_path):
+    """A host read patched into an accelerated loop's body makes its
+    capture fail: the solve raises and does not rerun on the host loop.
+    (In a process of its own: a failed capture may leave the card's
+    context unusable.)"""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    script = tmp_path / "unsafe_accel.py"
+    script.write_text(textwrap.dedent("""
+        import torch
+        import raocp_tpu_torch as rt
+        from raocp_tpu_torch import accel
+        from raocp_tpu_torch.models import demo_problem
+
+        real = accel._norm
+
+        def reads_the_host(sp, W):
+            norm = real(sp, W)
+            float(norm)                 # a device-to-host read
+            return norm
+
+        accel._norm = reads_the_host
+        problem, x0 = demo_problem()
+        solver = rt.Solver(problem, dtype=torch.float64)
+        try:
+            solver.solve(x0, max_iters=200, tol=1e-3, accel="anderson",
+                         check_every=25)
+        except Exception as exc:
+            print("RAISED", type(exc).__name__,
+                  accel.LOOP_COUNTS["captures"], flush=True)
+            raise SystemExit(3)
+        print("RETURNED", flush=True)
+    """))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, str(script)], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "RAISED" in proc.stdout and "RETURNED" not in proc.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+def test_power_iteration_on_the_card(cuda, graph):
+    """The power iteration's device loop on the card (periods enqueued,
+    or replayed as a graph) gives its host loop's lambda and count at the
+    headline (24 iterations), one flag read a period and one at the
+    end."""
+    from raocp_tpu_torch import solver as solver_mod
+
+    problem, _ = random_network_problem(**FIXTURES["headline"][0])
+    sp = build_stacked(problem, dtype=torch.float32, device=cuda)
+    before = dict(solver_mod.POWER_COUNTS)
+    got = solver_mod._power_iteration(sp, graph=graph)
+    ran = {k: solver_mod.POWER_COUNTS[k] - before[k] for k in before}
+    assert got == solver_mod._power_iteration_host(sp)
+    assert got[1] == 24
+    assert ran["host_reads"] <= -(-got[1] // solver_mod.POWER_PERIOD) + 1
+    assert ran["captures"] == int(graph)
