@@ -96,11 +96,14 @@ it and read just after:
   a process of their own, ``--part accel_traces``),
   busy share, host reads an iteration, capture seconds and peak memory;
   the graph loop must give the host loop's iterates and history bit for
-  bit, read the host at most once a period and twice at the end, and in
-  a trace K1's kernels must equal the T evaluations times K1's launches
-  an apply (a body not taken runs nothing); ``power_headline_f32``: the
-  power iteration's device loop (periods enqueued, and replayed as a
-  graph) against its host loop, the same lambda and count;
+  bit, its device counts of the bodies it ran must equal the host loop's
+  counts of the same bodies (a body not taken runs nothing), it must
+  read the host at most once a period and twice at the end, and in a
+  trace K1's kernels must equal the T evaluations times K1's launches an
+  apply; each method runs on a solver of its own, whose cached loop must
+  go with it; ``power_headline_f32``: the power iteration's device loop
+  (masked periods enqueued) against its host loop, the same lambda and
+  count;
 * ``accel_supermann_small_window_f64``, ``accel_anderson_demo_*``:
   SuperMann on the uniform tree (through K1) and Anderson on the demo,
   through the device loop, in float64 against the CPU port (the same T
@@ -182,7 +185,7 @@ checks as the smoke's phases.
 ``--accel-loop`` runs ``accel_loop_headline_f32_to_tol`` (SuperMann and
 Anderson at the headline to 1e-3, each loop best of
 ``ACCEL_LOOP_REPEATS``, with the same checks) and the power iteration's
-three loops at the headline and at 88,573 and 797,161 nodes
+two loops at the headline and at 88,573 and 797,161 nodes
 (``power_*``).
 ``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
 headline (``check_every=25, unroll=25``) and of config 5 (the closed
@@ -1860,12 +1863,25 @@ def _accel_runs(solver, x0, method, loops, repeats, path, **opts):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
-            with scope(), counted(path) as calls:
+            with scope(), counted(path) as calls, bodies_run(method) as ran:
                 res = solver.solve(x0, accel=method, **opts)
             runs[loop].append(dict(
-                res=res, calls=calls,
+                res=res, calls=calls, bodies=ran,
                 peak=torch.cuda.max_memory_allocated() - start))
     return runs
+
+
+@contextlib.contextmanager
+def bodies_run(method):
+    """The bodies of ``method``'s loop that ran in the block (body ->
+    runs, from ``accel.BODY_RUNS``: a device loop's own device counters,
+    a host loop's count on the host)."""
+    before = dict(accel_mod.BODY_RUNS)
+    ran = {}
+    yield ran
+    ran.update({name: accel_mod.BODY_RUNS[method, name]
+                - before.get((method, name), 0)
+                for name in accel_mod.BODIES[method]})
 
 
 def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
@@ -1916,12 +1932,11 @@ def part_accel_traces():
     after the solve that captures it, and one of a host-loop solve, each
     of ``ACCEL_LOOP_PROFILED`` iterations; one JSON line a method."""
     problem, x0 = random_network_problem(**HEADLINE)
-    solver = rt.Solver(problem, device=DEV)
-    solver.operator_norm_sq()
     opts = dict(accel_memory=5, check_every=25)
     for method in ("supermann", "anderson"):
-        accel_mod._LOOPS.clear()
-        gc.collect()
+        # a solver a method: one graph with conditional nodes alive at a
+        # time (see _accel_loop_rows)
+        solver = rt.Solver(problem, device=DEV)
         solver.solve(x0, accel=method, max_iters=ACCEL_LOOP_PROFILED - 1,
                      tol=1e-12, **opts)
         print(json.dumps(dict(method=method, **{
@@ -1929,6 +1944,8 @@ def part_accel_traces():
                                1 if loop == "host" else ACCEL_LOOP_TRACES,
                                **opts)
             for loop in ("graph", "host")})), flush=True)
+        del solver
+        gc.collect()
 
 
 def _accel_traces():
@@ -1950,33 +1967,42 @@ def _accel_traces():
              if line.startswith("{"))}
 
 
-def _accel_loop_rows(solver, x0, repeats, path, warm_paths, **opts):
+def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
     """SuperMann and Anderson at the headline through the graph loop and
     the host loop in turns, after one graph solve that captures (counted
-    under ``warm_paths[method]``; the rest under ``path``): each loop's
+    under ``warm_paths[method]``; the rest under ``path``), each method on
+    a solver of its own: each loop's
     count, T evaluations, rate, wall µs beside device µs an iteration
     (traces of ``ACCEL_LOOP_PROFILED`` iterations, taken in a process of
     their own: :func:`_accel_traces`), busy share, host reads
     an iteration, capture seconds and peak memory; the graph loop held to
-    the host loop's iterates and history bit for bit, its host reads to
-    one a period and two at the end, K1's launches to the ``prox_f``
-    calls, and K1's kernels in a trace to T evaluations times K1's
-    launches an apply. Returns the rows and each method's capturing
-    solve (its result, counts and peak memory)."""
-    per_apply = sweep.sweep_schedule(solver.stacked)["launch_count"]
+    the host loop's iterates and history bit for bit, its device counts
+    of the bodies it ran to the host loop's counts of the same bodies, its
+    host reads to one a period and two at the end, K1's launches to the
+    ``prox_f`` calls, and K1's kernels in a trace to T evaluations times
+    K1's launches an apply; the method's cached loop freed with its
+    solver. Returns the rows and each method's capturing solve (its
+    result, counts and peak memory)."""
     period = opts["check_every"]
     traced = _accel_traces()
     rows, warm_runs = {}, {}
     for method in ("supermann", "anderson"):
-        # one graph with conditional nodes alive at a time: with another
-        # alive, the card's tracer reported some of one method's replayed
-        # kernels twice or not at all (seen on an H100, CUDA 12.8)
-        accel_mod._LOOPS.clear()
+        # a solver a method, freed after it: one graph with conditional
+        # nodes alive at a time (with another alive, the card's tracer
+        # reported some of one method's replayed kernels twice or not at
+        # all; seen on an H100, CUDA 12.8)
         gc.collect()
+        torch.cuda.synchronize()
+        before_solver = torch.cuda.memory_allocated()
+        solver = rt.Solver(problem, device=DEV)
+        solver.operator_norm_sq()
+        per_apply = sweep.sweep_schedule(solver.stacked)["launch_count"]
         torch.cuda.reset_peak_memory_stats()
-        with counted(warm_paths.get(method, path)) as warm:
+        with counted(warm_paths.get(method, path)) as warm, \
+                bodies_run(method) as warm_bodies:
             warm_res = solver.solve(x0, accel=method, **opts)
         warm_runs[method] = dict(res=warm_res, calls=warm,
+                                 bodies=warm_bodies,
                                  peak=torch.cuda.max_memory_allocated())
         check(warm["k1"] == warm["prox_f"] > 0,
               f"accel_loop {method}: K1 {warm['k1']} != prox_f "
@@ -2001,7 +2027,7 @@ def _accel_loop_rows(solver, x0, repeats, path, warm_paths, **opts):
                 busy_share=device_us / wall_us,
                 host_reads=calls["host_reads"],
                 host_reads_per_iter=calls["host_reads"] / res.num_iters,
-                loop_counts=calls["accel_loop"],
+                loop_counts=calls["accel_loop"], bodies=best["bodies"],
                 set_kernels=calls["cond"],
                 peak_memory_over_start_bytes=max(r["peak"] for r in rs),
                 traces=traces, xi=res.xi.tolist())
@@ -2012,6 +2038,11 @@ def _accel_loop_rows(solver, x0, repeats, path, warm_paths, **opts):
         want = runs["host"][0]["res"]
         for r in runs["graph"] + runs["host"] + [warm_runs[method]]:
             got = r["res"]
+            check(r["bodies"] == runs["host"][0]["bodies"]
+                  and accel_mod._body_t_evals(method, r["bodies"])
+                  == r["calls"]["prox_f"],
+                  f"accel_loop {method}: bodies run {r['bodies']} against "
+                  f"the host loop's {runs['host'][0]['bodies']}")
             check(got.num_iters == want.num_iters
                   and r["calls"]["prox_f"] == runs["host"][0]["calls"][
                       "prox_f"]
@@ -2044,17 +2075,25 @@ def _accel_loop_rows(solver, x0, repeats, path, warm_paths, **opts):
               == graph["traces"][0]["set_kernels_counted"] > 0,
               f"accel_loop {method}: no trace holds every kernel the "
               f"bodies taken launch: {graph['traces']}")
+        key = id(solver.stacked)
+        del solver, runs
+        gc.collect()
+        torch.cuda.synchronize()
+        row["allocated_after_solver_freed_bytes"] = \
+            torch.cuda.memory_allocated() - before_solver
+        check(not any(slot[0] == key for slot in accel_mod._LOOPS),
+              f"accel_loop {method}: the loop outlived its solver")
     return rows, warm_runs
 
 
 def _power_rows(solver, repeats):
-    """The power iteration at ``solver``'s problem: the device loop's
-    periods enqueued and replayed as a graph, and the host loop, in turns,
-    ``repeats`` times each: lambda, the count, seconds and host reads; the
-    device loops held to the host loop's lambda and count, and to one read
-    a period and one at the end."""
+    """The power iteration at ``solver``'s problem: the device loop (masked
+    periods enqueued eagerly) and the host loop, in turns, ``repeats``
+    times each: lambda, the count, seconds and host reads; the device loop
+    held to the host loop's lambda and count, and to one read a period and
+    one at the end."""
     sp = solver.stacked
-    runs = {"eager": [], "graph": [], "host": []}
+    runs = {"device": [], "host": []}
     for _ in range(repeats):
         for mode in runs:
             before = dict(solver_mod.POWER_COUNTS)
@@ -2063,32 +2102,27 @@ def _power_rows(solver, repeats):
             if mode == "host":
                 lam, k = solver_mod._power_iteration_host(sp)
             else:
-                lam, k = solver_mod._power_iteration(sp,
-                                                     graph=mode == "graph")
+                lam, k = solver_mod._power_iteration(sp)
             torch.cuda.synchronize()
             runs[mode].append(dict(
                 lam=lam, iters=k, seconds=time.perf_counter() - tic,
-                **{key: solver_mod.POWER_COUNTS[key] - before[key]
-                   for key in ("host_reads", "captures", "replays",
-                               "capture_seconds")}))
+                host_reads=solver_mod.POWER_COUNTS["host_reads"]
+                - before["host_reads"]))
     want = runs["host"][0]
     for mode, rs in runs.items():
         for r in rs:
             check(r["lam"] == want["lam"] and r["iters"] == want["iters"],
                   f"power iteration ({mode}): {r['lam']}, {r['iters']} "
                   f"against the host loop's {want['lam']}, {want['iters']}")
-            if mode != "host":
+            if mode == "device":
                 check(r["host_reads"] <= -(-r["iters"]
                                            // solver_mod.POWER_PERIOD) + 1,
                       f"power iteration ({mode}): {r['host_reads']} reads")
     return dict(nodes=sp.num_nodes, lam=want["lam"], iters=want["iters"],
                 period=solver_mod.POWER_PERIOD,
-                default="graph" if solver_mod.POWER_GRAPH else "eager",
                 **{mode: dict(seconds=[r["seconds"] for r in rs],
                               best_ms=1e3 * min(r["seconds"] for r in rs),
-                              host_reads=rs[0]["host_reads"],
-                              captures=rs[0]["captures"],
-                              capture_seconds=rs[0]["capture_seconds"])
+                              host_reads=rs[0]["host_reads"])
                    for mode, rs in runs.items()})
 
 
@@ -2099,13 +2133,12 @@ def phase_accel():
     headline; SuperMann on the uniform fixture (through K1) and Anderson
     on the demo, each in float64 on the card against the CPU port."""
     problem, x0 = random_network_problem(**HEADLINE)
-    solver = rt.Solver(problem, device=DEV)
-    solver.operator_norm_sq()
     opts = dict(max_iters=ACCEL_LOOP_ITERS, tol=1e-3, accel_memory=5,
                 check_every=25)
     rows, warm = _accel_loop_rows(
-        solver, x0, 1, "accel_loop_headline_f32",
+        problem, x0, 1, "accel_loop_headline_f32",
         {"supermann": "accel_headline_f32"}, **opts)
+    solver = rt.Solver(problem, device=DEV)
     # accel_headline_f32: SuperMann's first solve, which captures
     res, calls = warm["supermann"]["res"], warm["supermann"]["calls"]
     reads = calls["host_reads"]
@@ -2118,6 +2151,7 @@ def phase_accel():
          first_checked_xi=first, host_reads=reads,
          host_reads_per_iter=reads / res.num_iters,
          loop=calls["accel_loop"], set_kernels=calls["cond"],
+         bodies=warm["supermann"]["bodies"],
          max_memory_allocated_bytes=warm["supermann"]["peak"])
     check(np.isfinite(res.xi).all() and float(res.xi.max()) < first,
           f"SuperMann xi {res.xi} not below its first check {first}")
@@ -2128,7 +2162,7 @@ def phase_accel():
          profiled_iters=ACCEL_LOOP_PROFILED, **rows)
     check(rows["supermann"]["graph"]["iters"] == res.num_iters,
           "accel_loop: SuperMann's count moved between solves")
-    emit("power_headline_f32", **_power_rows(solver, 1))
+    emit("power_headline_f32", **_power_rows(solver, ACCEL_LOOP_REPEATS))
 
     # SuperMann on the uniform fixture runs K1 on the card. There one ulp
     # on alpha moves the CPU iterates by 2e-11 after 80 iterations and by
@@ -2168,12 +2202,11 @@ def phase_accel_loop():
     iteration's loops at the headline and at 88,573 and 797,161 nodes
     (best of the same)."""
     problem, x0 = random_network_problem(**HEADLINE)
-    solver = rt.Solver(problem, device=DEV)
-    solver.operator_norm_sq()
-    rows, _ = _accel_loop_rows(solver, x0, ACCEL_LOOP_REPEATS,
+    rows, _ = _accel_loop_rows(problem, x0, ACCEL_LOOP_REPEATS,
                                "accel_loop_headline_f32_to_tol", {},
                                max_iters=20000, tol=1e-3, accel_memory=5,
                                check_every=25)
+    solver = rt.Solver(problem, device=DEV)
     emit("accel_loop_headline_f32_to_tol", nodes=solver.stacked.num_nodes,
          memory=5, check_every=25, repeats=ACCEL_LOOP_REPEATS,
          profiled_iters=ACCEL_LOOP_PROFILED, **rows)

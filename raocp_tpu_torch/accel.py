@@ -56,6 +56,7 @@ Every read goes through :func:`_read`, which counts it in
 ran.
 """
 
+import collections
 import contextlib
 import math
 import types
@@ -78,7 +79,7 @@ from raocp_tpu_torch.parallel.sharding import all_reduce
 from raocp_tpu_torch.solver import _cp_residuals, _cp_step
 
 __all__ = ["run_cp_anderson", "run_cp_supermann", "HOST_READS",
-           "LOOP_COUNTS"]
+           "LOOP_COUNTS", "BODY_RUNS"]
 
 HOST_READS = 0
 
@@ -89,10 +90,24 @@ HOST_READS = 0
 # and history; the capture's eager branches); T evaluations and iterations
 # (the device's counts), and of the T evaluations those that replays ran.
 # A replayed T evaluation is a prox_f call that Python made once, at
-# capture (``scripts.bench_configs.counted_calls`` adds them to its count).
+# capture (``scripts.bench_configs.counted_calls`` adds them to its count);
+# the device loop takes their number from its bodies' counts (below), and
+# K1's replayed launches from its own count of T evaluations, so the two
+# are independent witnesses of what the replays ran.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    host_reads=0, t_evals=0, iterations=0,
                    replayed_t_evals=0)
+
+# The bodies each loop ran, summed since import: (kind, body) -> runs. A
+# device loop counts them on the device (an int64 counter a body, never
+# reset, that the body itself adds to, read with the final counts), a host
+# loop on the host; one run gives the same counts through either loop, so
+# a body that a replay ran untaken shows there. T evaluations:
+# Anderson's are 1 + iteration + fallback, SuperMann's 1 + attempt + blind
+# + plain.
+BODIES = {"anderson": ("iteration", "accepted", "fallback"),
+          "supermann": ("iteration", "attempt", "blind", "accept", "plain")}
+BODY_RUNS = collections.Counter()
 
 # guarded iterations in a period of a loop that checks every iteration
 PERIOD_CHECK_EVERY_1 = 16
@@ -104,7 +119,9 @@ _TRUE = _NP + _ND                  # the (z, eta) leaves of an extended W
 # T evaluations run eagerly (not captured), summed since import
 _EAGER_T = 0
 
-# each problem's device loops on a card: (id(sp), kind) -> (key, loop)
+# each problem's device loops on a card: (id(sp), kind) -> (key, loop);
+# a loop holds no reference to its problem (it comes with each call), so
+# the entry goes with the problem
 _LOOPS = {}
 
 
@@ -246,14 +263,20 @@ def _buffers(template):
                  for v in template)
 
 
-def _loop_state(sp, W0, memory, capacity, scalars):
+def _loop_state(sp, kind, W0, memory, capacity, scalars):
     """The buffers of one accelerated loop: the iterate W and residual R,
     the step's result (Wn, Rn), err/derr at the last check, the history
     rows, the counters k and evals (int64), the running flag, the
-    constants a solve loads (alpha, x0, tol as float64, the cap) and the
-    loop's own ``scalars`` (name -> dtype, 0-d)."""
+    constants a solve loads (alpha, x0, tol as float64, the cap), the
+    loop's own ``scalars`` (name -> dtype, 0-d) and its bodies' run
+    counters (``BODIES[kind]``, never reset; ``seen``: their values at the
+    last read)."""
     dt, dev = sp.dtype, sp.device
+    names = BODIES[kind]
     L = types.SimpleNamespace(
+        kind=kind, body=dict(zip(names, range(len(names)))),
+        bodies=torch.zeros(len(names), dtype=torch.int64, device=dev),
+        seen=np.zeros(len(names), dtype=np.int64),
         W=_buffers(W0), R=_buffers(W0), Wn=_buffers(W0), Rn=_buffers(W0),
         err=torch.empty(3, dtype=dt, device=dev),
         derr=torch.empty(3, dtype=dt, device=dev),
@@ -297,6 +320,11 @@ def _check(sp, L, W, T):
     L.hist.index_copy_(0, L.k.reshape(1), torch.cat([err, derr])[None])
 
 
+def _ran(L, body):
+    """Count a run of ``body`` on the device (inside the body)."""
+    L.bodies[L.body[body]].add_(1)
+
+
 def _advance(L):
     """W <- Wn, R <- Rn, k += 1, and the loop's condition after it: the
     last checked residual above tol (compared in float64, as the host
@@ -316,6 +344,7 @@ def _anderson_iteration(sp, L, checked, theta):
     dt = sp.dtype
 
     def body():
+        _ran(L, "iteration")
         valid = (L.slots < L.pushes).to(dt)
         Gm = L.G * (valid[:, None] * valid[None, :]) + L.reg_eye
         b = _h_dot(sp, L.dR, L.R) * valid
@@ -328,6 +357,7 @@ def _anderson_iteration(sp, L, checked, theta):
                                    <= theta * _norm(sp, L.R))
 
         def accepted():
+            _ran(L, "accepted")
             _put(L.Wn, W_cand)
             _put(L.Rn, R_cand)
             L.evals.add_(1)
@@ -335,6 +365,7 @@ def _anderson_iteration(sp, L, checked, theta):
         def fallback():
             # the plain step w+ = T(w) = w + r; one more T evaluation
             # refreshes the residual there
+            _ran(L, "fallback")
             W_p = _add(L.W, L.R)
             _put(L.Wn, W_p)
             _put(L.Rn, _sub(_t_ext(sp, W_p, L.a, L.x0, L.shift), W_p))
@@ -372,6 +403,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
         return _add(V, _h_combo(L.U, w))
 
     def body():
+        _ran(L, "iteration")
         norm_r = _norm(sp, L.R).double()
         d = tuple(-v for v in apply_h(L.R))
         blind = norm_r <= c0 * L.eta_safe
@@ -382,6 +414,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
         for _ in range(ls_max):
             def attempt(tau=tau):
                 # backtrack: the candidate w + tau d and its residual
+                _ran(L, "attempt")
                 W_c = _add(L.W, tuple(tau * v for v in d))
                 _put(L.Wn, W_c)
                 _put(L.Rn, _sub(W_c, _t_ext(sp, W_c, L.a, L.x0, L.shift)))
@@ -396,6 +429,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
 
         def blind_step():
             # K0: accept w + d without a test; eta_safe tightens
+            _ran(L, "blind")
             W_n = _add(L.W, d)
             _put(L.Wn, W_n)
             _put(L.Rn, _sub(W_n, _t_ext(sp, W_n, L.a, L.x0, L.shift)))
@@ -404,10 +438,12 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
 
         def accept_step():
             # K1: the line search's candidate is already in (Wn, Rn)
+            _ran(L, "accept")
             L.r_safe.copy_(L.norm_c + L.eps)
             L.evals.add_(L.tries)
 
         def plain_step():
+            _ran(L, "plain")
             W_p = _sub(L.W, L.R)
             _put(L.Wn, W_p)
             _put(L.Rn, _sub(W_p, _t_ext(sp, W_p, L.a, L.x0, L.shift)))
@@ -472,8 +508,9 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
     ``PERIOD_CHECK_EVERY_1`` of them), the cap and the tolerance stop it in
     mid-period, and the host reads one flag a period
     (:class:`~raocp_tpu_torch.ops.cond.Periods`; on a card one period is
-    enqueued ahead of the flag). ``iteration(L, checked)`` is one guarded
-    iteration, ``scalars`` the loop's own 0-d buffers and ``init(L, W0,
+    enqueued ahead of the flag). ``iteration(sp, L, checked)`` is one
+    guarded iteration (it must hold no reference to ``sp``: a card's loop
+    is cached), ``scalars`` the loop's own 0-d buffers and ``init(L, W0,
     R0)`` sets what a solve starts from. Returns (z, eta, iters, t_evals,
     err NumPy [3], hist NumPy [iters, 6])."""
     global HOST_READS
@@ -491,13 +528,13 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
         err, derr = _residuals(sp, W0, T0, a)
 
         def make():
-            L = _loop_state(sp, W0, memory, capacity, scalars)
+            L = _loop_state(sp, kind, W0, memory, capacity, scalars)
             checks = [check_every == 1 or i == period - 1
                       for i in range(period)]
 
-            def run_period():
+            def run_period(sp, L):
                 for checked in checks:
-                    iteration(L, checked)
+                    iteration(sp, L, checked)
 
             L.periods = Periods(sp.device, run_period, L.running, True,
                                 LOOP_COUNTS)
@@ -508,32 +545,47 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
         _load(L, W0, R0, err, derr, alpha, x0, tol, max_iters, check_every)
         init(L, W0, R0)
         L.periods.run(-(-(max_iters + 1) // period),
-                      solver_mod._lookahead(sp.device))
+                      solver_mod._lookahead(sp.device), sp, L)
         HOST_READS += LOOP_COUNTS["host_reads"] - before["host_reads"]
         out = _read(torch.cat([torch.stack([L.k, L.evals]).double(),
-                               L.err.double()]), loop=True)
+                               L.bodies.double(), L.err.double()]),
+                    loop=True)
         iters, evals = int(out[0]), int(out[1])
+        seen = out[2:2 + len(L.seen)].astype(np.int64)
+        ran = dict(zip(BODIES[kind], (seen - L.seen).tolist()))
+        L.seen = seen
         hist = _read(L.hist[:iters], loop=True).astype(np.float64)
         z, eta, _, _ = _split(L.W)
         if cuda:                     # the buffers stay with the cached loop
             z, eta = (type(t)(*(v.clone() for v in t)) for t in (z, eta))
-    replayed = evals - (_EAGER_T - eager_t)
+    eager = _EAGER_T - eager_t
+    BODY_RUNS.update({(kind, name): n for name, n in ran.items()})
     LOOP_COUNTS["t_evals"] += evals
     LOOP_COUNTS["iterations"] += iters
-    LOOP_COUNTS["replayed_t_evals"] += replayed
-    # every T evaluation calls prox_f once, and prox_f K1 once on its path
-    sweep_mod.LAUNCHES += replayed * (L.periods.recorded > 0)
+    # the T evaluations that replays ran, from the bodies' counts
+    LOOP_COUNTS["replayed_t_evals"] += _body_t_evals(kind, ran) - eager
+    # K1's launches from the loop's own count: every T evaluation calls
+    # prox_f once, and prox_f K1 once on its path
+    sweep_mod.LAUNCHES += (evals - eager) * (L.periods.recorded > 0)
     replays = LOOP_COUNTS["replays"] - before["replays"]
     if replays:
-        # a replay sets every guard of its period, and the branches' nodes
-        # of each iteration that ran (the capture's eager first period ran
-        # the first iterations)
+        # a replay runs the set kernels of its period's guards, and those
+        # of the branches inside each iteration that ran (the capture's
+        # eager first period ran the first iterations)
         outer, inner = L.periods.nodes
-        eager = min(period, iters) if LOOP_COUNTS["captures"] \
+        eager_iters = min(period, iters) if LOOP_COUNTS["captures"] \
             > before["captures"] else 0
-        cond_mod.LAUNCHES += replays * outer + (iters - eager) * inner \
-            // period
-    return z, eta, iters, evals, out[2:], hist
+        cond_mod.LAUNCHES += replays * outer \
+            + (ran["iteration"] - eager_iters) * inner // period
+    return z, eta, iters, evals, out[2 + len(L.seen):], hist
+
+
+def _body_t_evals(kind, ran) -> int:
+    """The T evaluations that the bodies ``ran`` (body -> runs) made, the
+    start's included."""
+    if kind == "anderson":
+        return 1 + ran["iteration"] + ran["fallback"]
+    return 1 + ran["attempt"] + ran["blind"] + ran["plain"]
 
 
 def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
@@ -568,7 +620,7 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     return _device_loop(
         sp, "anderson", z0, eta0, x0, alpha, tol, max_iters, memory,
         check_every, (theta, reg),
-        lambda L, checked: _anderson_iteration(sp, L, checked, theta),
+        lambda sp, L, checked: _anderson_iteration(sp, L, checked, theta),
         scalars, init)
 
 
@@ -615,8 +667,8 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     return _device_loop(
         sp, "supermann", z0, eta0, x0, alpha, tol, max_iters, memory,
         check_every, (ls_max, c0, c1, q_eps, beta),
-        lambda L, checked: _supermann_iteration(sp, L, checked, ls_max, c0,
-                                                c1, q_eps, beta),
+        lambda sp, L, checked: _supermann_iteration(sp, L, checked, ls_max,
+                                                    c0, c1, q_eps, beta),
         scalars, init)
 
 
@@ -639,7 +691,9 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     slots = torch.arange(memory, device=dev)
     hist = _history(max_iters, check_every)
     k, evals, pushes = 0, 1, 0
+    ran = collections.Counter()
     while k == 0 or (err.max() > tol and k < max_iters + 1):
+        ran["iteration"] += 1
         valid = (slots < pushes).to(dt)
         Gm = G * (valid[:, None] * valid[None, :]) + reg_eye
         b = _h_dot(sp, dR, R) * valid
@@ -652,9 +706,11 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
                                      <= theta * _norm(sp, R))):
             W_new, R_new = W_cand, R_cand
             evals += 1
+            ran["accepted"] += 1
         else:
             # the plain step w+ = T(w) = w + r; one more T evaluation
             # refreshes the residual there
+            ran["fallback"] += 1
             W_new = _add(W, R)
             R_new = _sub(_t_ext(sp, W_new, a, x0, shift), W_new)
             evals += 2
@@ -671,6 +727,7 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         W, R = W_new, R_new
         k += 1
         pushes += 1
+    BODY_RUNS.update({("anderson", name): n for name, n in ran.items()})
     z, eta, _, _ = _split(W)
     return z, eta, k, evals, err, hist[:k]
 
@@ -693,20 +750,24 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     hist = _history(max_iters, check_every)
     eta_safe = r_safe = eps = nr0
     slot, k, evals = 0, 0, 1
+    ran = collections.Counter()
 
     def apply_h(V):
         w = _h_dot(sp, Y, V) * valid
         return _add(V, _h_combo(U, w))
 
     def plain_step(j):
+        ran["plain"] += 1
         W_p = _sub(W, R)
         return W_p, _sub(W_p, _t_ext(sp, W_p, a, x0, shift)), j + 1
 
     while k == 0 or (err.max() > tol and k < max_iters + 1):
+        ran["iteration"] += 1
         norm_r = float(_read(_norm(sp, R)))
         d = tuple(-v for v in apply_h(R))
         if norm_r <= c0 * eta_safe:
             # K0: accept w + d without a test; eta_safe tightens
+            ran["blind"] += 1
             W_n = _add(W, d)
             R_n = _sub(W_n, _t_ext(sp, W_n, a, x0, shift))
             eta_safe = norm_r
@@ -715,6 +776,7 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             # K1: backtrack until the residual does not grow
             tau, ok, j = 1.0, False, 0
             while not ok and j < ls_max:
+                ran["attempt"] += 1
                 W_c = _add(W, tuple(tau * v for v in d))
                 R_c = _sub(W_c, _t_ext(sp, W_c, a, x0, shift))
                 norm_c = float(_read(_norm(sp, R_c)))
@@ -722,6 +784,7 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
                 tau *= beta
                 j += 1
             if ok:
+                ran["accept"] += 1
                 W_n, R_n, ev = W_c, R_c, j
                 r_safe = norm_c + eps
             else:
@@ -750,5 +813,6 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         eps *= q_eps
         k += 1
         evals += ev
+    BODY_RUNS.update({("supermann", name): n for name, n in ran.items()})
     z, eta, _, _ = _split(W)
     return z, eta, k, evals, err, hist[:k]

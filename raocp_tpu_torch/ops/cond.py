@@ -28,7 +28,8 @@ the host.
 
 :class:`Periods` drives such a loop: a period of iterations at a time,
 each iteration guarded by the loop's ``running`` flag, and the host reads
-that flag once a period.
+that flag once a period (:class:`Flags`, :func:`drive`: the plain CP
+loop, ``solver._DeviceLoop``, reads its flags through the same two).
 """
 
 import contextlib
@@ -41,8 +42,8 @@ import torch
 
 from raocp_tpu_torch.ops import sweep as sweep_mod
 
-__all__ = ["branch", "capturing", "Periods", "build_library", "EAGER_READS",
-           "LAUNCHES"]
+__all__ = ["branch", "capturing", "Flags", "drive", "Periods",
+           "build_library", "EAGER_READS", "LAUNCHES"]
 
 # reads of a card's tensor that an eager branch made (the first period of
 # a loop, before its capture)
@@ -220,16 +221,64 @@ def branch(pred: torch.Tensor, true_fn, false_fn=None) -> None:
         false_fn()
 
 
+class Flags:
+    """The running flags of a loop's last two periods as the host reads
+    them: on a card each period's flag is copied to pinned memory behind
+    an event (the host waits for that period alone); on the CPU a copy."""
+
+    def __init__(self, device: torch.device, shape=()):
+        self.cuda = device.type == "cuda"
+        self.flags = [None, None]
+        if self.cuda:
+            self.flags = [torch.empty(shape, dtype=torch.bool,
+                                      pin_memory=True) for _ in range(2)]
+            self.events = [torch.cuda.Event() for _ in range(2)]
+
+    def post(self, n: int, running: torch.Tensor):
+        """Period ``n``'s flag, enqueued after the period."""
+        if self.cuda:
+            self.flags[n % 2].copy_(running, non_blocking=True)
+            self.events[n % 2].record()
+        else:
+            self.flags[n % 2] = running.clone()
+
+    def read(self, n: int) -> torch.Tensor:
+        """Period ``n``'s flag on the host (a CPU tensor)."""
+        if self.cuda:
+            self.events[n % 2].synchronize()
+        return self.flags[n % 2]
+
+
+def drive(launch, flag, most: int, ahead: int, after=None):
+    """The host's side of a device loop: ``launch(n)`` enqueues period
+    ``n`` (at most ``most``), ``ahead`` of them ahead of the flag read,
+    ``flag(n)`` reads whether the loop still runs after period ``n``, and
+    ``after(n)`` (if given) follows each read. Returns (the periods whose
+    flag was read, the periods enqueued, whether a flag stopped the
+    loop)."""
+    launched = 0
+    for n in range(most):
+        while launched < min(n + 1 + ahead, most):
+            launch(launched)
+            launched += 1
+        running = flag(n)
+        if after is not None:
+            after(n)
+        if not running:
+            return n + 1, launched, True
+    return most, launched, False
+
+
 class Periods:
     """A loop whose state lives on the device (the JAX package's
-    ``while_loop``), run a period at a time. ``period()`` runs one period
-    of iterations in place, each a no-op once the 0-d bool buffer
+    ``while_loop``), run a period at a time. ``period(*args)`` runs one
+    period of iterations in place, each a no-op once the 0-d bool buffer
     ``running`` is false (under :func:`branch`, or a ``torch.where`` mask),
-    and leaves ``running`` holding the loop's condition.
+    and leaves ``running`` holding the loop's condition. ``args`` come
+    with each call (:meth:`run`), so a cached loop keeps no reference to
+    them.
 
-    On a card with ``graph`` the first period runs eagerly (``first()``,
-    by default ``period()``: the same iterations without branches, where
-    the loop has such a form; it builds K1's
+    On a card with ``graph`` the first period runs eagerly (it builds K1's
     library, packs its weights, makes the cuBLAS and cuSOLVER handles and
     grows the allocator outside any graph: a library's first call inside
     a body does not survive the capture), a relaxed capture of a period
@@ -239,10 +288,9 @@ class Periods:
     captured fails there, and the capture raises as a plain one does,
     where a conditional node half captured could crash the process), and
     a period is captured as one CUDA graph that every later
-    period replays. Without ``graph`` each period is enqueued eagerly. On
-    a card each period's flag then goes to pinned memory behind an event,
-    and :meth:`run` enqueues ``lookahead`` periods ahead of the flag it
-    reads (a period past the loop's end runs nothing). On the CPU every
+    period replays. Without ``graph`` each period is enqueued eagerly. The
+    host reads each period's flag through :class:`Flags`, ``lookahead``
+    periods enqueued ahead of the read (:func:`drive`); on the CPU every
     period runs eagerly.
 
     ``counts`` takes the periods, replays, captures, capture seconds and
@@ -251,32 +299,25 @@ class Periods:
     :attr:`nodes` its conditional nodes a nesting depth."""
 
     def __init__(self, device: torch.device, period, running: torch.Tensor,
-                 graph: bool, counts: dict, first=None):
+                 graph: bool, counts: dict):
         self.device = device
         self.period = period
-        self.first = period if first is None else first
         self.running = running
-        self.cuda = device.type == "cuda"
-        self.use_graph = graph and self.cuda
+        self.use_graph = graph and device.type == "cuda"
         self.counts = counts
         self.graph = None
         self.recorded = 0
         self.nodes = []
-        # the flags of the last two periods, as the host reads them
-        self.flags = [None, None]
-        if self.cuda:
-            self.flags = [torch.empty((), dtype=torch.bool, pin_memory=True)
-                          for _ in range(2)]
-            self.events = [torch.cuda.Event() for _ in range(2)]
+        self.flags = Flags(device)
 
-    def _capture(self, graph, stream, mode, inline=False):
+    def _capture(self, graph, stream, mode, args, inline=False):
         with _bodies(self.device, mode, inline) as record, \
                 torch.cuda.graph(graph, stream=stream,
                                  capture_error_mode=mode):
-            self.period()
+            self.period(*args)
         return record
 
-    def capture(self):
+    def capture(self, *args):
         """The eager first period, the warm-up capture and the period's
         graph, on a side stream."""
         tic = time.perf_counter()
@@ -285,14 +326,15 @@ class Periods:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.first()
+            self.period(*args)
         current.wait_stream(side)
         recorded = sweep_mod.RECORDED
-        self._capture(torch.cuda.CUDAGraph(), side, "relaxed", inline=True)
+        self._capture(torch.cuda.CUDAGraph(), side, "relaxed", args,
+                      inline=True)
         # the warm-up graph never runs
         sweep_mod.RECORDED = recorded
         graph = torch.cuda.CUDAGraph()
-        record = self._capture(graph, side, "global")
+        record = self._capture(graph, side, "global", args)
         weakref.finalize(self, _release, self.device, record["pools"])
         self.recorded = sweep_mod.RECORDED - recorded
         self.nodes = record["nodes"]
@@ -301,39 +343,30 @@ class Periods:
         self.counts["capture_seconds"] += time.perf_counter() - tic
         self.counts["host_reads"] += EAGER_READS - reads
 
-    def launch(self, n: int):
+    def launch(self, n: int, *args):
         """Period ``n``: a replay, on a card's first use its capture (the
         eager first period), or eagerly; then its flag."""
         if not self.use_graph:
-            self.period()
+            self.period(*args)
         elif self.graph is None:
-            self.capture()
+            self.capture(*args)
         else:
             self.graph.replay()
             self.counts["replays"] += 1
         self.counts["periods"] += 1
-        if self.cuda:
-            self.flags[n % 2].copy_(self.running, non_blocking=True)
-            self.events[n % 2].record()
-        else:
-            self.flags[n % 2] = self.running.clone()
+        self.flags.post(n, self.running)
 
     def flag(self, n: int) -> bool:
         """Period ``n``'s running flag, as the host reads it."""
         self.counts["host_reads"] += 1
-        if self.cuda:
-            self.events[n % 2].synchronize()
-        return bool(self.flags[n % 2])
+        return bool(self.flags.read(n))
 
-    def run(self, most: int, lookahead: int) -> int:
+    def run(self, most: int, lookahead: int, *args) -> int:
         """Periods until the flag is false (at most ``most``; the loop's own
         cap must stop it by then), ``lookahead`` of them enqueued ahead of
         the flag read. Returns the periods enqueued."""
-        launched = 0
-        for n in range(most):
-            while launched < min(n + 1 + lookahead, most):
-                self.launch(launched)
-                launched += 1
-            if not self.flag(n):
-                return launched
-        raise RuntimeError(f"the loop still ran after {most} periods")
+        _, launched, stopped = drive(lambda n: self.launch(n, *args),
+                                     self.flag, most, lookahead)
+        if not stopped:
+            raise RuntimeError(f"the loop still ran after {most} periods")
+        return launched

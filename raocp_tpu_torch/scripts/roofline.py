@@ -124,7 +124,7 @@ def graph_trip(sp, v: dict, unroll: int = UNROLL, capacity: int = 1 << 16):
         if (n + 1) * unroll > capacity:
             raise RuntimeError("the trip's history is full")
         loop.launch(sp, n)
-        loop.flag(sp, n)
+        loop.flag(n)
         done[0] = n + 1
 
     return apply

@@ -185,84 +185,57 @@ def _power_iteration_host(sp: StackedProblem, max_iters: int = 10000,
     return lam, k
 
 
-# The power iteration's device loop: iterations a period, and whether a
-# period is a CUDA graph replay (else it is enqueued eagerly: on an H100 as
-# fast as the host loop at 88,573 and 797,161 nodes, where a graph's
-# capture costs more than its replays save; PERF.md); its counts since
-# import (periods, replays, captures and their seconds, host reads,
-# iterations), as LOOP_COUNTS
+# The power iteration's device loop: iterations a period (enqueued eagerly,
+# none ahead of the flag read: a period past convergence would cost a
+# period of masked iterations); its counts since import (periods, host
+# reads, iterations), as LOOP_COUNTS. A period replayed as a CUDA graph
+# was slower on an H100 at 9,841, 88,573 and 797,161 nodes: the capture
+# costs more than 24-odd iterations' replays save (PERF.md).
 POWER_PERIOD = 4
-POWER_GRAPH = False
-POWER_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
-                    host_reads=0, iterations=0)
+POWER_COUNTS = dict(periods=0, host_reads=0, iterations=0)
 
 
 def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
-                     rel_tol: float = 1e-12, graph: Optional[bool] = None):
+                     rel_tol: float = 1e-12):
     """lambda_max(L'L) by power iteration on the primal space (JAX
     ``solver.py:135``), from :func:`_power_start`. Returns (lambda as
     float, iterations).
 
     The loop keeps lambda (in float64, as the host loop's Python float),
     the count and the running flag on the device, ``POWER_PERIOD``
-    iterations a period (:class:`~raocp_tpu_torch.ops.cond.Periods`): the
-    host reads one flag a period and lambda with the count at the end. An
-    iteration past convergence moves neither z, lambda nor the count, so
-    both give the host loop's lambda and count bit for bit. ``graph``
-    (default ``POWER_GRAPH``) replays a captured period on a card, each
-    iteration under a conditional node on the flag (not run past
-    convergence); otherwise each period is enqueued eagerly, an iteration
-    past convergence masked (``torch.where``). The partitions and
-    :func:`_host_loop` run :func:`_power_iteration_host`."""
+    iterations a period (:class:`~raocp_tpu_torch.ops.cond.Periods`),
+    each period enqueued eagerly: the host reads one flag a period and
+    lambda with the count at the end. An iteration past convergence is
+    masked (``torch.where``): it moves neither z, lambda nor the count, so
+    both give the host loop's lambda and count bit for bit. The partitions
+    and :func:`_host_loop` run :func:`_power_iteration_host`."""
     if sp.spmd_group is not None or _HOST_LOOP:
         return _power_iteration_host(sp, max_iters, rel_tol)
-    graph = POWER_GRAPH if graph is None else graph
     dev = sp.device
     z = _power_start(sp)
     lam = torch.zeros((), dtype=torch.float64, device=dev)
     k = torch.zeros((), dtype=torch.int64, device=dev)
     running = torch.full((), max_iters > 0, device=dev)
 
-    def step():
-        """One iteration and the loop's condition after it."""
-        w = ell_t(sp, ell(sp, z))
-        lam_new = _sp_primal_dot(sp, z, w).double()     # Rayleigh quotient
-        z_new = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
-        k_new = k + 1
-        going = ((k_new < 2)
-                 | ((lam_new - lam).abs() > rel_tol * lam_new.abs())) \
-            & (k_new < max_iters)
-        return z_new, lam_new, k_new, going
-
-    def masked():
-        # enqueued eagerly: an iteration past convergence runs, masked
+    def period():
         for _ in range(POWER_PERIOD):
-            z_new, lam_new, k_new, going = step()
+            w = ell_t(sp, ell(sp, z))
+            lam_new = _sp_primal_dot(sp, z, w).double()  # Rayleigh quotient
+            z_new = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
+            k_new = k + 1
+            going = ((k_new < 2)
+                     | ((lam_new - lam).abs() > rel_tol * lam_new.abs())) \
+                & (k_new < max_iters)
             for d, n in zip(z, z_new):
-                d.copy_(torch.where(running, n, d))
-            lam.copy_(torch.where(running, lam_new, lam))
-            k.copy_(torch.where(running, k_new, k))
-            running.copy_(running & going)
-
-    def guarded():
-        # a graph's period: an iteration past convergence does not run
-        def body():
-            z_new, lam_new, k_new, going = step()
-            for d, n in zip(z, z_new):
-                d.copy_(n)
-            lam.copy_(lam_new)
-            k.copy_(k_new)
-            running.copy_(going)
-
-        for _ in range(POWER_PERIOD):
-            cond.branch(running, body)
+                torch.where(running, n, d, out=d)
+            torch.where(running, lam_new, lam, out=lam)
+            torch.where(running, k_new, k, out=k)
+            running.logical_and_(going)
 
     with (torch.cuda.device(dev) if dev.type == "cuda"
           else contextlib.nullcontext()):
-        # a graph's eager first period is the masked one: no host read
-        periods = cond.Periods(dev, guarded if graph else masked, running,
-                               graph, POWER_COUNTS, first=masked)
-        periods.run(max(1, -(-max_iters // POWER_PERIOD)), _lookahead(dev))
+        periods = cond.Periods(dev, period, running, False, POWER_COUNTS)
+        periods.run(max(1, -(-max_iters // POWER_PERIOD)), 0)
         out = torch.stack([lam, k.double()]).cpu().numpy()
     POWER_COUNTS["host_reads"] += 1
     POWER_COUNTS["iterations"] += int(out[1])
@@ -665,7 +638,8 @@ class _DeviceLoop:
     two carries that periods alternate between (0 -> 1, then 1 -> 0, so a
     period run past convergence never overwrites the converged one), the
     history, x0, tol and the cap; on a card the two CUDA graphs of a
-    period, captured at first use, and the pinned flags the host reads."""
+    period, captured at first use; the flags the host reads
+    (:class:`~raocp_tpu_torch.ops.cond.Flags`)."""
 
     def __init__(self, sp, z0, eta0, Lz0, Lt0, lanes: Optional[int],
                  steps: int, adaptive: bool, relax: float, capacity: int):
@@ -698,10 +672,7 @@ class _DeviceLoop:
         self.steps, self.adaptive, self.relax = steps, adaptive, relax
         self.graphs = None
         self.k1_per_period = 0
-        if dev.type == "cuda":
-            self.flags = [torch.empty(lead, dtype=torch.bool,
-                                      pin_memory=True) for _ in range(2)]
-            self.events = [torch.cuda.Event() for _ in range(2)]
+        self.flags = cond.Flags(dev, lead)
 
     def load(self, z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol, limit,
              rows, fill):
@@ -762,8 +733,8 @@ class _DeviceLoop:
 
     def launch(self, sp, n: int):
         """Period ``n`` (from carry n % 2): a graph replay, or on the first
-        use of a card's loop its capture; eagerly on the CPU. On a card its
-        flag then goes to pinned memory behind an event."""
+        use of a card's loop its capture; eagerly on the CPU. Then its
+        flag."""
         parity = n % 2
         if sp.device.type != "cuda":
             self.run_period(sp, parity)
@@ -776,20 +747,13 @@ class _DeviceLoop:
             sweep_mod.LAUNCHES += self.k1_per_period
         LOOP_COUNTS["periods"] += 1
         LOOP_COUNTS["steps"] += self.steps
-        if sp.device.type == "cuda":
-            self.flags[parity].copy_(self.sets[1 - parity].running,
-                                     non_blocking=True)
-            self.events[parity].record()
+        self.flags.post(n, self.sets[1 - parity].running)
 
-    def flag(self, sp, n: int) -> np.ndarray:
-        """Period ``n``'s running flag (the loop's condition after it), as
-        the host reads it."""
+    def flag(self, n: int) -> bool:
+        """Whether period ``n``'s running flag (the loop's condition after
+        it; in a batch, any lane's) holds, as the host reads it."""
         LOOP_COUNTS["host_reads"] += 1
-        parity = n % 2
-        if sp.device.type != "cuda":
-            return self.sets[1 - parity].running.numpy().copy()
-        self.events[parity].synchronize()
-        return self.flags[parity].numpy().copy()
+        return bool(self.flags.read(n).any())
 
 
 def _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive, relax,
@@ -847,27 +811,18 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
                          relax, rows)
         loop.load(z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol,
                   max_iters + 2 - unroll, rows, fill)
-        ahead = _lookahead(sp.device)
-        err_np = np.full(3, np.inf)
-        done = 0
-        stopped = False
-        if full:
-            loop.launch(sp, 0)
-        for n in range(full):
-            if ahead and n + 1 < full:
-                loop.launch(sp, n + 1)
-            running = loop.flag(sp, n).any()
-            done = n + 1
+        logged = [np.full(3, np.inf)]
+
+        def log(n):
             if log_every is not None:
-                err_np = _log_period(loop.hist, n * steps, steps, True,
-                                     log_every, k0, err_np)
-            if not running:
-                stopped = True
-                if ahead and n + 1 < full:
-                    LOOP_COUNTS["wasted_steps"] += steps
-                break
-            if not ahead and n + 1 < full:
-                loop.launch(sp, n + 1)
+                logged[0] = _log_period(loop.hist, n * steps, steps, True,
+                                        log_every, k0, logged[0])
+
+        done, launched, stopped = cond.drive(
+            lambda n: loop.launch(sp, n), loop.flag, full,
+            _lookahead(sp.device), log)
+        LOOP_COUNTS["wasted_steps"] += steps * (launched - done)
+        err_np = logged[0]
         k = done * steps
         final = loop.sets[done % 2]
         if not stopped and tail:

@@ -249,31 +249,90 @@ def test_supermann_float32_window_against_jax(pairs):
                                        atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("graph", [False, True])
-@pytest.mark.parametrize("ahead", [0, 1])
+@pytest.mark.parametrize("period", [1, 4, 7])
 @pytest.mark.parametrize("problem", sorted(PROBLEMS))
-def test_power_iteration(pairs, problem, ahead, graph, monkeypatch):
+def test_power_iteration(pairs, problem, period, monkeypatch):
     """The power iteration on the device, its periods masked (as they are
-    enqueued on a card) or guarded by branches (as a card's graph runs
-    them; eagerly here): the host loop's lambda and count bit for bit (110
-    on the demo, 49 on the uniform tree), one flag read a period and one
-    read at the end, and JAX's lambda to 1e-10 relative (JAX starts from
-    other normals)."""
+    enqueued on a card) at periods that do and do not divide the count:
+    the host loop's lambda and count bit for bit (110 on the demo, 49 on
+    the uniform tree), one flag read a period and one read at the end, and
+    JAX's lambda to 1e-10 relative (JAX starts from other normals)."""
     jsolver, ports, _, _ = pairs[problem]
     sp = ports["float64"].stacked
-    monkeypatch.setattr(solver_mod, "_lookahead", lambda device: ahead)
+    monkeypatch.setattr(solver_mod, "POWER_PERIOD", period)
     before = dict(solver_mod.POWER_COUNTS)
-    got = solver_mod._power_iteration(sp, graph=graph)
+    got = solver_mod._power_iteration(sp)
     reads = solver_mod.POWER_COUNTS["host_reads"] - before["host_reads"]
     want = solver_mod._power_iteration_host(sp)
     assert got == want
     assert got[1] == {"demo": 110, "uniform": 49}[problem]
-    assert reads == -(-got[1] // solver_mod.POWER_PERIOD) + 1
+    assert reads == -(-got[1] // period) + 1
     lam_jax, _ = jax_power(jsolver.stacked)
     assert abs(got[0] - float(lam_jax)) <= 1e-10 * abs(float(lam_jax))
     for cap in (0, 1, 2, 5):
-        assert solver_mod._power_iteration(sp, max_iters=cap, graph=graph) \
+        assert solver_mod._power_iteration(sp, max_iters=cap) \
             == solver_mod._power_iteration_host(sp, max_iters=cap)
+
+
+def _bodies_run(fn):
+    """``fn()`` and the loops' bodies it ran (``accel.BODY_RUNS``'
+    growth, every body of both kinds listed)."""
+    before = dict(accel.BODY_RUNS)
+    out = fn()
+    return out, {(kind, name): accel.BODY_RUNS[kind, name]
+                 - before.get((kind, name), 0)
+                 for kind, names in accel.BODIES.items() for name in names}
+
+
+@pytest.mark.parametrize("method", sorted(METHODS))
+@pytest.mark.parametrize("problem", sorted(PROBLEMS))
+def test_body_counts_are_the_host_loops(pairs, problem, method):
+    """The device loop's own count of each body it ran (an int64 counter
+    on the device that the body adds to) equals the host loop's count of
+    the same bodies over the same run, 70 iterations at a stride of 5 with
+    a period enqueued ahead; both give the T evaluations the loop
+    counted."""
+    _, ports, x0, alpha = pairs[problem]
+    kind = "anderson" if method == "anderson" else "supermann"
+    runs = {loop: _bodies_run(lambda loop=loop: _run(
+        ports["float64"], x0, alpha, method, loop, 1e-12, 70,
+        check_every=5)[0]) for loop in ("host", 1)}
+    (want, host), (got, device) = runs["host"], runs[1]
+    assert device == host
+    assert device[kind, "iteration"] == got[2] == 71
+    assert accel._body_t_evals(kind, {name: device[kind, name] for name
+                                      in accel.BODIES[kind]}) == got[3]
+    # the run took more than one kind of step
+    taken = [name for name in accel.BODIES[kind][1:] if device[kind, name]]
+    assert len(taken) >= 2, device
+
+
+@pytest.mark.parametrize("method", ["anderson", "supermann"])
+def test_device_loop_keeps_no_reference_to_the_problem(pairs, method,
+                                                       monkeypatch):
+    """The device loop (cached per problem on a card) holds no reference
+    to its problem: with the loop kept alive, the problem and its solver
+    are freed (on a card the cache's entry then goes with the problem)."""
+    import gc
+    import weakref
+
+    kept = []
+    real = accel._loop_for
+
+    def keeping(*args, **kwargs):
+        kept.append(real(*args, **kwargs))
+        return kept[-1]
+
+    monkeypatch.setattr(accel, "_loop_for", keeping)
+    problem, x0 = port_models.demo_problem()
+    solver = rt.Solver(problem, dtype=torch.float64, device="cpu")
+    res = solver.solve(x0, max_iters=30, tol=1e-12, accel=method,
+                       check_every=5)
+    assert res.num_iters == 31 and len(kept) == 1
+    gone = weakref.ref(solver.stacked)
+    del solver
+    gc.collect()
+    assert gone() is None and kept[0].periods is not None
 
 
 def test_solver_dispatch(pairs):

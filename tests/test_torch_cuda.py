@@ -490,7 +490,8 @@ def test_capture_unsafe_step_raises(cuda, tmp_path):
 
 def _accel_runs(sp, x0, alpha, name, **opts):
     """``accel.run_cp_<name>`` through the graph loop (its first call
-    captures: run twice) and the host loop, each with its counts."""
+    captures: run twice) and the host loop, each with its counts and the
+    bodies it ran (``accel.BODY_RUNS``' growth)."""
     from raocp_tpu_torch import accel
     from raocp_tpu_torch import solver as solver_mod
     from raocp_tpu_torch.scripts.bench_configs import counted_calls
@@ -499,11 +500,15 @@ def _accel_runs(sp, x0, alpha, name, **opts):
     for loop, scope in (("capture", None), ("graph", None),
                         ("host", solver_mod._host_loop)):
         z0, eta0, x0t = _loop_start(sp, x0)
+        bodies = dict(accel.BODY_RUNS)
         with scope() if scope else contextlib.nullcontext(), \
                 counted_calls() as calls:
             got = getattr(accel, f"run_cp_{name}")(sp, z0, eta0, x0t, alpha,
                                                    **opts)
             torch.cuda.synchronize()
+        ran = {key: accel.BODY_RUNS[key] - bodies.get(key, 0)
+               for key in accel.BODY_RUNS if key[0] == name}
+        calls["bodies"] = {key: n for key, n in ran.items() if n}
         out[loop] = got, calls
     return out
 
@@ -527,9 +532,11 @@ ACCEL_CASES = {
 def test_graph_accel_loop_is_host_loop(cuda, case):
     """The accelerated loops' CUDA graphs (branches as conditional nodes)
     against their host loops on the card: the same count, T evaluations,
-    iterates and history bit for bit; K1 launches equal ``prox_f`` calls
-    equal T evaluations (on the uniform tree, K1's); at most one host read
-    a period and two at the end."""
+    iterates and history bit for bit; the graph's own device count of each
+    body it ran equals the host loop's count of the same bodies (a body
+    run untaken would add to it); K1 launches equal ``prox_f`` calls equal
+    T evaluations (on the uniform tree, K1's); at most one host read a
+    period and two at the end."""
     import raocp_tpu_torch as rt
     from raocp_tpu_torch.models import demo_problem
 
@@ -550,6 +557,7 @@ def test_graph_accel_loop_is_host_loop(cuda, case):
         for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
             assert torch.equal(a, b)
         np.testing.assert_array_equal(g[5], h[5])
+        assert calls["bodies"] == h_calls["bodies"]
         assert calls["prox_f"] == calls["accel_loop"]["t_evals"] == g[3]
         if sweep.sweep_eligible(sp):
             assert calls["k1"] == calls["prox_f"]
@@ -669,10 +677,9 @@ def test_capture_unsafe_body_raises(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("graph", [False, True])
-def test_power_iteration_on_the_card(cuda, graph):
-    """The power iteration's device loop on the card (periods enqueued,
-    or replayed as a graph) gives its host loop's lambda and count at the
+def test_power_iteration_on_the_card(cuda):
+    """The power iteration's device loop on the card (masked periods
+    enqueued eagerly) gives its host loop's lambda and count at the
     headline (24 iterations), one flag read a period and one at the
     end."""
     from raocp_tpu_torch import solver as solver_mod
@@ -680,9 +687,47 @@ def test_power_iteration_on_the_card(cuda, graph):
     problem, _ = random_network_problem(**FIXTURES["headline"][0])
     sp = build_stacked(problem, dtype=torch.float32, device=cuda)
     before = dict(solver_mod.POWER_COUNTS)
-    got = solver_mod._power_iteration(sp, graph=graph)
+    got = solver_mod._power_iteration(sp)
     ran = {k: solver_mod.POWER_COUNTS[k] - before[k] for k in before}
     assert got == solver_mod._power_iteration_host(sp)
     assert got[1] == 24
     assert ran["host_reads"] <= -(-got[1] // solver_mod.POWER_PERIOD) + 1
-    assert ran["captures"] == int(graph)
+
+
+@pytest.mark.cuda
+def test_accel_loop_is_freed_with_its_solver(cuda):
+    """A solver's cached accelerated loops (their buffers, graphs and the
+    pools of their bodies) go with the solver: ``accel._LOOPS`` keeps no
+    entry of its problem and the card's allocated memory is back where it
+    was before the solver (cuBLAS's workspaces, kept per stream, cleared
+    at both reads)."""
+    import gc
+
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch import accel
+
+    problem, x0 = random_network_problem(**FIXTURES["small"][0])
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    def solved():
+        solver = rt.Solver(problem, device=cuda)
+        for method in ("anderson", "supermann"):
+            res = solver.solve(x0, max_iters=60, tol=1e-12, accel=method,
+                               check_every=5)
+            assert res.num_iters == 61
+        return solver
+
+    first = solved()                 # the libraries, handles and streams
+    del first
+    start = allocated()
+    solver = solved()
+    key = id(solver.stacked)
+    assert {(key, "anderson"), (key, "supermann")} <= set(accel._LOOPS)
+    del solver
+    assert allocated() == start
+    assert not any(slot[0] == key for slot in accel._LOOPS)
