@@ -51,9 +51,8 @@ the two loops. Both loops take the same decisions in the same precision
 floats), so they give the same iterates, counts and history bit for bit.
 
 Every read goes through :func:`_read`, which counts it in
-:data:`HOST_READS` and marks it as a ``raocp.accel.host_read`` span in a
-``torch.profiler`` trace; :data:`LOOP_COUNTS` counts what the device loops
-ran.
+:data:`HOST_READS`; :data:`LOOP_COUNTS` counts what the device loops ran
+and times them.
 """
 
 import collections
@@ -93,10 +92,17 @@ HOST_READS = 0
 # capture (``scripts.bench_configs.counted_calls`` adds them to its count);
 # the device loop takes their number from its bodies' counts (below), and
 # K1's replayed launches from its own count of T evaluations, so the two
-# are independent witnesses of what the replays ran.
+# are independent witnesses of what the replays ran. Host seconds of the
+# device loops' spans (``ops.cond.span``): each drive
+# (``raocp.loop.drive``) and each replay in it (``raocp.loop.launch``);
+# device seconds from the card's clock (``ops.cond.Flags``): the replayed
+# periods whose flag was read, their number, and the card's gaps between
+# two of them in one call. The host loops add nothing here.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    host_reads=0, t_evals=0, iterations=0,
-                   replayed_t_evals=0)
+                   replayed_t_evals=0, drive_seconds=0.0,
+                   launch_seconds=0.0, period_device_seconds=0.0,
+                   gap_device_seconds=0.0, timed_periods=0)
 
 # The bodies each loop ran, summed since import: (kind, body) -> runs. A
 # device loop counts them on the device (an int64 counter a body, never
@@ -126,13 +132,12 @@ _LOOPS = {}
 
 
 def _read(t, loop=False):
-    """One device-to-host read (a sync), counted and marked in traces;
-    ``loop``: a device loop's read, also in ``LOOP_COUNTS``."""
+    """One device-to-host read (a sync), counted; ``loop``: a device
+    loop's read, also in ``LOOP_COUNTS``."""
     global HOST_READS
     HOST_READS += 1
     LOOP_COUNTS["host_reads"] += loop
-    with torch.profiler.record_function("raocp.accel.host_read"):
-        return t.cpu().numpy()
+    return t.cpu().numpy()
 
 
 def _split(W):
@@ -544,8 +549,10 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
                       capacity, make)
         _load(L, W0, R0, err, derr, alpha, x0, tol, max_iters, check_every)
         init(L, W0, R0)
-        L.periods.run(-(-(max_iters + 1) // period),
-                      solver_mod._lookahead(sp.device), sp, L)
+        with cond_mod.span("raocp.loop.drive", LOOP_COUNTS,
+                           "drive_seconds"):
+            L.periods.run(-(-(max_iters + 1) // period),
+                          solver_mod._lookahead(sp.device), sp, L)
         HOST_READS += LOOP_COUNTS["host_reads"] - before["host_reads"]
         out = _read(torch.cat([torch.stack([L.k, L.evals]).double(),
                                L.bodies.double(), L.err.double()]),

@@ -16,6 +16,11 @@
 // node and a conditional node per branch, a few microseconds of the graph's
 // own scheduling.
 //
+// raocp_mark appends a one-thread kernel that writes the card's clock
+// (%globaltimer, nanoseconds) into a device slot: the device loops put one
+// at each end of a captured period, so that every replay stamps its own
+// start and end on the card's clock.
+//
 // A plain C interface for ctypes: streams, graphs and flags are pointers;
 // every function returns a cudaError_t (0 on success).
 
@@ -26,6 +31,12 @@ namespace {
 __global__ void set_conditional(cudaGraphConditionalHandle handle,
                                 const unsigned char* pred, int negate) {
   cudaGraphSetConditional(handle, (pred[0] != 0) != (negate != 0) ? 1u : 0u);
+}
+
+__global__ void mark_clock(unsigned long long* slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  *slot = now;
 }
 
 cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
@@ -90,6 +101,12 @@ extern "C" int raocp_if_begin(void* stream_ptr, const void* pred, int negate,
 extern "C" int raocp_if_end(void* body_ptr) {
   cudaGraph_t graph;
   return cudaStreamEndCapture(static_cast<cudaStream_t>(body_ptr), &graph);
+}
+
+extern "C" int raocp_mark(void* stream_ptr, void* slot) {
+  mark_clock<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<unsigned long long*>(slot));
+  return cudaGetLastError();
 }
 
 // Initialises this library's CUDA runtime on the current device, outside

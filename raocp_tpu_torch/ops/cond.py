@@ -30,6 +30,15 @@ the host.
 each iteration guarded by the loop's ``running`` flag, and the host reads
 that flag once a period (:class:`Flags`, :func:`drive`: the plain CP
 loop, ``solver._DeviceLoop``, reads its flags through the same two).
+
+The loops time themselves. :func:`span` marks a block in any
+``torch.profiler`` trace and adds its host seconds to a counter: each
+graph replay (``raocp.loop.launch``), and around each :func:`drive` of
+the CP and accelerated loops, their caller's ``raocp.loop.drive``. A
+captured period begins and ends with a mark of the card's clock
+(:meth:`Flags.mark`), which every replay writes anew; :class:`Flags`
+reads a replay's two marks with its flag and counts the period's device
+time and the card's idle gap before it.
 """
 
 import contextlib
@@ -42,7 +51,7 @@ import torch
 
 from raocp_tpu_torch.ops import sweep as sweep_mod
 
-__all__ = ["branch", "capturing", "Flags", "drive", "Periods",
+__all__ = ["branch", "capturing", "span", "Flags", "drive", "Periods",
            "build_library", "EAGER_READS", "LAUNCHES"]
 
 # reads of a card's tensor that an eager branch made (the first period of
@@ -82,6 +91,8 @@ def _library():
         lib.raocp_if_begin.restype = i
         lib.raocp_if_end.argtypes = [p]
         lib.raocp_if_end.restype = i
+        lib.raocp_mark.argtypes = [p, p]
+        lib.raocp_mark.restype = i
         lib.raocp_cond_error_string.argtypes = [i]
         lib.raocp_cond_error_string.restype = ctypes.c_char_p
         lib.raocp_cond_init.restype = i
@@ -221,31 +232,86 @@ def branch(pred: torch.Tensor, true_fn, false_fn=None) -> None:
         false_fn()
 
 
+@contextlib.contextmanager
+def span(name: str, counts: dict, key: str):
+    """The block as the span ``name`` of a ``torch.profiler`` trace (on the
+    clock of the trace's device events), its host seconds added to
+    ``counts[key]``, also where it raises."""
+    tic = time.perf_counter()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        counts[key] += time.perf_counter() - tic
+
+
 class Flags:
     """The running flags of a loop's last two periods as the host reads
     them: on a card each period's flag is copied to pinned memory behind
-    an event (the host waits for that period alone); on the CPU a copy."""
+    an event (the host waits for that period alone); on the CPU a copy.
 
-    def __init__(self, device: torch.device, shape=()):
+    On a card a captured period starts and ends with :meth:`mark`, a
+    one-thread kernel (``csrc/cond.cu``) that writes the card's clock into
+    a slot of two. A replay's slots are copied out behind it with its flag
+    (the next replay writes them anew), and the read of its flag adds to
+    ``counts`` the period's device seconds (``period_device_seconds``),
+    the card's seconds since the end of the replay before it in the same
+    call (``gap_device_seconds``; none before a call's first) and one to
+    ``timed_periods``. The period enqueued past the flag that stopped a
+    loop is never read, so never timed. Only ``marked`` flags (a loop
+    that captures) load the mark's library and hold the slot and stamps;
+    the others time nothing."""
+
+    def __init__(self, device: torch.device, counts: dict, shape=(),
+                 marked: bool = False):
         self.cuda = device.type == "cuda"
+        self.counts = counts
         self.flags = [None, None]
+        self.timed = [False, False]
+        self.last_end = None
         if self.cuda:
             self.flags = [torch.empty(shape, dtype=torch.bool,
                                       pin_memory=True) for _ in range(2)]
             self.events = [torch.cuda.Event() for _ in range(2)]
+            if marked:
+                _library()              # loaded outside any capture
+                self.slot = torch.zeros(2, dtype=torch.int64, device=device)
+                self.stamps = torch.zeros((2, 2), dtype=torch.int64,
+                                          pin_memory=True)
 
-    def post(self, n: int, running: torch.Tensor):
-        """Period ``n``'s flag, enqueued after the period."""
+    def mark(self, i: int):
+        """Under capture: a node that writes the card's clock (ns) into
+        slot ``i`` (0 the period's start, 1 its end)."""
+        stream = torch.cuda.current_stream(self.slot.device)
+        _check(_library().raocp_mark(stream.cuda_stream,
+                                     self.slot[i].data_ptr()),
+               "a clock mark's launch")
+
+    def post(self, n: int, running: torch.Tensor, timed: bool):
+        """Period ``n``'s flag, enqueued after the period; with ``timed``
+        (a replay) its marks too."""
+        self.timed[n % 2] = timed
         if self.cuda:
             self.flags[n % 2].copy_(running, non_blocking=True)
+            if timed:
+                self.stamps[n % 2].copy_(self.slot, non_blocking=True)
             self.events[n % 2].record()
         else:
             self.flags[n % 2] = running.clone()
 
     def read(self, n: int) -> torch.Tensor:
-        """Period ``n``'s flag on the host (a CPU tensor)."""
+        """Period ``n``'s flag on the host (a CPU tensor), a replay's marks
+        counted."""
+        last, self.last_end = self.last_end, None
         if self.cuda:
             self.events[n % 2].synchronize()
+        if self.timed[n % 2]:
+            start, end = self.stamps[n % 2].tolist()
+            self.counts["period_device_seconds"] += 1e-9 * (end - start)
+            if n > 0 and last is not None:
+                self.counts["gap_device_seconds"] += 1e-9 * (start - last)
+            self.counts["timed_periods"] += 1
+            self.last_end = end
         return self.flags[n % 2]
 
 
@@ -287,16 +353,21 @@ class Periods:
     eager period did not take is met there; a body that cannot be
     captured fails there, and the capture raises as a plain one does,
     where a conditional node half captured could crash the process), and
-    a period is captured as one CUDA graph that every later
-    period replays. Without ``graph`` each period is enqueued eagerly. The
-    host reads each period's flag through :class:`Flags`, ``lookahead``
-    periods enqueued ahead of the read (:func:`drive`); on the CPU every
-    period runs eagerly.
+    a period is captured as one CUDA graph, between two marks of the
+    card's clock (:class:`Flags`), that every later period replays.
+    Without ``graph`` each period is enqueued eagerly. The host reads each
+    period's flag through :class:`Flags`, ``lookahead`` periods enqueued
+    ahead of the read (:func:`drive`); on the CPU every period runs
+    eagerly.
 
-    ``counts`` takes the periods, replays, captures, capture seconds and
-    host reads. After the capture :attr:`recorded` is the K1 calls the
-    graph holds (what a replay would launch were every guard true) and
-    :attr:`nodes` its conditional nodes a nesting depth."""
+    ``counts`` takes the periods and host reads; with ``graph``, also the
+    replays, captures, capture and launch seconds and the marks' device
+    seconds and timed periods. The one rule for a counts dict: it holds
+    the key of everything its loop can run, and lacks the rest (the power
+    iteration's, run without a graph, has no key of a replay; its caller
+    times no drive). After the capture :attr:`recorded` is the K1 calls
+    the graph holds (what a replay would launch were every guard true)
+    and :attr:`nodes` its conditional nodes a nesting depth."""
 
     def __init__(self, device: torch.device, period, running: torch.Tensor,
                  graph: bool, counts: dict):
@@ -308,13 +379,15 @@ class Periods:
         self.graph = None
         self.recorded = 0
         self.nodes = []
-        self.flags = Flags(device)
+        self.flags = Flags(device, counts, marked=self.use_graph)
 
     def _capture(self, graph, stream, mode, args, inline=False):
         with _bodies(self.device, mode, inline) as record, \
                 torch.cuda.graph(graph, stream=stream,
                                  capture_error_mode=mode):
+            self.flags.mark(0)
             self.period(*args)
+            self.flags.mark(1)
         return record
 
     def capture(self, *args):
@@ -344,17 +417,20 @@ class Periods:
         self.counts["host_reads"] += EAGER_READS - reads
 
     def launch(self, n: int, *args):
-        """Period ``n``: a replay, on a card's first use its capture (the
-        eager first period), or eagerly; then its flag."""
+        """Period ``n``: a replay (the span ``raocp.loop.launch``), on a
+        card's first use its capture (the eager first period), or eagerly;
+        then its flag."""
+        replay = self.graph is not None
         if not self.use_graph:
             self.period(*args)
-        elif self.graph is None:
+        elif not replay:
             self.capture(*args)
         else:
-            self.graph.replay()
+            with span("raocp.loop.launch", self.counts, "launch_seconds"):
+                self.graph.replay()
             self.counts["replays"] += 1
         self.counts["periods"] += 1
-        self.flags.post(n, self.running)
+        self.flags.post(n, self.running, timed=replay)
 
     def flag(self, n: int) -> bool:
         """Period ``n``'s running flag, as the host reads it."""

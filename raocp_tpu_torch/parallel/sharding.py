@@ -27,12 +27,11 @@ Counters, so a run can read what a CP step exchanges: ``ALL_REDUCES`` /
 ``ALL_REDUCE_BYTES`` / ``ALL_REDUCE_SECONDS`` (the all-reduces, the bytes
 they reduce, the host seconds in the collective), ``EXCHANGES`` /
 ``EXCHANGE_BYTES`` / ``EXCHANGE_SECONDS`` (the halo exchanges, the bytes a
-rank sends, the host seconds in staging and the collective), and
-``GATHERS`` / ``GATHER_SECONDS``. Before a collective that stages a CUDA
-tensor through the host (gloo), the rank waits for its own stream; that
-wait is timed apart, in ``ALL_REDUCE_WAIT_SECONDS``,
-``EXCHANGE_WAIT_SECONDS`` and ``GATHER_WAIT_SECONDS`` (nothing waits on the
-CPU, or under NCCL, which stays on the stream).
+rank sends, the host seconds in staging and the collective). Before a
+collective that stages a CUDA tensor through the host (gloo), the rank
+waits for its own stream; that wait is timed apart, in
+``ALL_REDUCE_WAIT_SECONDS`` and ``EXCHANGE_WAIT_SECONDS`` (nothing waits on
+the CPU, or under NCCL, which stays on the stream).
 """
 
 import dataclasses
@@ -51,8 +50,7 @@ __all__ = ["AXIS", "make_mesh", "initialize_distributed", "mesh_device",
            "shard_problem", "shard_variables", "reset_counters",
            "ALL_REDUCES", "ALL_REDUCE_BYTES", "ALL_REDUCE_SECONDS",
            "ALL_REDUCE_WAIT_SECONDS", "EXCHANGES", "EXCHANGE_BYTES",
-           "EXCHANGE_SECONDS", "EXCHANGE_WAIT_SECONDS", "GATHERS",
-           "GATHER_SECONDS", "GATHER_WAIT_SECONDS"]
+           "EXCHANGE_SECONDS", "EXCHANGE_WAIT_SECONDS"]
 
 AXIS = "nodes"
 
@@ -64,20 +62,16 @@ EXCHANGES = 0
 EXCHANGE_BYTES = 0
 EXCHANGE_SECONDS = 0.0
 EXCHANGE_WAIT_SECONDS = 0.0
-GATHERS = 0
-GATHER_SECONDS = 0.0
-GATHER_WAIT_SECONDS = 0.0
 
 
 def reset_counters() -> None:
     """Set every collective counter of this module to 0."""
     global ALL_REDUCES, ALL_REDUCE_BYTES, ALL_REDUCE_SECONDS
     global ALL_REDUCE_WAIT_SECONDS, EXCHANGES, EXCHANGE_BYTES
-    global EXCHANGE_SECONDS, EXCHANGE_WAIT_SECONDS, GATHERS
-    global GATHER_SECONDS, GATHER_WAIT_SECONDS
-    ALL_REDUCES = ALL_REDUCE_BYTES = EXCHANGES = EXCHANGE_BYTES = GATHERS = 0
+    global EXCHANGE_SECONDS, EXCHANGE_WAIT_SECONDS
+    ALL_REDUCES = ALL_REDUCE_BYTES = EXCHANGES = EXCHANGE_BYTES = 0
     ALL_REDUCE_SECONDS = ALL_REDUCE_WAIT_SECONDS = EXCHANGE_SECONDS = 0.0
-    EXCHANGE_WAIT_SECONDS = GATHER_SECONDS = GATHER_WAIT_SECONDS = 0.0
+    EXCHANGE_WAIT_SECONDS = 0.0
 
 
 def initialize_distributed(backend: str, init_method: Optional[str] = None,
@@ -174,22 +168,16 @@ def gather_rows(arr, group) -> np.ndarray:
     """Every rank's block of ``arr`` (a tensor or an array, the same shape
     on every rank) stacked along rows in rank order, as NumPy: the
     [ranks * rows, ...] block layout. Gloo gathers host tensors, NCCL
-    device tensors. Counted in ``GATHERS`` / ``GATHER_SECONDS`` /
-    ``GATHER_WAIT_SECONDS``."""
-    global GATHERS, GATHER_SECONDS, GATHER_WAIT_SECONDS
+    device tensors."""
     t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(
         np.ascontiguousarray(arr))
     if _host_staged(t, group):
-        GATHER_WAIT_SECONDS += _stream_wait(t)
-    tic = time.perf_counter()
+        _stream_wait(t)
     t = (t.cuda() if dist.get_backend(group) == "nccl" else t.cpu()) \
         .contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    out = torch.cat(parts).cpu().numpy()
-    GATHER_SECONDS += time.perf_counter() - tic
-    GATHERS += 1
-    return out
+    return torch.cat(parts).cpu().numpy()
 
 
 def _overlap(a, b):

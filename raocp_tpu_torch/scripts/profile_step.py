@@ -1,5 +1,5 @@
 """Where a CP step's time goes on the card: trace a solve with
-``torch.profiler`` and sum the trace's device events (counterpart of the
+``torch.profiler`` and add up the trace's device events (counterpart of the
 JAX package's ``scripts/profile_step.py``).
 
     python -m raocp_tpu_torch.scripts.profile_step [--steps 100]
@@ -13,11 +13,12 @@ at ``check_every=25, unroll=25``; ``headline_supermann`` and
 88,573-node per-step tree, float32) at the closed loop's
 ``check_every=25, unroll=5, relax="auto"``; ``tree797161`` (``bench_1e6``'s
 797,161-node tree, float32) at its ``check_every=25, unroll=5``. Each
-prints one JSON line: the trace's wall time and device time a step, the
-card's busy share, the launches a step, K1's share of the device time and
-the kernels that take most of it, the host's reads a step, and the
-Solver's power iteration (its count and seconds at the Solver's own
-tolerance). ``--loop host`` traces the host loop instead of the solve's
+prints one JSON line: the trace's wall time and device busy time a step,
+the card's busy share, the launches a step, K1's share of the device time
+and the kernels that take most of it, each ``raocp.*`` span's self time
+and the card's idle time by the span open in it, the host's reads a step,
+and the Solver's power iteration (its count and seconds at the Solver's
+own tolerance). ``--loop host`` traces the host loop instead of the solve's
 own (CUDA graphs of its check periods; for the accelerated loops, whose
 branches are conditional nodes of the graphs, the loops that take their
 branches on the host). It needs a card.
@@ -25,6 +26,7 @@ branches on the host). It needs a card.
 
 import argparse
 import contextlib
+import heapq
 import json
 import os
 import tempfile
@@ -41,18 +43,23 @@ from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.solver import Solver
 
 __all__ = ["PROFILES", "device_events", "is_k1", "profile_solve",
-           "run_profile", "summarize_trace", "traced_call_events",
-           "traced_events"]
+           "run_profile", "summarize_trace", "trace_events",
+           "traced_call_events", "traced_events"]
 
 # the device's own work in a torch.profiler Chrome trace
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def trace_events(trace_path: str) -> list:
+    """Every event of a Chrome trace."""
+    with open(trace_path) as fh:
+        return json.load(fh)["traceEvents"]
+
+
 def device_events(trace_path: str) -> list:
     """The device events (kernels, copies, sets) of a Chrome trace."""
-    with open(trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    return [ev for ev in events if ev.get("cat") in _DEVICE_CATS]
+    return [ev for ev in trace_events(trace_path)
+            if ev.get("cat") in _DEVICE_CATS]
 
 
 def traced_events(fn, applies: int, attempts: int = 3) -> list:
@@ -122,34 +129,102 @@ def is_k1(name: str) -> bool:
     return "stage_kernel" in name or "apex_kernel" in name
 
 
+def _union(intervals) -> list:
+    """Merged, sorted [start, end] intervals."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _span_self_us(spans) -> dict:
+    """Self time by name of nested spans ((start, end, name), us): each
+    span's length less that of the spans directly inside it."""
+    out, stack = {}, []             # open: [end, name, length, inner]
+
+    def close():
+        end, name, length, inner = stack.pop()
+        out[name] = out.get(name, 0.0) + length - inner
+
+    for a, b, name in sorted(spans, key=lambda s: (s[0], -s[1])):
+        while stack and b > stack[-1][0]:
+            close()
+        if stack:
+            stack[-1][3] += b - a
+        stack.append([b, name, b - a, 0.0])
+    while stack:
+        close()
+    return out
+
+
+def _idle_by_span(gaps, spans) -> dict:
+    """Idle time by the innermost span open at each gap's middle (the one
+    started last of those open), ``"none"`` where no span is open: a sweep
+    in time with a heap of the spans started so far."""
+    spans = sorted(spans)
+    out, heap, i = {}, [], 0
+    for a, b in sorted(gaps, key=lambda g: g[0] + g[1]):
+        mid = 0.5 * (a + b)
+        while i < len(spans) and spans[i][0] <= mid:
+            heapq.heappush(heap, (-spans[i][0], spans[i][1], spans[i][2]))
+            i += 1
+        while heap and heap[0][1] < mid:
+            heapq.heappop(heap)
+        label = heap[0][2] if heap else "none"
+        out[label] = out.get(label, 0.0) + (b - a)
+    return out
+
+
 def summarize_trace(events: list, steps: int, top: int = 8) -> dict:
-    """Per step of ``steps``: the wall time from the first device event's
-    start to the last one's end, the device time (the events' durations
-    summed), the card's busy share of the wall time, the device events, K1's
-    time and share of the device time, and the ``top`` kernels by time."""
-    if not events:
+    """Of a Chrome trace's events (its device events: kernels, copies,
+    sets; and the package's ``raocp.*`` spans), per step of ``steps``: the
+    wall time from the first device event's start to the last one's end,
+    the device's busy time (the length of the union of the device events'
+    intervals, so events that overlap count once) and its share of the
+    wall time, the device events, K1's time and share of the device
+    events' summed time, and the ``top`` kernels by time; the self time of
+    each ``raocp.*`` span (its time less that of the spans inside it), and
+    the card's idle time inside the wall by the innermost ``raocp.*`` span
+    open at each idle gap's middle (``"none"`` where none is open)."""
+    device = [ev for ev in events if ev.get("cat") in _DEVICE_CATS]
+    if not device:
         raise ValueError("the trace holds no device event")
     by_name = {}                                # name -> [us, launches]
-    for ev in events:
+    for ev in device:
         entry = by_name.setdefault(ev["name"], [0.0, 0])
         entry[0] += ev["dur"]
         entry[1] += 1
-    busy_us = sum(t for t, _ in by_name.values())
-    wall_us = max(ev["ts"] + ev["dur"] for ev in events) \
-        - min(ev["ts"] for ev in events)
+    summed_us = sum(t for t, _ in by_name.values())
+    busy = _union((ev["ts"], ev["ts"] + ev["dur"]) for ev in device)
+    busy_us = sum(b - a for a, b in busy)
+    wall_us = busy[-1][1] - busy[0][0]
+    gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:])]
+    spans = [(ev["ts"], ev["ts"] + ev["dur"], ev["name"]) for ev in events
+             if ev.get("cat") == "user_annotation"
+             and ev["name"].startswith("raocp.")]
     k1_us = sum(t for name, (t, _) in by_name.items() if is_k1(name))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+
+    def per_step(us_by_name):
+        return {name: 1e-3 * us / steps
+                for name, us in sorted(us_by_name.items())}
+
     return dict(
         steps=steps, wall_ms_per_step=1e-3 * wall_us / steps,
         device_ms_per_step=1e-3 * busy_us / steps,
         device_busy_share=busy_us / wall_us,
-        launches_per_step=sum(c for _, c in by_name.values()) / steps,
+        launches_per_step=len(device) / steps,
         k1_ms_per_step=1e-3 * k1_us / steps,
-        k1_share_of_device=k1_us / busy_us,
+        k1_share_of_device=k1_us / summed_us,
         top_kernels=[dict(name=name[:60], ms_per_step=1e-3 * t / steps,
                           launches_per_step=c / steps,
-                          share_of_device=t / busy_us)
-                     for name, (t, c) in ranked])
+                          share_of_device=t / summed_us)
+                     for name, (t, c) in ranked],
+        span_self_ms_per_step=per_step(_span_self_us(spans)),
+        idle_ms_per_step_by_span=per_step(_idle_by_span(gaps, spans)))
 
 
 def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
@@ -189,7 +264,7 @@ def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
         with tempfile.TemporaryDirectory() as folder, \
                 counted_calls() as calls:
             res = solver.solve(x0, profile_dir=folder, **opts)
-            events = device_events(os.path.join(folder, "trace.json"))
+            events = trace_events(os.path.join(folder, "trace.json"))
     ran = {k: counts[k] - before[k]
            for k in ("replays", "host_reads", steps_key)}
     if options.get("accel"):

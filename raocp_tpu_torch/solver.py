@@ -342,18 +342,32 @@ def _log_residuals(k, err):
           f"xi_2={float(err[2]):.3e}")
 
 
-# What the CP loops ran, summed since import (read deltas around a run, as
-# for ``ops.sweep.LAUNCHES``). ``host_reads`` counts the host's reads of
-# the device inside a loop: a check's residuals in the host loops, a
-# period's flag (and a logged period's rows) in the device loop. The rest
-# is the device loop's: periods (eager or replayed), of them graph replays;
-# captures and their seconds (the eager first period and both graphs); CP
-# steps run on the device, and of them those run past convergence (the
-# period enqueued ahead of the flag that stopped the loop) and those that
-# replays ran. A replayed step is a prox_f call that Python made once, at
-# capture (``scripts.bench_configs.counted_calls`` adds them to its count).
+# What the solver module ran: its loops, and the Solver's construction
+# phases; summed since import (read deltas around a run, as for
+# ``ops.sweep.LAUNCHES``). ``host_reads`` counts the host's reads of the
+# device inside a loop: a check's residuals in the host loops, a period's
+# flag (and a logged period's rows) in the device loop. Then the device
+# loop's: periods (eager or replayed), of them graph replays; captures and
+# their seconds (the eager first period and both graphs); CP steps run on
+# the device, and of them those run past convergence (the period enqueued
+# ahead of the flag that stopped the loop) and those that replays ran. A
+# replayed step is a prox_f call that Python made once, at capture
+# (``scripts.bench_configs.counted_calls`` adds them to its count). Host
+# seconds of its spans (``ops.cond.span``): each ``Solver.solve`` and
+# ``Solver.solve_batch`` (``raocp.solve``), each drive of the device loop
+# (``raocp.loop.drive``) and each replay in it (``raocp.loop.launch``),
+# each ``build_stacked`` of a Solver (``raocp.setup.build``, the card
+# synchronised) and each power iteration that sets its step size
+# (``raocp.setup.power``). Device
+# seconds from the card's clock (``ops.cond.Flags``): the replayed periods
+# whose flag was read, their number, and the card's gaps between two of
+# them in one call.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
-                   host_reads=0, steps=0, wasted_steps=0, replayed_steps=0)
+                   host_reads=0, steps=0, wasted_steps=0, replayed_steps=0,
+                   solve_seconds=0.0, drive_seconds=0.0, launch_seconds=0.0,
+                   build_seconds=0.0, power_seconds=0.0,
+                   period_device_seconds=0.0, gap_device_seconds=0.0,
+                   timed_periods=0)
 
 
 def _run_cp_host(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
@@ -672,7 +686,7 @@ class _DeviceLoop:
         self.steps, self.adaptive, self.relax = steps, adaptive, relax
         self.graphs = None
         self.k1_per_period = 0
-        self.flags = cond.Flags(dev, lead)
+        self.flags = cond.Flags(dev, LOOP_COUNTS, lead, marked=True)
 
     def load(self, z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol, limit,
              rows, fill):
@@ -708,10 +722,10 @@ class _DeviceLoop:
     def capture(self, sp):
         """Run period 0 eagerly on a side stream (it builds K1's library,
         packs its weights and grows the allocator, outside any graph), then
-        capture a period from each carry into the other, sharing one
-        memory pool (they never run at once). The K1 launches recorded in
-        a graph are what each of its replays adds to
-        ``ops.sweep.LAUNCHES``."""
+        capture a period from each carry into the other, between two marks
+        of the card's clock (``ops.cond.Flags.mark``), sharing one memory
+        pool (they never run at once). The K1 launches recorded in a graph
+        are what each of its replays adds to ``ops.sweep.LAUNCHES``."""
         tic = time.perf_counter()
         side = torch.cuda.Stream(sp.device)
         side.wait_stream(torch.cuda.current_stream(sp.device))
@@ -724,7 +738,9 @@ class _DeviceLoop:
             graph = torch.cuda.CUDAGraph()
             recorded = sweep_mod.RECORDED
             with torch.cuda.graph(graph, pool=pool, stream=side):
+                self.flags.mark(0)
                 self.run_period(sp, parity)
+                self.flags.mark(1)
             self.k1_per_period = sweep_mod.RECORDED - recorded
             graphs.append(graph)
         self.graphs = graphs
@@ -732,22 +748,25 @@ class _DeviceLoop:
         LOOP_COUNTS["capture_seconds"] += time.perf_counter() - tic
 
     def launch(self, sp, n: int):
-        """Period ``n`` (from carry n % 2): a graph replay, or on the first
-        use of a card's loop its capture; eagerly on the CPU. Then its
-        flag."""
+        """Period ``n`` (from carry n % 2): a graph replay (the span
+        ``raocp.loop.launch``), or on the first use of a card's loop its
+        capture; eagerly on the CPU. Then its flag."""
         parity = n % 2
+        replay = self.graphs is not None
         if sp.device.type != "cuda":
             self.run_period(sp, parity)
-        elif self.graphs is None:
+        elif not replay:
             self.capture(sp)            # period 0 runs eagerly in it
         else:
-            self.graphs[parity].replay()
+            with cond.span("raocp.loop.launch", LOOP_COUNTS,
+                           "launch_seconds"):
+                self.graphs[parity].replay()
             LOOP_COUNTS["replays"] += 1
             LOOP_COUNTS["replayed_steps"] += self.steps
             sweep_mod.LAUNCHES += self.k1_per_period
         LOOP_COUNTS["periods"] += 1
         LOOP_COUNTS["steps"] += self.steps
-        self.flags.post(n, self.sets[1 - parity].running)
+        self.flags.post(n, self.sets[1 - parity].running, timed=replay)
 
     def flag(self, n: int) -> bool:
         """Whether period ``n``'s running flag (the loop's condition after
@@ -818,9 +837,10 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
                 logged[0] = _log_period(loop.hist, n * steps, steps, True,
                                         log_every, k0, logged[0])
 
-        done, launched, stopped = cond.drive(
-            lambda n: loop.launch(sp, n), loop.flag, full,
-            _lookahead(sp.device), log)
+        with cond.span("raocp.loop.drive", LOOP_COUNTS, "drive_seconds"):
+            done, launched, stopped = cond.drive(
+                lambda n: loop.launch(sp, n), loop.flag, full,
+                _lookahead(sp.device), log)
         LOOP_COUNTS["wasted_steps"] += steps * (launched - done)
         err_np = logged[0]
         k = done * steps
@@ -1117,40 +1137,47 @@ class Solver:
         pin_full_precision()
         self.__spec = problem_spec
         self.__part = None
-        if layout is not None:
-            # the global problem stays on the host; only this rank's blocks
-            # go to the device
-            dtype = default_dtype(device) if dtype is None \
-                else _torch_dtype(dtype)
-            if layout == "subtree":
-                self.__stacked = build_stacked(
-                    problem_spec, dtype=dtype, pad_multiple=1,
-                    offline=offline, device="cpu")
-                self.__part = build_subtree_problem(
-                    problem_spec, mesh, dtype=dtype, offline=offline,
-                    prebuilt=self.__stacked)
+        with cond.span("raocp.setup.build", LOOP_COUNTS, "build_seconds"):
+            if layout is not None:
+                # the global problem stays on the host; only this rank's blocks
+                # go to the device
+                dtype = default_dtype(device) if dtype is None \
+                    else _torch_dtype(dtype)
+                if layout == "subtree":
+                    self.__stacked = build_stacked(
+                        problem_spec, dtype=dtype, pad_multiple=1,
+                        offline=offline, device="cpu")
+                    self.__part = build_subtree_problem(
+                        problem_spec, mesh, dtype=dtype, offline=offline,
+                        prebuilt=self.__stacked)
+                else:
+                    self.__stacked = build_stacked(
+                        problem_spec, dtype=dtype,
+                        pad_multiple=math.lcm(ranks, pad_multiple or 1),
+                        offline=offline, device="cpu")
+                    self.__part = FlatProblem(shard_problem(self.__stacked,
+                                                            mesh))
             else:
                 self.__stacked = build_stacked(
                     problem_spec, dtype=dtype,
-                    pad_multiple=math.lcm(ranks, pad_multiple or 1),
-                    offline=offline, device="cpu")
-                self.__part = FlatProblem(shard_problem(self.__stacked,
-                                                        mesh))
-        else:
-            self.__stacked = build_stacked(
-                problem_spec, dtype=dtype,
-                pad_multiple=1 if pad_multiple is None else pad_multiple,
-                offline=offline, device=device)
+                    pad_multiple=1 if pad_multiple is None else pad_multiple,
+                    offline=offline, device=device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
         self.__result: Optional[SolverResult] = None
         self.__lambda_max: Optional[float] = None
         self.__validate_plan: Optional[dict] = None
         self.power_iterations: Optional[int] = None
 
     def operator_norm_sq(self) -> float:
-        """lambda_max(L'L), memoised per Solver."""
+        """lambda_max(L'L), memoised per Solver; the first call is the
+        span ``raocp.setup.power``."""
         if self.__lambda_max is None:
-            lam, self.power_iterations = _power_iteration(
-                self.__stacked if self.__part is None else self.__part.sp)
+            with cond.span("raocp.setup.power", LOOP_COUNTS,
+                           "power_seconds"):
+                lam, self.power_iterations = _power_iteration(
+                    self.__stacked if self.__part is None
+                    else self.__part.sp)
             self.__lambda_max = float(lam)
         return self.__lambda_max
 
@@ -1180,6 +1207,7 @@ class Solver:
     def result(self) -> Optional[SolverResult]:
         return self.__result
 
+    @cond.span("raocp.solve", LOOP_COUNTS, "solve_seconds")
     def solve(self, initial_state, max_iters: int = 10, tol: float = 1e-5,
               alpha: Optional[float] = None, warm_start=None,
               log_every: Optional[int] = None,
@@ -1331,6 +1359,7 @@ class Solver:
         convergence, 1 otherwise; rich results stay on :attr:`result`."""
         return self.solve(initial_state, max_iters=max_iters, tol=tol).status
 
+    @cond.span("raocp.solve", LOOP_COUNTS, "solve_seconds")
     def solve_batch(self, initial_states, max_iters: int = 10,
                     tol: float = 1e-5, alpha: Optional[float] = None,
                     check_every: int = 1, unroll: int = 1,

@@ -301,19 +301,41 @@ def test_k1_plans_the_baseline_shapes(k, dtype):
 
 def test_trace_summary():
     """The profile's parser: wall from the first device event's start to
-    the last one's end, device time summed, K1's kernels by name."""
-    events = [dict(name="void stage_kernel<float>", ts=0.0, dur=40.0),
-              dict(name="elementwise", ts=50.0, dur=20.0),
-              dict(name="apex_kernel", ts=90.0, dur=10.0),
-              dict(name="elementwise", ts=190.0, dur=10.0)]
+    the last one's end, busy time the union of the device events'
+    intervals (a copy that overlaps a kernel counts once), K1's kernels by
+    name, each ``raocp.*`` span's self time and the idle gaps put down to
+    the innermost span open at their middles; other events are left out."""
+    def ev(cat, name, ts, dur):
+        return dict(cat=cat, name=name, ts=ts, dur=dur)
+
+    events = [ev("kernel", "void stage_kernel<float>", 0.0, 40.0),
+              ev("kernel", "elementwise", 50.0, 20.0),
+              ev("gpu_memcpy", "copy", 60.0, 20.0),
+              ev("kernel", "apex_kernel", 90.0, 10.0),
+              ev("kernel", "elementwise", 190.0, 10.0),
+              ev("cpu_op", "aten::add", 0.0, 200.0),
+              ev("user_annotation", "other", 140.0, 10.0),
+              ev("user_annotation", "raocp.solve", 0.0, 100.0),
+              ev("user_annotation", "raocp.loop.drive", 5.0, 90.0),
+              ev("user_annotation", "raocp.loop.launch", 10.0, 10.0),
+              ev("user_annotation", "raocp.loop.launch", 120.0, 50.0)]
     got = profile_step.summarize_trace(events, steps=2, top=2)
     assert got["wall_ms_per_step"] == pytest.approx(0.1)
-    assert got["device_ms_per_step"] == pytest.approx(0.04)
-    assert got["device_busy_share"] == pytest.approx(0.4)
-    assert got["launches_per_step"] == 2
-    assert got["k1_share_of_device"] == pytest.approx(0.625)
+    assert got["device_ms_per_step"] == pytest.approx(0.045)
+    assert got["device_busy_share"] == pytest.approx(0.45)
+    assert got["launches_per_step"] == 2.5
+    assert got["k1_share_of_device"] == pytest.approx(0.5)
     assert [t["name"] for t in got["top_kernels"]] == \
         ["void stage_kernel<float>", "elementwise"]
+    assert got["span_self_ms_per_step"] == pytest.approx(
+        {"raocp.solve": 0.005, "raocp.loop.drive": 0.04,
+         "raocp.loop.launch": 0.03})
+    # gaps [40, 50] and [80, 90] in the drive, [100, 190] in a launch
+    assert got["idle_ms_per_step_by_span"] == pytest.approx(
+        {"raocp.loop.drive": 0.01, "raocp.loop.launch": 0.045})
+    bare = profile_step.summarize_trace(events[:5], steps=2)
+    assert bare["idle_ms_per_step_by_span"] == pytest.approx({"none": 0.055})
+    assert bare["span_self_ms_per_step"] == {}
     with pytest.raises(ValueError):
         profile_step.summarize_trace([], steps=1)
 

@@ -446,6 +446,69 @@ def test_graph_loop_batch_is_the_host_loop(cuda):
 
 
 @pytest.mark.cuda
+def test_graph_loop_marks_its_replays(cuda, monkeypatch):
+    """The marks of the card's clock in the graph loop's periods: 80
+    replayed periods of 25 steps of the headline in float32, every one's
+    flag read, are 80 timed periods; their periods and the gaps between
+    them come to within 3% of the span that two events recorded on the
+    stream around the drive measure; and the loop is still the host loop
+    bit for bit."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.ops import cond
+
+    problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+    solver = rt.Solver(problem, device=cuda)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    # the cap's 2,000 steps: 80 periods, no tail, the last flag false
+    opts = dict(tol=0.0, max_iters=1999, check_every=25)
+    drive, spans = cond.drive, []
+
+    def timed_drive(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = drive(*args, **kw)
+        end.record()
+        end.synchronize()
+        spans.append(1e-3 * start.elapsed_time(end))
+        return out
+
+    monkeypatch.setattr(cond, "drive", timed_drive)
+    _graph_and_host(sp, x0, alpha, **opts)            # the capture
+    spans.clear()
+    out = _graph_and_host(sp, x0, alpha, **opts)
+    (g, _, loop), (h, _, _) = out["graph"], out["host"]
+    assert g[2] == h[2] == 2000
+    for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(g[4], h[4])
+    assert loop["replays"] == loop["timed_periods"] == 80
+    (span,) = spans
+    marked = loop["period_device_seconds"] + loop["gap_device_seconds"]
+    assert marked == pytest.approx(span, rel=0.03)
+    assert 0 <= loop["gap_device_seconds"] < loop["period_device_seconds"]
+    assert 0 < loop["launch_seconds"] < loop["drive_seconds"]
+
+
+@pytest.mark.cuda
+def test_only_capturing_loops_mark(cuda):
+    """A loop that captures no graph (the power iteration's periods) holds
+    no mark slot and no stamps, so it needs no mark library; one that
+    captures holds both."""
+    from raocp_tpu_torch.ops import cond
+
+    running = torch.ones((), dtype=torch.bool, device=cuda)
+    eager = cond.Periods(cuda, lambda: None, running, False, {})
+    graphed = cond.Periods(cuda, lambda: None, running, True, {})
+    assert not hasattr(eager.flags, "slot")
+    assert not hasattr(eager.flags, "stamps")
+    assert graphed.flags.slot.device == cuda
+    assert graphed.flags.stamps.is_pinned()
+
+
+@pytest.mark.cuda
 def test_capture_unsafe_step_raises(cuda, tmp_path):
     """A host read patched into the CP step makes the capture fail: the
     solve raises and does not rerun on the host loop. (In a process of its
