@@ -44,6 +44,8 @@ take for it.
 
 import math
 
+import torch
+
 from raocp_tpu_torch.core.variables import dual_shapes, primal_shapes
 from raocp_tpu_torch.ops.operator import (_same_child, _same_weight,
                                           stage_groups)
@@ -51,8 +53,8 @@ from raocp_tpu_torch.ops.sweep import _esize, sweep_eligible, sweep_work
 
 __all__ = ["PEAK_FLOPS", "PEAK_VECTOR_FLOPS", "PEAK_BYTES", "bound", "ell",
            "ell_t", "project_dynamics", "project_dynamics_stages",
-           "project_kernel", "prox_f", "g_conj_projections", "max_norm",
-           "cp_step", "cp_iteration", "production_trip"]
+           "project_kernel", "prox_f", "g_conj_projections", "dual_update",
+           "max_norm", "cp_step", "cp_iteration", "production_trip"]
 
 PEAK_FLOPS = {4: 67e12, 8: 67e12}
 PEAK_VECTOR_FLOPS = {4: 67e12, 8: 34e12}
@@ -412,6 +414,30 @@ def g_conj_projections(sp) -> dict:
     """The dual prox's projections: reads and writes a dual."""
     _, D, _ = _elements(sp)
     return _work(sp, _g_conj(sp), D, D)
+
+
+def dual_update(sp, lanes: int = 1) -> dict:
+    """The dual-update kernel (``ops/dual.py``) on ``lanes`` lanes: reads
+    eta, L z and L z+ (L z's e6 is its e5, its e13 its e12: each once), the
+    half-shift's four nonzero parts, alpha2 and what each row's
+    projection needs of the tables (every row's risk masks and radius, a
+    box row's bounds, a ball row's centre; shared by the lanes); writes
+    eta+. Its operations: the projections' (:func:`g_conj_projections`)
+    and eight an element for the Moreau combine and the step."""
+    _, D, _ = _elements(sp)
+    Dz = _leaves(dual_shapes(sp), ("e6", "e13"))
+    esize = _esize(sp.dtype)
+    t = _g_conj(sp)
+    tables = sum(v.numel() * v.element_size() for v in (
+        sp.risk_free_rows, sp.risk_zero_rows, sp.risk_soc_rows,
+        sp.risk_soc_tail, sp.nl_ball_r, sp.l_ball_r) if v is not None)
+    for r, cols in ((sp.nl_ball_r, sp.nl_rows), (sp.l_ball_r, sp.l_rows)):
+        balls = int(torch.isfinite(r).sum())
+        tables += (2 * (r.numel() - balls) + balls) * cols * esize
+    reads = lanes * (D + 2 * Dz) + 2 * sp.np_pad + 2 * sp.lf_pad + lanes
+    ew = lanes * (t.ew + 8 * D)
+    return dict(flop=ew, flop_mm=0, flop_ew=ew,
+                bytes=(reads + lanes * D) * esize + tables)
 
 
 def max_norm(sp) -> dict:

@@ -44,11 +44,12 @@ from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
                                             tree_add, tree_dot,
                                             tree_inf_norm, tree_sub)
 from raocp_tpu_torch.ops import cond
+from raocp_tpu_torch.ops import dual as dual_mod
 from raocp_tpu_torch.ops import prox as prox_mod
 from raocp_tpu_torch.ops import sweep as sweep_mod
+from raocp_tpu_torch.ops.dual import dual_update
 from raocp_tpu_torch.ops.operator import ell, ell_t
-from raocp_tpu_torch.ops.prox import (g_conj_projections, half_shift_dual,
-                                      prox_f)
+from raocp_tpu_torch.ops.prox import half_shift_dual, prox_f
 from raocp_tpu_torch.ops.sweep import DeviceFault
 from raocp_tpu_torch.parallel.flat import FlatProblem
 from raocp_tpu_torch.parallel.sharding import (all_reduce, mesh_device,
@@ -255,12 +256,9 @@ def _cp_step(sp: StackedProblem, z, eta, Lz, Lt, alpha1, alpha2, x0,
     z_new = prox_f(sp, Primal(*(zi - lane_view(alpha1, ti) * ti
                                 for zi, ti in zip(z, Lt))), alpha1, x0)
     Lzn = ell(sp, z_new)
-    # dual: eta+ = prox_g*(eta + a2 L(2 z+ - z)) via Moreau
-    a2 = [lane_view(alpha2, e) for e in eta]
-    mod = Dual(*((e + a * (2.0 * lzn - lz)) / a + s
-                 for e, a, lzn, lz, s in zip(eta, a2, Lzn, Lz, shift)))
-    proj = g_conj_projections(sp, mod)
-    eta_new = Dual(*(a * (m - p) for a, m, p in zip(a2, mod, proj)))
+    # dual: eta+ = prox_g*(eta + a2 L(2 z+ - z)) via Moreau, one kernel on
+    # a card
+    eta_new = dual_update(sp, eta, Lz, Lzn, alpha2, shift)
     Ltn = ell_t(sp, eta_new)
     return z_new, eta_new, Lzn, Ltn
 
@@ -361,13 +359,15 @@ def _log_residuals(k, err):
 # (``raocp.setup.power``). Device
 # seconds from the card's clock (``ops.cond.Flags``): the replayed periods
 # whose flag was read, their number, and the card's gaps between two of
-# them in one call.
+# them in one call. The launches of the dual-update kernel
+# (``ops.dual``) in the device loop's periods: an eager period's own, and
+# what a replay's graph recorded.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    host_reads=0, steps=0, wasted_steps=0, replayed_steps=0,
                    solve_seconds=0.0, drive_seconds=0.0, launch_seconds=0.0,
                    build_seconds=0.0, power_seconds=0.0,
                    period_device_seconds=0.0, gap_device_seconds=0.0,
-                   timed_periods=0)
+                   timed_periods=0, dual_launches=0)
 
 
 def _run_cp_host(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
@@ -686,6 +686,7 @@ class _DeviceLoop:
         self.steps, self.adaptive, self.relax = steps, adaptive, relax
         self.graphs = None
         self.k1_per_period = 0
+        self.dual_per_period = 0
         self.flags = cond.Flags(dev, LOOP_COUNTS, lead, marked=True)
 
     def load(self, z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol, limit,
@@ -714,10 +715,12 @@ class _DeviceLoop:
     def run_period(self, sp, parity: int, steps: Optional[int] = None):
         """One period from carry ``parity`` into the other, eagerly; with
         ``steps``, the tail: that many steps and no check."""
+        launched = dual_mod.LAUNCHES
         _period(sp, self.sets[parity], self.sets[1 - parity],
                 self.steps if steps is None else steps, steps is None,
                 self.adaptive, self.relax, self.x0, self.shift, self.hist,
                 self.tol, self.limit)
+        LOOP_COUNTS["dual_launches"] += dual_mod.LAUNCHES - launched
 
     def capture(self, sp):
         """Run period 0 eagerly on a side stream (it builds K1's library,
@@ -725,7 +728,8 @@ class _DeviceLoop:
         capture a period from each carry into the other, between two marks
         of the card's clock (``ops.cond.Flags.mark``), sharing one memory
         pool (they never run at once). The K1 launches recorded in a graph
-        are what each of its replays adds to ``ops.sweep.LAUNCHES``."""
+        are what each of its replays adds to ``ops.sweep.LAUNCHES``, and
+        the dual-update kernel's to ``ops.dual.LAUNCHES``."""
         tic = time.perf_counter()
         side = torch.cuda.Stream(sp.device)
         side.wait_stream(torch.cuda.current_stream(sp.device))
@@ -737,11 +741,13 @@ class _DeviceLoop:
         for parity in (0, 1):
             graph = torch.cuda.CUDAGraph()
             recorded = sweep_mod.RECORDED
+            dual_recorded = dual_mod.RECORDED
             with torch.cuda.graph(graph, pool=pool, stream=side):
                 self.flags.mark(0)
                 self.run_period(sp, parity)
                 self.flags.mark(1)
             self.k1_per_period = sweep_mod.RECORDED - recorded
+            self.dual_per_period = dual_mod.RECORDED - dual_recorded
             graphs.append(graph)
         self.graphs = graphs
         LOOP_COUNTS["captures"] += 1
@@ -764,6 +770,8 @@ class _DeviceLoop:
             LOOP_COUNTS["replays"] += 1
             LOOP_COUNTS["replayed_steps"] += self.steps
             sweep_mod.LAUNCHES += self.k1_per_period
+            dual_mod.LAUNCHES += self.dual_per_period
+            LOOP_COUNTS["dual_launches"] += self.dual_per_period
         LOOP_COUNTS["periods"] += 1
         LOOP_COUNTS["steps"] += self.steps
         self.flags.post(n, self.sets[1 - parity].running, timed=replay)
@@ -782,14 +790,15 @@ def _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive, relax,
     later solves, chunks and closed-loop steps replay its graphs), else a
     new one. The key is what changes the captured program: the lanes, the
     period, ``adaptive``, ``relax``, the dynamics projection's
-    dispatch (K1, the stage path, or a patched sweep) and the history's
-    capacity (a power of two, at least 1,024 rows)."""
+    dispatch (K1, the stage path, or a patched sweep), the dual update
+    (the kernel, or a patched one) and the history's capacity (a power of
+    two, at least 1,024 rows)."""
     capacity = max(1024, 1 << (rows - 1).bit_length())
     if sp.device.type != "cuda":
         return _DeviceLoop(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
                            relax, rows)
     key = (lanes, steps, adaptive, relax, sweep_mod.sweep_eligible(sp),
-           prox_mod.project_dynamics_sweep, capacity)
+           prox_mod.project_dynamics_sweep, dual_update, capacity)
     cached = _LOOPS.get(id(sp))
     if cached is not None and cached[0] == key:
         return cached[1]

@@ -1,8 +1,10 @@
 """K1 on the card: the CUDA sweep kernel against its plain torch version,
 unbatched and batched (B lanes in one launch set), and against the torch
 stage path; the roofline's rows at the headline; the CP loop's CUDA graphs
-against the host loop; and the subtree partition on two gloo ranks that
-share the card.
+against the host loop; the subtree partition on two gloo ranks that
+share the card; and the dual-update kernel against its plain twin (the
+cases of ``tests/test_torch_dual.py``), in a captured graph, in the loop
+and through a solve of the headline.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -794,3 +796,198 @@ def test_accel_loop_is_freed_with_its_solver(cuda):
     del solver
     assert allocated() == start
     assert not any(slot[0] == key for slot in accel._LOOPS)
+
+
+# -- the dual-update kernel (csrc/dual.cu) -----------------------------------
+
+# the kernel against its plain twin, relative to the largest entry of eta
+# and of the twin's output. Every elementwise operation rounds as the
+# twin's kernels round; the sums of a row's squares (up to 71 terms at the
+# headline, 141 at config 5's width) run in another order, so float32
+# outputs differ by the few ulps of a reordered sum of squares carried
+# through the norm's square root and one product, and float64 by the same
+# in float64
+DUAL_TOLS = {"float32": 1e-6, "float64": 1e-12}
+# case -> (the case of tests/test_torch_dual.py, its tree instead of the
+# case's own): BASELINE config 4's 9,841 nodes at n=50, m=20 in float32
+# (8-byte vectors); config 5's width (16-byte vectors); the demo in
+# float64; 8 lanes with a step size each; ball and box rows beside the
+# L2Ball risk's SOC block, alone and in 2 lanes; eta's parts as views at an
+# odd offset and column stride 2 (one element at a time)
+DUAL_CASES = {
+    "headline_f32": ("small_f32", FIXTURES["headline"][0]),
+    "config5_width_f32": ("small_f32", FIXTURES["config5_width"][0]),
+    "demo_f64": ("demo_f64", None),
+    "lanes8_f32": ("small_lanes8_f32", None),
+    "mixed_f64": ("mixed_f64", None),
+    "mixed_lanes2_f32": ("mixed_lanes2_f32", None),
+    "strided_f64": ("strided_f64", None),
+}
+
+
+def _dual_case(cuda, name):
+    from test_torch_dual import dual_case
+
+    case, problem = DUAL_CASES[name]
+    return dual_case(case, cuda, problem)
+
+
+def _dual_scale(eta, want):
+    return max([1.0] + [float(t.abs().max()) for t in (*eta, *want)
+                        if t.numel()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DUAL_CASES))
+def test_dual_kernel_matches_plain_twin(cuda, name):
+    """One launch gives every part of the plain twin's eta+ within
+    DUAL_TOLS, in its shape and on the card; a second launch on the same
+    inputs gives the same bits."""
+    from raocp_tpu_torch.ops import dual
+
+    args = _dual_case(cuda, name)
+    sp, eta = args[0], args[1]
+    before = dual.LAUNCHES
+    got = dual.dual_update(*args)
+    torch.cuda.synchronize()
+    assert dual.LAUNCHES == before + 1
+    want = dual.dual_update_plain(*args)
+    tol = DUAL_TOLS[str(sp.dtype).split(".")[-1]] * _dual_scale(eta, want)
+    for part, a, b in zip(want._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, part
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=part)
+    again = dual.dual_update(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["headline_f32", "config5_width_f32",
+                                  "mixed_f64"])
+def test_dual_kernel_bits_do_not_depend_on_the_layout(cuda, name):
+    """eta's parts copied one element off their alignment, so that no
+    family takes vector loads, give the aligned call's bits: a thread
+    takes the same entries in the same order either way."""
+    from raocp_tpu_torch.core.variables import Dual
+    from raocp_tpu_torch.ops import dual
+
+    sp, eta, *rest = _dual_case(cuda, name)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    odd = Dual(*(shifted(t) for t in eta))
+    plan = dual._call(sp, eta, *rest)[2]
+    odd_plan = dual._call(sp, odd, *rest)[2]
+    assert plan[10:16] == odd_plan[10:16] and plan[16:19] == [1, 1, 1]
+    assert odd_plan[16:19] == [int(v == 1) for v in plan[10:13]]
+    got, want = dual.dual_update(sp, odd, *rest), \
+        dual.dual_update(sp, eta, *rest)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["headline_f32", "demo_f64", "mixed_f64"])
+def test_dual_kernel_rows_do_not_depend_on_the_block(cuda, name):
+    """The rows from an odd offset to the end of every node space, as a
+    rank of the flat partition holds a block (a problem of its own, its
+    tables cut to those rows; its inputs views at that offset, or copies),
+    give the whole tree's bits on those rows: a row's eta+ depends on
+    that row alone, wherever it lies."""
+    import dataclasses
+    from raocp_tpu_torch.core.variables import Dual
+    from raocp_tpu_torch.ops import dual
+
+    sp, eta, Lz, Lzn, alpha, shift = _dual_case(cuda, name)
+    want = dual.dual_update(sp, eta, Lz, Lzn, alpha, shift)
+    pads = dict(np=sp.np_pad, nl=sp.nl_pad, lf=sp.lf_pad)
+    first = {space: rows // 2 + 1 for space, rows in pads.items()}
+    space = dict(e1="nl", e2="nl", e3="np", e4="np", e5="np", e6="np",
+                 e7="nl", e11="lf", e12="lf", e13="lf", e14="lf")
+    tables = dict.fromkeys(("risk_free_rows", "risk_zero_rows",
+                            "risk_soc_rows", "risk_soc_tail", "nl_lo",
+                            "nl_hi", "nl_ball_c", "nl_ball_r"), "nl")
+    tables.update(dict.fromkeys(("l_lo", "l_hi", "l_ball_c", "l_ball_r"),
+                                "lf"))
+    block = dataclasses.replace(
+        sp, **{f"{s}_pad": pads[s] - first[s] for s in pads},
+        **{k: None if getattr(sp, k) is None
+           else getattr(sp, k)[first[s]:] for k, s in tables.items()})
+
+    def rows(tree, copy):
+        cut = (t[first[space[k]]:] for k, t in tree._asdict().items())
+        return Dual(*(t.clone() if copy else t for t in cut))
+
+    for copy in (False, True):
+        got = dual.dual_update(block, rows(eta, copy), rows(Lz, copy),
+                               rows(Lzn, copy), alpha, rows(shift, copy))
+        assert all(torch.equal(a, b) for a, b in zip(got, rows(want, False)))
+
+
+@pytest.mark.cuda
+def test_dual_kernel_in_a_captured_graph(cuda):
+    """Captured in a CUDA graph the call records one launch and launches
+    none; each replay reads the step size that its device tensor holds
+    then (changed in place between replays), and gives the eager
+    kernel's bits for that step size."""
+    from raocp_tpu_torch.ops import dual
+
+    sp, eta, Lz, Lzn, alpha, shift = _dual_case(cuda, "lanes8_f32")
+    dual.dual_update(sp, eta, Lz, Lzn, alpha, shift)   # the library, warm
+    torch.cuda.synchronize()
+    launches, recorded = dual.LAUNCHES, dual.RECORDED
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dual.dual_update(sp, eta, Lz, Lzn, alpha, shift)
+    assert dual.RECORDED == recorded + 1 and dual.LAUNCHES == launches
+    for scale in (1.0, 0.5, 3.0):
+        alpha.mul_(scale)
+        graph.replay()
+        want = dual.dual_update(sp, eta, Lz, Lzn, alpha, shift)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_graph_loop_counts_its_dual_launches(cuda):
+    """200 steps of the headline through the graph loop (its capture, then
+    replays alone) and the host loop: one dual-update launch a step each,
+    counted into ``ops.dual.LAUNCHES``; the graph loop's
+    ``LOOP_COUNTS["dual_launches"]`` equals its steps."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.ops import dual
+
+    problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+    solver = rt.Solver(problem, device=cuda)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    opts = dict(tol=0.0, max_iters=200, check_every=25)
+    for _ in range(2):
+        before = dual.LAUNCHES
+        out = _graph_and_host(sp, x0, alpha, **opts)
+        (g, _, g_loop), (h, _, h_loop) = out["graph"], out["host"]
+        assert g[2] == h[2] == 201
+        assert g_loop["dual_launches"] == g_loop["steps"] > 0
+        assert h_loop["dual_launches"] == 0       # no periods
+        assert dual.LAUNCHES - before == g_loop["steps"] + h[2]
+
+
+@pytest.mark.cuda
+def test_headline_to_tolerance_through_the_dual_kernel(cuda, monkeypatch):
+    """BASELINE config 4's headline to 1e-3 in float32 through the device
+    loop: the kernel's count within two check periods of the plain twin's
+    (the sums' order moves the last bits), both converged."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.ops import dual
+
+    problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+    opts = dict(tol=1e-3, max_iters=20000, check_every=25, unroll=25)
+    before = dual.LAUNCHES
+    kernel = rt.Solver(problem, device=cuda).solve(x0, **opts)
+    launched = dual.LAUNCHES - before
+    monkeypatch.setattr(solver_mod, "dual_update", dual.dual_update_plain)
+    twin = rt.Solver(problem, device=cuda).solve(x0, **opts)
+    assert kernel.status == twin.status == 0
+    assert abs(kernel.num_iters - twin.num_iters) <= 2 * 25
+    assert launched >= kernel.num_iters
