@@ -8,13 +8,14 @@ numbers. It has to come out as not correct. Benchmark runs never run it.
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3
         [--problems 2]
 
-For a ``solve`` cell it solves ``--problems`` initial states of each seed
-by plain CP, the k-th seed the k-th ``--problems`` of the mix's list, so
-that the seeds meet distinct problems (an accelerated cell's control is
-plain CP too: the answer asked for is the same); for an ``mpc`` cell it
-runs that many closed-loop steps from the seed's first state and mode,
-warm-started, the later modes drawn as the controller draws them. One JSON
-line a seed: the largest of each number and its limit.
+For a ``solve`` or ``batch`` cell it solves ``--problems`` initial states
+of each seed by plain CP, one at a time, the k-th seed the k-th
+``--problems`` of the mix's list, so that the seeds meet distinct problems
+(an accelerated or batched cell's control is plain CP too: the answer
+asked for is the same); for an ``mpc`` cell it runs that many closed-loop
+steps from the seed's first state and mode, warm-started, the later modes
+drawn as the controller draws them. One JSON line a seed: the largest of
+each number and its limit.
 """
 
 import argparse
@@ -52,13 +53,14 @@ def _answer(z, e, iters, xi, x0) -> dict:
 def control_answers(spec: dict, seed: int, problems: int, device,
                     dtype, first: int = 0) -> list:
     """(answer, initial state, root mode) of the control's problems: of a
-    ``solve`` cell, the mix's problems ``first`` to ``first + problems``."""
+    ``solve`` or ``batch`` cell, the mix's problems ``first`` to ``first +
+    problems``."""
     config, params = spec["config"], spec["mix"]["params"]
     kind = spec["mix"]["kind"]
     pl = bp.plant(config)
     opts = dict(tol=params["tol"], max_iters=params["max_iters"],
                 check_every=params["check_every"])
-    if kind == "solve":
+    if kind in ("solve", "batch"):
         ref = Reference(config, pl, bp.config_tree(config), device, dtype)
         x0s = bp.initial_states(config, seed, params["problems"],
                                 params["x0_scale"])
@@ -110,7 +112,9 @@ def main(argv=None) -> int:
         got = [judge.numbers(a, x0, mode) for a, x0, mode in answers]
         worst = {k: max(g[k] for g in got) for k in got[0]}
         print(json.dumps(dict(
-            workload=args.workload, seed=seed, control="tf32",
+            workload=args.workload, seed=seed,
+            control=("tf32" if spec["config"]["dtype"] == "float32"
+                     else "float32"),
             iterations=[a["num_iters"] for a, _, _ in answers],
             reported_xi=[a["xi"] for a, _, _ in answers],
             numbers={k: dict(value=v, limit=limits.get(k))

@@ -4,7 +4,7 @@ PyTorch, node by node in batches, with none of the system under test's
 layouts, tables or kernels (it imports nothing of it).
 
 The problem, per nonleaf node i with children j and leaf l (the upstream
-project's formulation, AVaR risks, box constraints):
+project's formulation, AVaR risks, box or ball constraints):
 
   primal z = (x [N, n], u [NL, m], y [NL, Y], tau [N], s [N])
   L z:  e1_i = y_i            e2_i = s_i - b_i'y_i
@@ -16,7 +16,10 @@ project's formulation, AVaR risks, box constraints):
      (y_i, tau_children, s_children)
   g: the indicators of the dual risk cone (e1), the orthant (e2), the
      second-order cones ||(e3, e4, e5 - 1/2)|| <= e6 + 1/2 and
-     ||(e11, e12 - 1/2)|| <= e13 + 1/2, and the boxes (e7, e14).
+     ||(e11, e12 - 1/2)|| <= e13 + 1/2, and the state-input sets: by the
+     configuration's ``constraint`` the boxes |x| <= x_limit, |u| <=
+     u_limit (e7) and |x| <= x_limit (e14), or the balls ||e7|| <= radius
+     and ||e14|| <= radius, centred at 0.
 
 :class:`Reference` holds one problem on a device in a dtype: ``L``, ``Lt``
 (its adjoint), the proximal maps, one CP step, the residuals of a point,
@@ -57,12 +60,19 @@ def _soc(head, tail):
     return ph, pt
 
 
+def _ball(v, radius):
+    """Projection onto {v: ||v|| <= radius}, row by row: a row outside is
+    scaled onto the sphere, a row inside is left as it is."""
+    norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v * (radius / norm.clamp_min(radius))
+
+
 def inf_norm(tree: dict) -> float:
     return max(float(v.abs().max()) for v in tree.values() if v.numel())
 
 
 class Reference:
-    """One problem: ``config`` (sizes, costs, bounds, AVaR level), its
+    """One problem: ``config`` (sizes, costs, sets, AVaR level), its
     ``plant`` and ``tree`` (:mod:`benchmark.reference.problem`), on
     ``device`` in ``dtype``."""
 
@@ -93,9 +103,13 @@ class Reference:
         self.sqrtQ = t(math.sqrt(config["Q"]) * eye)
         self.sqrtR = t(math.sqrt(config["R"]) * np.eye(m))
         self.sqrtP = t(math.sqrt(config["P"]) * eye)
-        x_lim, u_lim = config["x_limit"], config["u_limit"]
-        self.lo7 = t(np.r_[-x_lim * np.ones(n), -u_lim * np.ones(m)])
-        self.lo14 = t(-x_lim * np.ones(n))
+        self.radius = None
+        if config["constraint"] == "ball":
+            self.radius = float(config["radius"])
+        else:
+            x_lim, u_lim = config["x_limit"], config["u_limit"]
+            self.lo7 = t(np.r_[-x_lim * np.ones(n), -u_lim * np.ones(m)])
+            self.lo14 = t(-x_lim * np.ones(n))
         # AVaR_alpha: E = [alpha I; -I; 1'], b = [pi; 0; 1], cone
         # NnOC(2c) x Zero(1), whose dual cone is NnOC(2c) x R
         alpha = config["alpha"]
@@ -298,13 +312,16 @@ class Reference:
                                      mod["e5"][:, None]], dim=1), mod["e6"])
         lhead, ltail = _soc(torch.cat([mod["e11"], mod["e12"][:, None]],
                                       dim=1), mod["e13"])
+        if self.radius is None:
+            e7 = torch.minimum(torch.maximum(mod["e7"], self.lo7), -self.lo7)
+            e14 = torch.minimum(torch.maximum(mod["e14"], self.lo14),
+                                -self.lo14)
+        else:
+            e7 = _ball(mod["e7"], self.radius)
+            e14 = _ball(mod["e14"], self.radius)
         proj = dict(e1=p1, e2=mod["e2"].clamp_min(0), e3=head[:, :n],
-                    e4=head[:, n:n + m], e5=head[:, -1], e6=tail,
-                    e7=torch.minimum(torch.maximum(mod["e7"], self.lo7),
-                                     -self.lo7),
-                    e11=lhead[:, :n], e12=lhead[:, -1], e13=ltail,
-                    e14=torch.minimum(torch.maximum(mod["e14"], self.lo14),
-                                      -self.lo14))
+                    e4=head[:, n:n + m], e5=head[:, -1], e6=tail, e7=e7,
+                    e11=lhead[:, :n], e12=lhead[:, -1], e13=ltail, e14=e14)
         return {k: alpha * (mod[k] - proj[k]) for k in DUAL}
 
     # -- the CP map -------------------------------------------------------

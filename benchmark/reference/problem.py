@@ -75,9 +75,9 @@ def initial_states(config: dict, seed: int, count: int, scale: float):
     """``count`` distinct initial states (float64 [count, n]): ``scale``
     times the family's first ``count`` draws (the first is its own x0), a
     frozen list, each with a sign drawn from ``seed``. The problem is
-    symmetric under x -> -x (odd dynamics, even costs, boxes centred on 0),
-    so every sign takes the same work, bit for bit: a seed changes the
-    inputs and not the work."""
+    symmetric under x -> -x (odd dynamics, even costs, boxes or balls
+    centred on 0), so every sign takes the same work, bit for bit: a seed
+    changes the inputs and not the work."""
     signs = np.random.default_rng(seed).choice([-1.0, 1.0], size=count)
     return scale * signs[:, None] * _draws(config, count)[1]
 

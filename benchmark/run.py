@@ -149,12 +149,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         got = judge.numbers(answer, x0, mode)
         failed += any(got[k] > limits[k] for k in limits)
         worst = {k: max(worst[k], got[k]) for k in limits}
+    # the least times of one step's work, of every lane of a batch step
+    lanes = params.get("lanes", 1)
+    least = {part: lanes * work.least_time(getattr(work, part)(config),
+                                           config)
+             for part in ("cp_step", "project_dynamics", "dual_update")}
     return dict(config=config, setup=setup, window=window, slice=piece,
                 peak=peak, failed=failed, worst=worst, limits=limits,
-                work=dict(cp_step=work.least_time(work.cp_step(config),
-                                                  config),
-                          project_dynamics=work.least_time(
-                              work.project_dynamics(config), config)))
+                work=least)
 
 
 def end_to_end(run: dict) -> dict:

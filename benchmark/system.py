@@ -18,15 +18,23 @@ from raocp_tpu_torch import solver as rt_solver
 def build_problem(config: dict, plant, v) -> "rt.RAOCP":
     """The configuration's RAOCP rooted at the initial distribution ``v``:
     per mode (A, B) and costs (Q I, R I), P I at the leaves, AVaR at every
-    nonleaf node, boxes on [x; u] and on the leaf states."""
+    nonleaf node, and by its ``constraint`` boxes (``"box"``) or balls
+    centred at 0 (``"ball"``, of its ``radius``) on [x; u] and on the leaf
+    states."""
     n, m = config["num_states"], config["num_inputs"]
     tree = rt.MarkovChainScenarioTreeFactory(
         plant.P, v, config["num_stages"], config["stopping_time"]).create()
     nl, lf = rt.Nonleaf(), rt.Leaf()
     modes = plant.A.shape[0]
-    lo = np.concatenate([np.full(n, -config["x_limit"]),
-                         np.full(m, -config["u_limit"])])
-    x_lo = np.full(n, -config["x_limit"])
+    if config["constraint"] == "ball":
+        nl_set = rt.Ball(nl, config["radius"])
+        lf_set = rt.Ball(lf, config["radius"])
+    else:
+        lo = np.concatenate([np.full(n, -config["x_limit"]),
+                             np.full(m, -config["u_limit"])])
+        x_lo = np.full(n, -config["x_limit"])
+        nl_set = rt.Rectangle(nl, lo, -lo)
+        lf_set = rt.Rectangle(lf, x_lo, -x_lo)
     return (rt.RAOCP(scenario_tree=tree)
             .with_markovian_dynamics([rt.Dynamics(plant.A[w], plant.B[w])
                                       for w in range(modes)])
@@ -36,8 +44,8 @@ def build_problem(config: dict, plant, v) -> "rt.RAOCP":
                  for _ in range(modes)])
             .with_all_leaf_costs(rt.Quadratic(lf, config["P"] * np.eye(n)))
             .with_all_risks(rt.AVaR(config["alpha"]))
-            .with_all_nonleaf_constraints(rt.Rectangle(nl, lo, -lo))
-            .with_all_leaf_constraints(rt.Rectangle(lf, x_lo, -x_lo)))
+            .with_all_nonleaf_constraints(nl_set)
+            .with_all_leaf_constraints(lf_set))
 
 
 def sync(device):

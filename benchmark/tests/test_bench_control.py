@@ -1,9 +1,9 @@
 """The control: the plain reference in the system's place, in the precision
-below the configuration's (TF32 products for float32), has to come out as
-not correct. TF32 exists only on a card; here at 40 nodes with the
-configurations' other sizes, two problems (or two closed-loop steps) on
-three seeds, the iteration budget cut to 2,000 so that the test stays
-short."""
+below the configuration's (TF32 products for float32, float32 for
+float64), has to come out as not correct. TF32 exists only on a card; here
+at 40 nodes with the configurations' other sizes, two problems (or two
+closed-loop steps) on three seeds, the iteration budget cut to 2,000 so
+that the test stays short."""
 
 import pytest
 import torch
@@ -15,7 +15,8 @@ from benchmark.tests.conftest import TINY
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["config4.solve", "config5.mpc"])
+@pytest.mark.parametrize("name", ["config4.solve", "config5.mpc",
+                                  "config3.solve_f64", "config4.batch8"])
 def test_the_control_is_not_correct(cuda, name):
     spec = bench.cell(name)
     spec["config"] = dict(spec["config"], **TINY)

@@ -214,9 +214,12 @@ def test_a_sound_run_is_correct(name):
 
 
 def _break(monkeypatch, alter):
+    """``alter`` each answer that a solve or a batch solve returns (each
+    lane's), past the set-up's warm-up."""
     from raocp_tpu_torch import solver as rt_solver
 
     solve = rt_solver.Solver.solve
+    solve_batch = rt_solver.Solver.solve_batch
 
     def broken(self, x0, **kw):
         res = solve(self, x0, **kw)
@@ -224,7 +227,15 @@ def _break(monkeypatch, alter):
             alter(res, np.asarray(x0))
         return res
 
+    def broken_batch(self, x0s, **kw):
+        results = solve_batch(self, x0s, **kw)
+        if kw.get("tol", 1.0) < 1.0:
+            for res, x0 in zip(results, np.asarray(x0s)):
+                alter(res, x0)
+        return results
+
     monkeypatch.setattr(rt_solver.Solver, "solve", broken)
+    monkeypatch.setattr(rt_solver.Solver, "solve_batch", broken_batch)
 
 
 def _unchanged(res, x0):

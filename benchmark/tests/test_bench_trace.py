@@ -76,3 +76,32 @@ def test_idle_is_taken_against_the_untraced_slice():
     run = dict(slice=dict(summary=s, untraced_s=75e-6))
     assert reader.read(run) == pytest.approx(20.0)
     assert reader.read(dict(slice=None)) is None
+
+
+def test_the_dual_kernels_time_by_name():
+    events = [_span(0, 100), _kernel(0, 20, "void stage_kernel<double>"),
+              _kernel(20, 7, "dual_update_kernel(Args)"),
+              _kernel(30, 7, "dual_update_kernel(Args)"),
+              _kernel(40, 5, "elementwise")]
+    s = trace.summarize(events)
+    assert s["dual_s"] == pytest.approx(14e-6)
+    assert s["k1_s"] == pytest.approx(20e-6)
+    assert trace.summarize([_span(0, 10), _kernel(0, 5)])["dual_s"] == 0.0
+
+
+def test_the_dual_roofline_reads_the_kernels_time_an_iteration():
+    from benchmark import run as bench
+
+    reader = bench.load_module(bench.HERE / "metrics"
+                               / "dual.roofline_pct.py")
+    s = trace.summarize([_span(0, 100),
+                         _kernel(0, 8, "dual_update_kernel(Args)"),
+                         _kernel(50, 8, "dual_update_kernel(Args)")])
+    # two iterations of 8 us each against a least time of 2 us
+    run = dict(slice=dict(summary=s, iterations=2), work=dict(
+        dual_update=2e-6))
+    assert reader.read(run) == pytest.approx(25.0)
+    none = trace.summarize([_span(0, 100), _kernel(0, 8)])
+    assert reader.read(dict(run, slice=dict(summary=none,
+                                            iterations=2))) is None
+    assert reader.read(dict(run, slice=None)) is None

@@ -78,8 +78,30 @@ def test_count_ignores_the_ports_padding_and_mode_grouping():
     assert len(theirs) == 2
 
 
+def test_hand_count_of_the_dual_update_at_the_tiny_tree():
+    """At 40 nodes (13 nonleaf, 27 leaves, 3 children a node), n = 4, m =
+    2, three modes, float64."""
+    box = _config(dtype="float64")
+    ball = dict(box, constraint="ball", radius=10.0)
+    # the dual: e1 13 x 7, e2 13, e7 13 x 6; e3 40 x 4, e4 40 x 2, e5, e6
+    # 40 each; e11 27 x 4, e12, e13 27 each, e14 27 x 4
+    D = 13 * (7 + 1 + 6) + 40 * (4 + 2 + 2) + 27 * (4 + 2 + 4)
+    assert D == 772
+    # eta and eta+ whole, L z and L z+ without e6 (40) and e13 (27)
+    io = 2 * D + 2 * (D - 40 - 27)
+    # the risk cone's 7 rows of three modes; a box's bounds on [x; u] and
+    # on x, or a ball's centre and radius on each
+    assert work.dual_update(box) == dict(
+        flop=0, bytes=8 * (io + 3 * 7 + 2 * 6 + 2 * 4))
+    assert work.dual_update(ball) == dict(
+        flop=0, bytes=8 * (io + 3 * 7 + (6 + 1) + (4 + 1)))
+    assert work.dual_update(dict(box, dtype="float32"))["bytes"] == \
+        work.dual_update(box)["bytes"] // 2
+
+
 def test_the_configs_sizes_are_their_trees():
-    for name in ("config4_network_1e4", "config5_network_mpc_1e5"):
+    for name in ("config4_network_1e4", "config5_network_mpc_1e5",
+                 "config3_soc_network_3k"):
         cfg = bp.load_config(name)
         s = work.sizes(cfg)
         assert s["N"] == cfg["num_nodes"]

@@ -32,6 +32,12 @@ def is_k1(name: str) -> bool:
     return "stage_kernel" in name or "apex_kernel" in name
 
 
+def is_dual(name: str) -> bool:
+    """The dual-update kernel (``csrc/dual.cu``): the prox of g* and the
+    dual step in one launch."""
+    return "dual_update_kernel" in name
+
+
 def profile_call(fn):
     """``fn()`` under ``torch.profiler`` (host and device), inside the span
     :data:`SPAN`; returns (fn's result, the trace's :func:`summarize`). A
@@ -77,10 +83,10 @@ def _union(intervals):
 def summarize(events: list, span: str = SPAN) -> dict:
     """Of the events of one trace (Chrome trace dicts, times in us): the
     window (the span ``span``), in seconds, the busy time of the device in
-    it, its device events, K1's time, the device time by name (top
-    :data:`TOP`) and the idle time by what the host was doing (top
-    :data:`TOP`: for each gap between busy intervals, the innermost host
-    event at its middle)."""
+    it, its device events, K1's time, the dual-update kernel's time, the
+    device time by name (top :data:`TOP`) and the idle time by what the
+    host was doing (top :data:`TOP`: for each gap between busy intervals,
+    the innermost host event at its middle)."""
     spans = [ev for ev in events if ev.get("name") == span
              and ev.get("ph") == "X"]
     if not spans:
@@ -96,6 +102,7 @@ def summarize(events: list, span: str = SPAN) -> dict:
     for ev in device:
         by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev.get("dur", 0)
     k1_us = sum(t for name, t in by_name.items() if is_k1(name))
+    dual_us = sum(t for name, t in by_name.items() if is_dual(name))
     host = sorted((ev["ts"], ev["ts"] + ev.get("dur", 0), ev["name"])
                   for ev in events if ev.get("cat") in HOST_CATS
                   and ev.get("ph") == "X" and ev.get("name") != span)
@@ -118,5 +125,6 @@ def summarize(events: list, span: str = SPAN) -> dict:
     worst = sorted(idle.items(), key=lambda kv: -kv[1])[:TOP]
     return dict(window_s=1e-6 * (t1 - t0), busy_s=1e-6 * busy_us,
                 device_events=len(device), k1_s=1e-6 * k1_us,
+                dual_s=1e-6 * dual_us,
                 device_ops=[[name[:160], 1e-6 * t] for name, t in top],
                 idle_gaps=[[name[:160], 1e-6 * t] for name, t in worst])

@@ -23,6 +23,7 @@ full 700 W: 67 TFLOP/s in float32 and in float64, 3.35 TB/s).
 A CP step is one evaluation of the CP map (the residual check of every
 ``check_every``-th step is not counted): prox_f (the dynamics projection,
 the kernel projection), one apply of L and one of L', the dual prox.
+:func:`dual_update` counts the dual prox's pass alone.
 """
 
 PEAK_FLOPS = {4: 67e12, 8: 67e12}
@@ -93,6 +94,25 @@ def project_kernel(config: dict) -> dict:
     D = 4 * c + 1
     return dict(flop=s["NL"] * 2 * (2 * c * D + c * c),
                 bytes=s["esize"] * 2 * s["NL"] * D)
+
+
+def dual_update(config: dict) -> dict:
+    """The dual update (the prox of g* in Moreau form and the step into
+    it), as one pass: eta, L z and L z+ read, eta+ written; L z's e6 and
+    e13 are its e5 and e12 (tau/2 and s/2), read once; the tables once:
+    per mode the risk cone's rows, and the state-input sets' parameters (a
+    box's two bounds, or a ball's centre and radius) at nonleaf nodes and
+    at leaves. Its operations are elementwise: not counted."""
+    s = sizes(config)
+    n, m = s["n"], s["m"]
+    D = _dual(s)
+    Dz = D - s["N"] - s["LF"]
+    if config["constraint"] == "ball":
+        sets = (n + m + 1) + (n + 1)
+    else:
+        sets = 2 * (n + m) + 2 * n
+    tables = s["modes"] * (2 * max(s["kids"]) + 1) + sets
+    return dict(flop=0, bytes=s["esize"] * (2 * D + 2 * Dz + tables))
 
 
 def cp_step(config: dict) -> dict:
