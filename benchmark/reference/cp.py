@@ -3,10 +3,17 @@ Chambolle-Pock (CP) map, written from the problem's definition in plain
 PyTorch, node by node in batches, with none of the system under test's
 layouts, tables or kernels (it imports nothing of it).
 
-The problem, per nonleaf node i with children j and leaf l (the upstream
-project's formulation, AVaR risks, box or ball constraints):
+The problem, per nonleaf node i with c_i children j and leaf l (the
+upstream project's formulation, AVaR risks, box or ball constraints):
 
   primal z = (x [N, n], u [NL, m], y [NL, Y], tau [N], s [N])
+
+A node's risk rows are its own 2 c_i + 1: y_i and e1_i hold them in slots
+[0, 2 c_i + 1) and are zero in the slots after them, up to the widest
+node's Y (a stopped Markov tree branches until its stopping time and then
+gives each node one child). The slots after a node's own belong to no set:
+the projection onto the kernel sets them to 0, and the dual cone leaves
+them free.
   L z:  e1_i = y_i            e2_i = s_i - b_i'y_i
         e3_j = sqrt(Q_j) x_i  e4_j = sqrt(R_j) u_i   e5_j = e6_j = tau_j/2
         e7_i = [x_i; u_i]     e11_l = sqrt(P) x_l    e12_l = e13_l = s_l/2
@@ -82,12 +89,8 @@ class Reference:
         self.n, self.m = n, m
         N, NL = tree.num_nodes, tree.num_nonleaf
         self.N, self.NL, self.LF = N, NL, N - NL
-        counts = np.unique(tree.child_count)
-        if len(counts) != 1:
-            raise NotImplementedError("the reference takes trees whose "
-                                      "nonleaf nodes have equal child counts")
-        c = int(counts[0])
-        self.c, self.Y = c, 2 * c + 1
+        self.counts = np.asarray(tree.child_count)
+        self.Y = 2 * int(self.counts.max()) + 1     # the widest node's
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -96,7 +99,6 @@ class Reference:
         self.stage_start = np.searchsorted(tree.stage,
                                            np.arange(tree.num_stages + 2))
         self.first = tree.child_first
-        self.kids = t(tree.child_first[:, None] + np.arange(c), torch.int64)
         self.mode = tree.mode
         self.A, self.B = t(plant.A), t(plant.B)
         eye = np.eye(n)
@@ -110,17 +112,33 @@ class Reference:
             x_lim, u_lim = config["x_limit"], config["u_limit"]
             self.lo7 = t(np.r_[-x_lim * np.ones(n), -u_lim * np.ones(m)])
             self.lo14 = t(-x_lim * np.ones(n))
-        # AVaR_alpha: E = [alpha I; -I; 1'], b = [pi; 0; 1], cone
-        # NnOC(2c) x Zero(1), whose dual cone is NnOC(2c) x R
+        # AVaR_alpha at a node of c children: E = [alpha I; -I; 1'], b =
+        # [pi; 0; 1], cone NnOC(2c) x Zero(1), whose dual cone is NnOC(2c)
+        # x R; per child count its nodes, their children, M = [E', -I, -I]
+        # and (M M')^-1
         alpha = config["alpha"]
         cond = tree.cond_prob()
-        pi = cond[tree.child_first[:, None] + np.arange(c)]
-        self.b = t(np.concatenate([pi, np.zeros((NL, c)), np.ones((NL, 1))],
-                                  axis=1))
-        E = np.concatenate([alpha * np.eye(c), -np.eye(c), np.ones((1, c))])
-        M = np.concatenate([E.T, -np.eye(c), -np.eye(c)], axis=1)
-        self.M = t(M)
-        self.MMt_inv = torch.linalg.inv(self.M @ self.M.T)
+        b = np.zeros((NL, self.Y))
+        cols = np.arange(self.Y)
+        self.groups = []
+        for cc in np.unique(self.counts):
+            cc = int(cc)
+            nodes = np.flatnonzero(self.counts == cc)
+            kids = tree.child_first[nodes, None] + np.arange(cc)
+            b[nodes, :cc] = cond[kids]
+            b[nodes, 2 * cc] = 1.0
+            E = np.concatenate([alpha * np.eye(cc), -np.eye(cc),
+                                np.ones((1, cc))])
+            M = t(np.concatenate([E.T, -np.eye(cc), -np.eye(cc)], axis=1))
+            self.groups.append((cc, t(nodes, torch.int64),
+                                t(kids, torch.int64), M,
+                                torch.linalg.inv(M @ M.T)))
+        self.b = t(b)
+        # each node's own rows, and those of them in NnOC(2c) (None where
+        # every node has Y rows)
+        own = cols < (2 * self.counts + 1)[:, None]
+        self.rows = None if own.all() else t(own, torch.bool)
+        self.nonneg = t(cols < (2 * self.counts)[:, None], torch.bool)
         self._sel = {}
         self._factorise()
         self.lam = None
@@ -196,7 +214,7 @@ class Reference:
             for p0 in range(a, b, BLOCK):
                 p1 = min(b, p0 + BLOCK)
                 c0 = int(self.first[p0])
-                c1 = c0 + (p1 - p0) * self.c
+                c1 = int(self.first[p1 - 1] + self.counts[p1 - 1])
                 par = self.anc[c0:c1] - p0
                 Ac, Bc = self.A[mode[c0:c1]], self.B[mode[c0:c1]]
                 if P_next is None:
@@ -279,16 +297,20 @@ class Reference:
         return xc
 
     def project_kernel(self, y, tau, s):
-        """Project (y_i, tau_children, s_children) onto ker [E', -I, -I]
-        at every nonleaf node."""
-        Y, c = self.Y, self.c
-        v = torch.cat([y, tau[self.kids], s[self.kids]], dim=1)
-        w = (v @ self.M.T) @ self.MMt_inv.T
-        v = v - w @ self.M
+        """Project (y_i, tau_children, s_children) onto ker [E_i', -I, -I]
+        at every nonleaf node, the nodes of each child count together; the
+        slots of y after a node's own rows go to 0."""
+        out = torch.zeros_like(y)
         tau, s = tau.clone(), s.clone()
-        tau[self.kids] = v[:, Y:Y + c]
-        s[self.kids] = v[:, Y + c:]
-        return v[:, :Y], tau, s
+        for c, nodes, kids, M, MMt_inv in self.groups:
+            Y = 2 * c + 1
+            v = torch.cat([y[nodes, :Y], tau[kids], s[kids]], dim=1)
+            w = (v @ M.T) @ MMt_inv.T
+            v = v - w @ M
+            out[nodes, :Y] = v[:, :Y]
+            tau[kids] = v[:, Y:Y + c]
+            s[kids] = v[:, Y + c:]
+        return out, tau, s
 
     def prox_f(self, z, alpha, x0):
         s = z["s"].clone()
@@ -300,14 +322,13 @@ class Reference:
     # -- prox of g* (Moreau) ------------------------------------------------
 
     def prox_g_conj(self, e, alpha):
-        n, m, c = self.n, self.m, self.c
+        n, m = self.n, self.m
         mod = {k: v / alpha for k, v in e.items()}
         mod["e5"][1:] -= 0.5                  # the root has no stage cost
         mod["e6"][1:] += 0.5
         mod["e12"] = mod["e12"] - 0.5
         mod["e13"] = mod["e13"] + 0.5
-        p1 = torch.cat([mod["e1"][:, :2 * c].clamp_min(0),
-                        mod["e1"][:, 2 * c:]], dim=1)
+        p1 = torch.where(self.nonneg, mod["e1"].clamp_min(0), mod["e1"])
         head, tail = _soc(torch.cat([mod["e3"], mod["e4"],
                                      mod["e5"][:, None]], dim=1), mod["e6"])
         lhead, ltail = _soc(torch.cat([mod["e11"], mod["e12"][:, None]],
@@ -334,6 +355,8 @@ class Reference:
             z = {k: torch.randn(v.shape, generator=g, dtype=torch.float64)
                  .to(self.device, self.dtype)
                  for k, v in self.zero_primal().items()}
+            if self.rows is not None:
+                z["y"] = torch.where(self.rows, z["y"], 0.0)
             lam = 0.0
             for _ in range(iters):
                 norm = math.sqrt(sum(float((v * v).sum())

@@ -14,6 +14,11 @@ Each answer is a final iterate (z, eta). For each the reference computes
 * ``dyn_gap``: how far the answer's states are from the dynamics and from
   the initial state, over max(1, |x|): rounding in the precision the
   configuration states.
+* ``pad``, on a tree whose nonleaf nodes have different child counts (a
+  stopped Markov tree): the largest |entry| of y and e1 in the slots after
+  each node's own 2 c + 1 risk rows, which the system's layout keeps at
+  0. The harness holds it to exactly 0. The other numbers judge the own
+  rows alone.
 
 In a closed loop the reference works out each step's initial state itself,
 from the episode's first state, the modes the run realised and the controls
@@ -30,7 +35,8 @@ from benchmark.reference.problem import markov_tree, plant
 
 def trim(arrays: dict, keys, ref: Reference, device) -> dict:
     """An answer's leaves (the solver's padded arrays or the reference's
-    own) cut to the reference's rows and columns, in float64."""
+    own) cut to the reference's rows and columns, in float64; of y and e1
+    each node's own risk rows, the slots after them read as 0."""
     rows = dict(x=ref.N, u=ref.NL, y=ref.NL, tau=ref.N, s=ref.N,
                 e1=ref.NL, e2=ref.NL, e3=ref.N, e4=ref.N, e5=ref.N,
                 e6=ref.N, e7=ref.NL, e11=ref.LF, e12=ref.LF, e13=ref.LF,
@@ -42,7 +48,18 @@ def trim(arrays: dict, keys, ref: Reference, device) -> dict:
         a = torch.as_tensor(np.asarray(arrays[k]), dtype=torch.float64,
                             device=device)[:rows[k]]
         out[k] = a[:, :cols[k]] if k in cols else a
+        if k in ("y", "e1") and ref.rows is not None:
+            out[k] = torch.where(ref.rows, out[k], 0.0)
     return out
+
+
+def padding(answer: dict, ref: Reference) -> float:
+    """The largest |entry| of an answer's y and e1 in the slots after each
+    node's own risk rows (``ref.rows`` False)."""
+    pad = ~ref.rows.cpu().numpy()
+    return max(float(np.abs(np.asarray(a, dtype=np.float64)
+                            [:ref.NL, :ref.Y][pad]).max(initial=0.0))
+               for a in (answer["primal"]["y"], answer["dual"]["e1"]))
 
 
 def episode_states(config: dict, x0, modes, answers) -> list:
@@ -83,5 +100,8 @@ class Judge:
         e = trim(answer["dual"], DUAL, ref, self.device)
         x0 = torch.as_tensor(np.asarray(x0), dtype=torch.float64,
                              device=self.device)
-        return dict(xi_ratio=max(ref.residual_at(z, e, x0)) / self.tol,
-                    dyn_gap=ref.dynamics_gap(z, x0))
+        out = dict(xi_ratio=max(ref.residual_at(z, e, x0)) / self.tol,
+                   dyn_gap=ref.dynamics_gap(z, x0))
+        if ref.rows is not None:
+            out["pad"] = padding(answer, ref)
+        return out

@@ -142,11 +142,13 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     judge = Judge(config, params["tol"], device)
-    limits = workload["judge"]
+    limits = dict(workload["judge"])
     worst = {k: 0.0 for k in limits}
     failed = 0
     for answer, x0, mode in answers:
         got = judge.numbers(answer, x0, mode)
+        for k in got.keys() - limits.keys():    # exact: the judge's pad
+            limits[k] = worst[k] = 0.0
         failed += any(got[k] > limits[k] for k in limits)
         worst = {k: max(worst[k], got[k]) for k in limits}
     # the least times of one step's work, of every lane of a batch step

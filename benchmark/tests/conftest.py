@@ -17,6 +17,11 @@ if str(ROOT) not in sys.path:
 # a configuration small enough for the CPU: the family's shapes, 40 nodes
 TINY = dict(num_states=4, num_inputs=2, num_stages=3, stopping_time=3,
             nodes_per_stage=[1, 3, 9, 27], num_nodes=40)
+# a stopped tree of the same size: three children a node to stage 2, then
+# one, to stage 5
+TINY_STOPPED = dict(num_states=4, num_inputs=2, num_stages=5,
+                    stopping_time=2, nodes_per_stage=[1, 3, 9, 9, 9, 9],
+                    num_nodes=40)
 
 
 @pytest.fixture

@@ -16,7 +16,7 @@ import torch
 from benchmark import run as bench
 from benchmark.reference import problem as bp
 from benchmark.reference.cp import Reference
-from benchmark.tests.conftest import ROOT, TINY
+from benchmark.tests.conftest import ROOT, TINY, TINY_STOPPED
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -143,10 +143,12 @@ def _tiny(name):
     return spec
 
 
-def test_the_references_tree_is_the_systems():
+@pytest.mark.parametrize("shape", [TINY, TINY_STOPPED],
+                         ids=["one_count", "stopped"])
+def test_the_references_tree_is_the_systems(shape):
     from benchmark import system
 
-    cfg = dict(bp.load_config("config5_network_mpc_1e5"), **TINY)
+    cfg = dict(bp.load_config("config5_network_mpc_1e5"), **shape)
     pl = bp.plant(cfg)
     for v in (pl.v, pl.P[2]):
         ours = bp.markov_tree(pl.P, v, cfg["num_stages"],
@@ -160,8 +162,12 @@ def test_the_references_tree_is_the_systems():
             np.arange(ours.num_nodes)))
 
 
-def test_the_reference_projects_onto_the_dynamics_and_is_adjoint():
-    cfg = dict(bp.load_config("config4_network_1e4"), **TINY)
+@pytest.mark.parametrize("shape", [TINY, TINY_STOPPED],
+                         ids=["one_count", "stopped"])
+def test_the_reference_projects_onto_the_dynamics_and_is_adjoint(shape):
+    """L' is L's adjoint, and the dynamics projection is a dense KKT
+    solve: on a tree of one child count, and on a stopped one."""
+    cfg = dict(bp.load_config("config4_network_1e4"), **shape)
     pl, tree = bp.plant(cfg), bp.config_tree(cfg)
     ref = Reference(cfg, pl, tree, "cpu", torch.float64)
     g = torch.Generator().manual_seed(3)
@@ -260,6 +266,35 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     out = _run(name)
     assert not out["correct"]
     assert out["failed"] >= 1
+
+
+def _stopped_run():
+    """The headline cell's harness on a stopped tree (:data:`TINY_STOPPED`,
+    whose chain nodes pad their risk rows), on the CPU."""
+    spec = bench.cell("config4.solve")
+    spec["config"] = dict(spec["config"], dtype="float64", **TINY_STOPPED)
+    return bench.result(spec, bench.run_cell(spec, 2 ** 31 + 7, 1.0, False,
+                                             device="cpu"),
+                        False, dict(platform="cpu"))
+
+
+def _padded(res, x0):
+    """A padded slot of the dual's e1, the last of the last nonleaf node
+    (a chain node: 3 own rows of 7), left non-zero."""
+    nl = TINY_STOPPED["num_nodes"] - TINY_STOPPED["nodes_per_stage"][-1]
+    res.dual.e1[nl - 1, 6] = 1e-3
+
+
+def test_a_stopped_tree_holds_its_padding_to_zero(monkeypatch):
+    out = _stopped_run()
+    assert out["correct"], out["checks"]
+    assert out["checks"]["pad"] == dict(value=0.0, limit=0.0)
+    assert list(out["checks"]) == ["xi_ratio", "dyn_gap", "pad"]
+    _break(monkeypatch, _padded)
+    out = _stopped_run()
+    assert not out["correct"]
+    assert out["checks"]["pad"] == dict(value=1e-3, limit=0.0)
+    assert out["checks"]["xi_ratio"]["value"] <= 1.5
 
 
 @pytest.mark.cuda

@@ -14,7 +14,15 @@ a dict:
 * ``bytes``: the compulsory traffic: each input read once and each output
   written once, in the configuration's element size; the tables (per mode
   A, B and the cost square roots; per nonleaf stage the factors of the
-  dynamics projection; per mode the risk vector b) each once.
+  dynamics projection, once a mode on a chain stage; per mode and child
+  count the risk vector b) each once.
+
+A nonleaf stage k counts at its own child count c_k: its nodes' risk rows
+are Y_k = 2 c_k + 1, and the kernel projection's M has c_k rows there. A
+stopped Markov tree branches until its stopping time; on each chain stage
+after it (one child a node) every node's subtree is a chain of its own
+mode, so the stage's factors are one set a mode, where a branching stage's
+nodes share one set.
 
 :func:`least_time` is the larger of the operations over the card's peak
 rate and the bytes over its memory rate (NVIDIA H100 SXM data sheet, at its
@@ -32,8 +40,10 @@ ESIZE = {"float32": 4, "float64": 8}
 
 
 def sizes(config: dict) -> dict:
-    """The tree's sizes: nodes per stage, and per nonleaf stage the
-    children of each of its nodes (uniform within a stage)."""
+    """The tree's sizes: nodes per stage, per nonleaf stage the children
+    of each of its nodes (uniform within a stage), and ``sets``: per
+    nonleaf stage the sets of the dynamics projection's factors (one, or on
+    a chain stage one a mode, at most one a node)."""
     per = [int(v) for v in config["nodes_per_stage"]]
     kids = [per[k + 1] // per[k] for k in range(len(per) - 1)]
     if any(per[k] * kids[k] != per[k + 1] for k in range(len(kids))):
@@ -41,9 +51,28 @@ def sizes(config: dict) -> dict:
                          "number of children")
     n, m = config["num_states"], config["num_inputs"]
     N, LF = sum(per), per[-1]
+    modes = config["num_modes"]
+    sets = [min(modes, per[k]) if kids[k] == 1 else 1
+            for k in range(len(kids))]
     return dict(N=N, NL=N - LF, LF=LF, n=n, m=m, per=per, kids=kids,
-                modes=config["num_modes"], stages=len(kids),
+                modes=modes, sets=sets,
                 esize=ESIZE[config["dtype"]])
+
+
+def _risk_rows(s) -> int:
+    """The nonleaf nodes' risk rows, each node's own 2 c_k + 1."""
+    return sum(p * (2 * c + 1) for p, c in zip(s["per"], s["kids"]))
+
+
+def _risk_tables(s) -> int:
+    """The risk vectors b: one a mode and child count."""
+    return s["modes"] * sum(2 * c + 1 for c in set(s["kids"]))
+
+
+def _factors(s) -> int:
+    """The dynamics projection's factors K, S and H^-1 of every set."""
+    n, m = s["n"], s["m"]
+    return sum(s["sets"]) * (2 * m * n + m * m)
 
 
 def project_dynamics(config: dict) -> dict:
@@ -53,21 +82,18 @@ def project_dynamics(config: dict) -> dict:
     s = sizes(config)
     n, m, N, NL = s["n"], s["m"], s["N"], s["NL"]
     flop = (N - 1) * 4 * n * (n + m) + NL * (2 * m * m + 6 * m * n)
-    tables = (s["modes"] * n * (n + m)
-              + s["stages"] * (2 * m * n + m * m))
+    tables = s["modes"] * n * (n + m) + _factors(s)
     io = 2 * (N * n + NL * m) + n
     return dict(flop=flop, bytes=s["esize"] * (io + tables))
 
 
 def _primal(s) -> int:
-    Y = 2 * max(s["kids"]) + 1
-    return s["N"] * s["n"] + s["NL"] * (s["m"] + Y) + 2 * s["N"]
+    return s["N"] * s["n"] + s["NL"] * s["m"] + _risk_rows(s) + 2 * s["N"]
 
 
 def _dual(s) -> int:
     N, NL, LF, n, m = s["N"], s["NL"], s["LF"], s["n"], s["m"]
-    Y = 2 * max(s["kids"]) + 1
-    return (NL * (Y + 1 + n + m) + N * (n + m + 2)
+    return (_risk_rows(s) + NL * (1 + n + m) + N * (n + m + 2)
             + LF * (2 * n + 2))
 
 
@@ -77,23 +103,24 @@ def ell(config: dict) -> dict:
     elementwise)."""
     s = sizes(config)
     n, m = s["n"], s["m"]
-    Y = 2 * max(s["kids"]) + 1
     flop = (s["N"] - 1) * 2 * (n * n + m * m) + s["LF"] * 2 * n * n
     return dict(flop=flop,
                 bytes=s["esize"] * (_primal(s) + _dual(s)
-                                    + s["modes"] * (n * n + m * m + Y)
-                                    + n * n))
+                                    + s["modes"] * (n * n + m * m)
+                                    + _risk_tables(s) + n * n))
 
 
 def project_kernel(config: dict) -> dict:
     """(y_i, tau_children, s_children) onto ker [E', -I, -I]: per nonleaf
-    node, M v, (M M')^-1 (M v) and M' w, with M of c rows and 2c+1+2c
-    columns."""
+    node, M v, (M M')^-1 (M v) and M' w, with M of c_k rows and 2c_k+1+2c_k
+    columns on stage k."""
     s = sizes(config)
-    c = max(s["kids"])
-    D = 4 * c + 1
-    return dict(flop=s["NL"] * 2 * (2 * c * D + c * c),
-                bytes=s["esize"] * 2 * s["NL"] * D)
+    flop = words = 0
+    for p, c in zip(s["per"], s["kids"]):
+        D = 4 * c + 1
+        flop += p * 2 * (2 * c * D + c * c)
+        words += 2 * p * D
+    return dict(flop=flop, bytes=s["esize"] * words)
 
 
 def dual_update(config: dict) -> dict:
@@ -111,7 +138,7 @@ def dual_update(config: dict) -> dict:
         sets = (n + m + 1) + (n + 1)
     else:
         sets = 2 * (n + m) + 2 * n
-    tables = s["modes"] * (2 * max(s["kids"]) + 1) + sets
+    tables = _risk_tables(s) + sets
     return dict(flop=0, bytes=s["esize"] * (2 * D + 2 * Dz + tables))
 
 
@@ -123,9 +150,8 @@ def cp_step(config: dict) -> dict:
         ell(config)
     flop = dyn["flop"] + ker["flop"] + 2 * L["flop"]
     n, m = s["n"], s["m"]
-    Y = 2 * max(s["kids"]) + 1
-    tables = (s["modes"] * (n * (n + m) + n * n + m * m + Y) + n * n
-              + s["stages"] * (2 * m * n + m * m))
+    tables = (s["modes"] * (n * (n + m) + n * n + m * m) + _risk_tables(s)
+              + n * n + _factors(s))
     io = 2 * (_primal(s) + _dual(s)) + n
     return dict(flop=flop, bytes=s["esize"] * (io + tables))
 
