@@ -13,18 +13,22 @@ convergence of plain CP:
 The JAX package's layout carries over:
 
 * **Extended vectors.** Every point is W = (z, eta, Lz, L'eta), held here
-  as one flat tuple of the 32 leaves. L and L' are linear, so the image
-  components of any affine combination of consistent extended vectors are
-  consistent images: one T evaluation (:func:`_t_ext`, which is
-  ``solver._cp_step``, so ``prox_f`` and K1 on eligible trees) costs the
-  plain step's two operator applies. Norms and inner products read only
-  the (z, eta) leaves.
-* **Circular histories.** Each history is a tuple of tensors with a leading
-  ``[memory]`` axis, preallocated once and written in place at ``slot``
-  (never rolled). Anderson's Gram matrix is kept one row and column at a
-  time; the ``[memory, memory]`` normal equations go to
-  ``torch.linalg.solve_ex`` (:func:`_solve`: no check of its ``info``, which
-  would read the device).
+  as one flat, contiguous 1-D buffer whose 32 leaves are views
+  (:class:`_Layout`, one per problem: each leaf's start aligned to 256
+  bytes, the (z, eta) leaves first, the padding between leaves 0), so
+  every combination of extended vectors is one operation on the whole
+  buffer. L and L' are linear, so the image components of any affine
+  combination of consistent extended vectors are consistent images: one T
+  evaluation (:func:`_t_ext`, which is ``solver._cp_step`` on the leaf
+  views, so ``prox_f`` and K1 on eligible trees) costs the plain step's
+  two operator applies. Norms and inner products read only the (z, eta)
+  prefix.
+* **Circular histories.** Each history is one ``[memory, size]`` buffer,
+  preallocated once and written in place at ``slot`` (never rolled).
+  Anderson's Gram matrix is kept one row and column at a time; the
+  ``[memory, memory]`` normal equations go to ``torch.linalg.solve_ex``
+  (:func:`_solve`: no check of its ``info``, which would read the
+  device).
 
 As in the JAX package, each loop keeps its state, its branch decisions and
 its counters on the device (:func:`_device_loop`, the jitted
@@ -59,6 +63,7 @@ import collections
 import contextlib
 import math
 import types
+import typing
 import weakref
 
 import numpy as np
@@ -122,6 +127,25 @@ _NP = len(Primal._fields)          # 5 primal leaves
 _ND = len(Dual._fields)            # 11 dual leaves
 _TRUE = _NP + _ND                  # the (z, eta) leaves of an extended W
 
+# where a leaf of an extended vector may start in its flat buffer: the dual
+# kernel takes vector loads only from aligned addresses
+_ALIGN_BYTES = 256
+
+
+class _Layout(typing.NamedTuple):
+    """An extended vector's 32 leaves in one flat buffer: each leaf's
+    offset and shape, the length of the (z, eta) prefix and the buffer's;
+    the padding between leaves stays 0 (every flat operation maps zeros to
+    zeros, and nothing writes there)."""
+    offsets: tuple
+    shapes: tuple
+    n_true: int
+    size: int
+
+
+# each problem's layout: id(sp) -> _Layout, gone with the problem
+_LAYOUTS = {}
+
 # T evaluations run eagerly (not captured), summed since import
 _EAGER_T = 0
 
@@ -140,33 +164,66 @@ def _read(t, loop=False):
     return t.cpu().numpy()
 
 
-def _split(W):
+def _layout(sp) -> _Layout:
+    """The extended vectors' layout on ``sp`` (set by :func:`_start`)."""
+    return _LAYOUTS[id(sp)]
+
+
+def _set_layout(sp, leaves) -> _Layout:
+    """Lay the 32 ``leaves`` of an extended vector out in one flat buffer:
+    each leaf's start rounded up to ``_ALIGN_BYTES``, (z, eta) first, and
+    remember the layout for ``sp`` (it goes with the problem)."""
+    step = max(1, _ALIGN_BYTES // leaves[0].element_size())
+    offsets, end = [], 0
+    for v in leaves:
+        offsets.append(end)
+        end += -(-v.numel() // step) * step
+    lay = _Layout(tuple(offsets), tuple(tuple(v.shape) for v in leaves),
+                  offsets[_TRUE], end)
+    if id(sp) not in _LAYOUTS:
+        weakref.finalize(sp, _LAYOUTS.pop, id(sp), None)
+    _LAYOUTS[id(sp)] = lay
+    return lay
+
+
+def _views(lay, W):
+    """The 32 leaves of the flat extended vector ``W``, as contiguous
+    views."""
+    return [W[o:o + math.prod(s)].view(s)
+            for o, s in zip(lay.offsets, lay.shapes)]
+
+
+def _split(sp, W):
+    v = _views(_layout(sp), W)
     a, b, c = _NP, _NP + _ND, _NP + 2 * _ND
-    return Primal(*W[:a]), Dual(*W[a:b]), Dual(*W[b:c]), Primal(*W[c:])
+    return Primal(*v[:a]), Dual(*v[a:b]), Dual(*v[b:c]), Primal(*v[c:])
 
 
-def _t_ext(sp, W, alpha, x0, shift):
-    """One CP step on an extended point: T(W), extended. Two operator
-    applies; the images of the input ride in W."""
+def _pack(sp, leaves, out=None):
+    """The 32 ``leaves`` copied into the flat buffer ``out`` (a new one,
+    padding 0, when None): one multi-tensor copy of the leaves whose strides
+    are the layout's, one copy for each other (a column slice)."""
+    lay = _layout(sp)
+    if out is None:
+        out = leaves[0].new_zeros(lay.size)
+    views = _views(lay, out)
+    same = [i for i, (d, s) in enumerate(zip(views, leaves))
+            if d.stride() == s.stride()]
+    torch._foreach_copy_([views[i] for i in same], [leaves[i] for i in same])
+    for i in sorted(set(range(len(leaves))) - set(same)):
+        views[i].copy_(leaves[i])
+    return out
+
+
+def _t_ext(sp, W, alpha, x0, shift, out=None):
+    """One CP step on an extended point: T(W), extended, written into
+    ``out`` (see :func:`_pack`). Two operator applies; the images of the
+    input ride in W."""
     global _EAGER_T
-    _EAGER_T += not capturing(W[0])
-    z, eta, Lz, Lt = _split(W)
+    _EAGER_T += not capturing(W)
+    z, eta, Lz, Lt = _split(sp, W)
     zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, alpha, alpha, x0, shift)
-    return (*zn, *en, *Lzn, *Ltn)
-
-
-def _add(a, b):
-    return tuple(x + y for x, y in zip(a, b))
-
-
-def _sub(a, b):
-    return tuple(x - y for x, y in zip(a, b))
-
-
-def _put(dst, src):
-    """Copy the leaves of ``src`` into the buffers ``dst``."""
-    for d, s in zip(dst, src):
-        d.copy_(s)
+    return _pack(sp, (*zn, *en, *Lzn, *Ltn), out)
 
 
 def _allsum(sp, t):
@@ -179,13 +236,13 @@ def _allsum(sp, t):
 
 
 def _sq(sp, W):
-    """<W, W> over the (z, eta) leaves (a 0-d tensor)."""
-    return _allsum(sp, torch.stack([torch.vdot(v.reshape(-1), v.reshape(-1))
-                                    for v in W[:_TRUE]]).sum())
+    """<W, W> over the (z, eta) prefix (a 0-d tensor)."""
+    v = W[:_layout(sp).n_true]
+    return _allsum(sp, torch.vdot(v, v))
 
 
 def _norm(sp, W):
-    """Euclidean norm of the (z, eta) leaves (a 0-d tensor)."""
+    """Euclidean norm of the (z, eta) prefix (a 0-d tensor)."""
     return torch.sqrt(_sq(sp, W))
 
 
@@ -198,32 +255,19 @@ def _solve(Gm, b):
 
 
 def _h_zeros(template, memory):
-    return tuple(torch.zeros((memory,) + tuple(v.shape), dtype=v.dtype,
-                             device=v.device) for v in template)
-
-
-def _h_set(hist, slot, row):
-    for h, r in zip(hist, row):
-        h[slot].copy_(r)
-
-
-def _h_put(hist, slot, row):
-    """Row ``slot`` (a [1] int64 tensor on the device) of every history
-    leaf set to ``row``."""
-    for h, r in zip(hist, row):
-        h.index_copy_(0, slot, r[None])
+    """A history: ``memory`` rows shaped as the flat ``template``."""
+    return template.new_zeros((memory, template.numel()))
 
 
 def _h_dot(sp, hist, vec):
-    """[memory] inner products <row_m, v> over the (z, eta) leaves."""
-    return _allsum(sp, torch.stack([
-        h.reshape(h.shape[0], -1) @ v.reshape(-1)
-        for h, v in zip(hist[:_TRUE], vec[:_TRUE])]).sum(0))
+    """[memory] inner products <row_m, v> over the (z, eta) prefix."""
+    n = _layout(sp).n_true
+    return _allsum(sp, hist[:, :n] @ vec[:n])
 
 
 def _h_combo(hist, gamma):
-    """sum_m gamma[m] row_m over every leaf (images included)."""
-    return tuple(torch.tensordot(gamma, h, dims=1) for h in hist)
+    """sum_m gamma[m] row_m over the whole row (images included)."""
+    return gamma @ hist
 
 
 def _start(sp, z0, eta0, alpha, x0):
@@ -232,15 +276,17 @@ def _start(sp, z0, eta0, alpha, x0):
     a = torch.as_tensor(alpha, dtype=dt, device=dev)
     shift = half_shift_dual(sp)
     z0, eta0 = Primal(*z0), Dual(*eta0)
-    W0 = (*z0, *eta0, *ell(sp, z0), *ell_t(sp, eta0))
+    leaves = (*z0, *eta0, *ell(sp, z0), *ell_t(sp, eta0))
+    _set_layout(sp, leaves)
+    W0 = _pack(sp, leaves)
     return a, shift, W0, _t_ext(sp, W0, a, x0, shift)
 
 
 def _residuals(sp, W, T, alpha):
     """The [xi_0..2] and [delta_0..2] stopping residuals of W -> T(W) (one
     extra operator apply), on the device."""
-    z, eta, Lz, Lt = _split(W)
-    zn, en, Lzn, Ltn = _split(T)
+    z, eta, Lz, Lt = _split(sp, W)
+    zn, en, Lzn, Ltn = _split(sp, T)
     return _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha, alpha)
 
 
@@ -263,11 +309,6 @@ def _host_loops(sp) -> bool:
 
 # -- the device loops (JAX: the jitted while_loops) --------------------------
 
-def _buffers(template):
-    return tuple(torch.empty_like(v, memory_format=torch.contiguous_format)
-                 for v in template)
-
-
 def _loop_state(sp, kind, W0, memory, capacity, scalars):
     """The buffers of one accelerated loop: the iterate W and residual R,
     the step's result (Wn, Rn), err/derr at the last check, the history
@@ -282,7 +323,8 @@ def _loop_state(sp, kind, W0, memory, capacity, scalars):
         kind=kind, body=dict(zip(names, range(len(names)))),
         bodies=torch.zeros(len(names), dtype=torch.int64, device=dev),
         seen=np.zeros(len(names), dtype=np.int64),
-        W=_buffers(W0), R=_buffers(W0), Wn=_buffers(W0), Rn=_buffers(W0),
+        W=torch.zeros_like(W0), R=torch.zeros_like(W0),
+        Wn=torch.zeros_like(W0), Rn=torch.zeros_like(W0),
         err=torch.empty(3, dtype=dt, device=dev),
         derr=torch.empty(3, dtype=dt, device=dev),
         hist=torch.empty((capacity, 6), dtype=dt, device=dev),
@@ -302,8 +344,8 @@ def _loop_state(sp, kind, W0, memory, capacity, scalars):
 def _load(L, W0, R0, err, derr, alpha, x0, tol, max_iters, check_every):
     """Start a solve: the state from the start point, the history's first
     ``max_iters + 1`` rows set to 0 (``check_every`` 1) or NaN."""
-    _put(L.W, W0)
-    _put(L.R, R0)
+    L.W.copy_(W0)
+    L.R.copy_(R0)
     L.err.copy_(err)
     L.derr.copy_(derr)
     L.hist[:max_iters + 1].fill_(0.0 if check_every == 1 else math.nan)
@@ -334,8 +376,8 @@ def _advance(L):
     """W <- Wn, R <- Rn, k += 1, and the loop's condition after it: the
     last checked residual above tol (compared in float64, as the host
     loop's NumPy rows are) and k < max_iters + 1."""
-    _put(L.W, L.Wn)
-    _put(L.R, L.Rn)
+    L.W.copy_(L.Wn)
+    L.R.copy_(L.Rn)
     L.k.add_(1)
     L.running.copy_((L.err.double().amax() > L.tol) & (L.k < L.limit))
 
@@ -343,9 +385,10 @@ def _advance(L):
 def _anderson_iteration(sp, L, checked, theta):
     """One iteration of :func:`run_cp_anderson`'s loop on the device state
     ``L``, in place, under the guard of ``L.running`` (JAX
-    ``accel.py:190``): the candidate and its T evaluation, then the
-    accepted body or the fallback (its own T evaluation); the check when
-    ``checked``; the slot's history rows and Gram row and column."""
+    ``accel.py:190``): the candidate and its T evaluation, written straight
+    into (Wn, Rn), then the accepted body or the fallback (its own T
+    evaluation, over them); the check when ``checked``; the slot's history
+    rows and Gram row and column."""
     dt = sp.dtype
 
     def body():
@@ -354,35 +397,33 @@ def _anderson_iteration(sp, L, checked, theta):
         Gm = L.G * (valid[:, None] * valid[None, :]) + L.reg_eye
         b = _h_dot(sp, L.dR, L.R) * valid
         gamma = _solve(Gm, b) * valid
-        W_cand = _sub(_add(L.W, L.R), _add(_h_combo(L.dW, gamma),
-                                           _h_combo(L.dR, gamma)))
-        T_cand = _t_ext(sp, W_cand, L.a, L.x0, L.shift)
-        R_cand = _sub(T_cand, W_cand)
-        accept = (L.pushes > 0) & (_norm(sp, R_cand)
+        torch.sub(L.W + L.R, _h_combo(L.dW, gamma) + _h_combo(L.dR, gamma),
+                  out=L.Wn)
+        _t_ext(sp, L.Wn, L.a, L.x0, L.shift, out=L.Rn)
+        L.Rn.sub_(L.Wn)
+        accept = (L.pushes > 0) & (_norm(sp, L.Rn)
                                    <= theta * _norm(sp, L.R))
 
         def accepted():
             _ran(L, "accepted")
-            _put(L.Wn, W_cand)
-            _put(L.Rn, R_cand)
             L.evals.add_(1)
 
         def fallback():
             # the plain step w+ = T(w) = w + r; one more T evaluation
             # refreshes the residual there
             _ran(L, "fallback")
-            W_p = _add(L.W, L.R)
-            _put(L.Wn, W_p)
-            _put(L.Rn, _sub(_t_ext(sp, W_p, L.a, L.x0, L.shift), W_p))
+            torch.add(L.W, L.R, out=L.Wn)
+            _t_ext(sp, L.Wn, L.a, L.x0, L.shift, out=L.Rn)
+            L.Rn.sub_(L.Wn)
             L.evals.add_(2)
 
         branch(accept, accepted, fallback)
         if checked:
-            _check(sp, L, L.Wn, _add(L.Wn, L.Rn))
+            _check(sp, L, L.Wn, L.Wn + L.Rn)
         slot = (L.pushes % L.memory).reshape(1)
-        row = _sub(L.Rn, L.R)
-        _h_put(L.dR, slot, row)
-        _h_put(L.dW, slot, _sub(L.Wn, L.W))
+        row = L.Rn - L.R
+        L.dR.index_copy_(0, slot, row[None])
+        L.dW.index_copy_(0, slot, (L.Wn - L.W)[None])
         g_row = _h_dot(sp, L.dR, row)        # the slot's row + column
         L.G.index_copy_(0, slot, g_row[None, :])
         L.G.index_copy_(1, slot, g_row[:, None])
@@ -398,19 +439,24 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
     ``accel.py:352``). K0 (blind), the line search's ``ls_max`` tries
     (each under the guard "admitted and not yet accepted", at the host
     loop's constant tau = beta^j) and the plain fallback are bodies of
-    their own, each writing (Wn, Rn); then the Broyden push and the check.
-    The safeguard scalars (eta_safe, r_safe, eps, the norms they meet) are
-    float64, as the host loop's Python floats."""
+    their own, each writing (Wn, Rn) in place; then the Broyden push and
+    the check. The safeguard scalars (eta_safe, r_safe, eps, the norms they
+    meet) are float64, as the host loop's Python floats."""
     dt = sp.dtype
 
     def apply_h(V):
         w = _h_dot(sp, L.Y, V) * L.valid
-        return _add(V, _h_combo(L.U, w))
+        return V + _h_combo(L.U, w)
+
+    def step_to(W_new):
+        # (Wn, Rn) <- (W_new, W_new - T(W_new)), W_new already in Wn
+        _t_ext(sp, W_new, L.a, L.x0, L.shift, out=L.Rn)
+        torch.sub(L.Wn, L.Rn, out=L.Rn)
 
     def body():
         _ran(L, "iteration")
         norm_r = _norm(sp, L.R).double()
-        d = tuple(-v for v in apply_h(L.R))
+        d = -apply_h(L.R)
         blind = norm_r <= c0 * L.eta_safe
         admit = ~blind & (norm_r <= L.r_safe)
         L.ok.fill_(False)
@@ -420,9 +466,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
             def attempt(tau=tau):
                 # backtrack: the candidate w + tau d and its residual
                 _ran(L, "attempt")
-                W_c = _add(L.W, tuple(tau * v for v in d))
-                _put(L.Wn, W_c)
-                _put(L.Rn, _sub(W_c, _t_ext(sp, W_c, L.a, L.x0, L.shift)))
+                step_to(torch.add(L.W, tau * d, out=L.Wn))
                 norm_c = _norm(sp, L.Rn).double()
                 L.norm_c.copy_(norm_c)
                 L.ok.copy_(norm_c <= c1 * norm_r)
@@ -435,9 +479,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
         def blind_step():
             # K0: accept w + d without a test; eta_safe tightens
             _ran(L, "blind")
-            W_n = _add(L.W, d)
-            _put(L.Wn, W_n)
-            _put(L.Rn, _sub(W_n, _t_ext(sp, W_n, L.a, L.x0, L.shift)))
+            step_to(torch.add(L.W, d, out=L.Wn))
             L.eta_safe.copy_(norm_r)
             L.evals.add_(1)
 
@@ -449,9 +491,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
 
         def plain_step():
             _ran(L, "plain")
-            W_p = _sub(L.W, L.R)
-            _put(L.Wn, W_p)
-            _put(L.Rn, _sub(W_p, _t_ext(sp, W_p, L.a, L.x0, L.shift)))
+            step_to(torch.sub(L.W, L.R, out=L.Wn))
             L.evals.add_(L.tries + 1)
 
         branch(blind, blind_step)
@@ -459,21 +499,20 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
         branch(~blind & ~accepted, plain_step)
 
         # Broyden push: u = (s - H y) / (y.y); degenerate pairs are masked
-        s = _sub(L.Wn, L.W)
-        y = _sub(L.Rn, L.R)
+        s = L.Wn - L.W
+        y = L.Rn - L.R
         yy = _sq(sp, y)
         good = yy > 1e-30
         denom = torch.where(good, yy, torch.ones_like(yy))
         gz = good.to(dt)
-        Hy = apply_h(y)
+        u = s.sub_(apply_h(y)).div_(denom).mul_(gz)
         slot = L.slot.reshape(1)
-        _h_put(L.U, slot, tuple((si - hi) / denom * gz
-                                for si, hi in zip(s, Hy)))
-        _h_put(L.Y, slot, y)
+        L.U.index_copy_(0, slot, u[None])
+        L.Y.index_copy_(0, slot, y[None])
         L.valid.index_copy_(0, slot, gz.reshape(1))
         L.slot.copy_((L.slot + 1) % L.memory)
         if checked:
-            _check(sp, L, L.Wn, _sub(L.Wn, L.Rn))
+            _check(sp, L, L.Wn, L.Wn - L.Rn)
         L.eps.mul_(q_eps)
         _advance(L)
 
@@ -529,7 +568,7 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
     with (torch.cuda.device(sp.device) if cuda
           else contextlib.nullcontext()):
         a, shift, W0, T0 = _start(sp, z0, eta0, alpha, x0)
-        R0 = _sub(T0, W0) if kind == "anderson" else _sub(W0, T0)
+        R0 = T0 - W0 if kind == "anderson" else W0 - T0
         err, derr = _residuals(sp, W0, T0, a)
 
         def make():
@@ -562,7 +601,7 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
         ran = dict(zip(BODIES[kind], (seen - L.seen).tolist()))
         L.seen = seen
         hist = _read(L.hist[:iters], loop=True).astype(np.float64)
-        z, eta, _, _ = _split(L.W)
+        z, eta, _, _ = _split(sp, L.W)
         if cuda:                     # the buffers stay with the cached loop
             z, eta = (type(t)(*(v.clone() for v in t)) for t in (z, eta))
     eager = _EAGER_T - eager_t
@@ -620,7 +659,7 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             L.G = torch.zeros((memory, memory), dtype=dt, device=dev)
             L.reg_eye = reg * torch.eye(memory, dtype=dt, device=dev)
             L.slots = torch.arange(memory, device=dev)
-        for h in (*L.dW, *L.dR, L.G):
+        for h in (L.dW, L.dR, L.G):
             h.zero_()
         L.pushes.zero_()
 
@@ -664,7 +703,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             L.U = _h_zeros(W0, memory)      # Broyden vectors u_i
             L.Y = _h_zeros(W0, memory)      # y_i = r_{i+1} - r_i
             L.valid = torch.zeros((memory,), dtype=dt, device=dev)
-        for h in (*L.U, *L.Y, L.valid):
+        for h in (L.U, L.Y, L.valid):
             h.zero_()
         nr0 = _norm(sp, R0).double()
         for v in (L.eta_safe, L.r_safe, L.eps):
@@ -689,7 +728,7 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     residual check."""
     dt, dev = sp.dtype, sp.device
     a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
-    R = _sub(T, W)                          # r = T(w) - w, extended
+    R = T - W                               # r = T(w) - w, extended
     err = _residual_row(sp, W, T, a)[:3]
     dW = _h_zeros(W, memory)
     dR = _h_zeros(W, memory)
@@ -705,10 +744,9 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         Gm = G * (valid[:, None] * valid[None, :]) + reg_eye
         b = _h_dot(sp, dR, R) * valid
         gamma = _solve(Gm, b) * valid
-        W_cand = _sub(_add(W, R), _add(_h_combo(dW, gamma),
-                                       _h_combo(dR, gamma)))
+        W_cand = (W + R) - (_h_combo(dW, gamma) + _h_combo(dR, gamma))
         T_cand = _t_ext(sp, W_cand, a, x0, shift)
-        R_cand = _sub(T_cand, W_cand)
+        R_cand = T_cand - W_cand
         if pushes > 0 and bool(_read(_norm(sp, R_cand)
                                      <= theta * _norm(sp, R))):
             W_new, R_new = W_cand, R_cand
@@ -718,16 +756,16 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             # the plain step w+ = T(w) = w + r; one more T evaluation
             # refreshes the residual there
             ran["fallback"] += 1
-            W_new = _add(W, R)
-            R_new = _sub(_t_ext(sp, W_new, a, x0, shift), W_new)
+            W_new = W + R
+            R_new = _t_ext(sp, W_new, a, x0, shift) - W_new
             evals += 2
         if check_every == 1 or (k + 1) % check_every == 0:
-            hist[k] = _residual_row(sp, W_new, _add(W_new, R_new), a)
+            hist[k] = _residual_row(sp, W_new, W_new + R_new, a)
             err = hist[k, :3]
         slot = pushes % memory
-        row = _sub(R_new, R)
-        _h_set(dR, slot, row)
-        _h_set(dW, slot, _sub(W_new, W))
+        row = R_new - R
+        dR[slot].copy_(row)
+        dW[slot].copy_(W_new - W)
         g_row = _h_dot(sp, dR, row)          # fills the slot's row + column
         G[slot, :] = g_row
         G[:, slot] = g_row
@@ -735,7 +773,7 @@ def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         k += 1
         pushes += 1
     BODY_RUNS.update({("anderson", name): n for name, n in ran.items()})
-    z, eta, _, _ = _split(W)
+    z, eta, _, _ = _split(sp, W)
     return z, eta, k, evals, err, hist[:k]
 
 
@@ -748,7 +786,7 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     one of each residual check; the safeguard scalars are Python floats."""
     dt, dev = sp.dtype, sp.device
     a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
-    R = _sub(W, T)                          # R(w) = w - T(w), extended
+    R = W - T                               # R(w) = w - T(w), extended
     err = _residual_row(sp, W, T, a)[:3]
     nr0 = float(_read(_norm(sp, R)))
     U = _h_zeros(W, memory)                 # Broyden vectors u_i
@@ -761,22 +799,22 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
 
     def apply_h(V):
         w = _h_dot(sp, Y, V) * valid
-        return _add(V, _h_combo(U, w))
+        return V + _h_combo(U, w)
 
     def plain_step(j):
         ran["plain"] += 1
-        W_p = _sub(W, R)
-        return W_p, _sub(W_p, _t_ext(sp, W_p, a, x0, shift)), j + 1
+        W_p = W - R
+        return W_p, W_p - _t_ext(sp, W_p, a, x0, shift), j + 1
 
     while k == 0 or (err.max() > tol and k < max_iters + 1):
         ran["iteration"] += 1
         norm_r = float(_read(_norm(sp, R)))
-        d = tuple(-v for v in apply_h(R))
+        d = -apply_h(R)
         if norm_r <= c0 * eta_safe:
             # K0: accept w + d without a test; eta_safe tightens
             ran["blind"] += 1
-            W_n = _add(W, d)
-            R_n = _sub(W_n, _t_ext(sp, W_n, a, x0, shift))
+            W_n = W + d
+            R_n = W_n - _t_ext(sp, W_n, a, x0, shift)
             eta_safe = norm_r
             ev = 1
         elif norm_r <= r_safe:
@@ -784,8 +822,8 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             tau, ok, j = 1.0, False, 0
             while not ok and j < ls_max:
                 ran["attempt"] += 1
-                W_c = _add(W, tuple(tau * v for v in d))
-                R_c = _sub(W_c, _t_ext(sp, W_c, a, x0, shift))
+                W_c = W + tau * d
+                R_c = W_c - _t_ext(sp, W_c, a, x0, shift)
                 norm_c = float(_read(_norm(sp, R_c)))
                 ok = norm_c <= c1 * norm_r
                 tau *= beta
@@ -800,26 +838,25 @@ def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             W_n, R_n, ev = plain_step(0)
 
         # Broyden push: u = (s - H y) / (y.y); degenerate pairs are masked
-        s = _sub(W_n, W)
-        y = _sub(R_n, R)
+        s = W_n - W
+        y = R_n - R
         yy = _sq(sp, y)
         good = yy > 1e-30
         denom = torch.where(good, yy, torch.ones_like(yy))
         gz = good.to(dt)
         Hy = apply_h(y)
-        _h_set(U, slot, tuple((si - hi) / denom * gz
-                              for si, hi in zip(s, Hy)))
-        _h_set(Y, slot, y)
+        U[slot].copy_((s - Hy) / denom * gz)
+        Y[slot].copy_(y)
         valid[slot] = gz
         slot = (slot + 1) % memory
 
         if check_every == 1 or (k + 1) % check_every == 0:
-            hist[k] = _residual_row(sp, W_n, _sub(W_n, R_n), a)
+            hist[k] = _residual_row(sp, W_n, W_n - R_n, a)
             err = hist[k, :3]
         W, R = W_n, R_n
         eps *= q_eps
         k += 1
         evals += ev
     BODY_RUNS.update({("supermann", name): n for name, n in ran.items()})
-    z, eta, _, _ = _split(W)
+    z, eta, _, _ = _split(sp, W)
     return z, eta, k, evals, err, hist[:k]
