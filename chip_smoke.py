@@ -13,10 +13,12 @@
     python3 chip_smoke.py --dual        # the dual-update kernel against
                                         # its plain twin, timed, alone
     python3 chip_smoke.py --loop        # loop_graph alone: the graph
-                                        # loop against the host loop
+                                        # loop against the same loop run
+                                        # eagerly
     python3 chip_smoke.py --accel-loop  # the accelerated loops' graphs
-                                        # against their host loops to
-                                        # 1e-3, and the power iteration's
+                                        # against the same loops run
+                                        # eagerly to 1e-3, and the power
+                                        # iteration's
     python3 chip_smoke.py --scale       # the scale runs, the option
         [--parts scale_88573,...]       # sweeps, the batch and scaling
                                         # harnesses: their full rows
@@ -69,15 +71,15 @@ kernel's, the dual update's) set to 0 just before it and read just after:
   two closed-loop steps;
 * ``loop_graph_headline_f32`` and ``loop_graph_config5_f32``: the device
   loop (CUDA graphs of its check periods, every path above and below runs
-  it) against the host loop (``solver._host_loop()``) in one process, in
-  turns, best of ``LOOP_GRAPH_REPEATS`` (``--loop``; 2 in the smoke, to
-  keep its time): the headline to 1e-3 and one
-  config-5 closed-loop step. Each loop's iter/s, wall µs beside device µs
-  an iteration (a trace of ``LOOP_GRAPH_PROFILED`` steps), busy share,
-  host reads, wasted steps, capture seconds and peak memory; the graph
-  loop must replay, read at most one flag a period, give the host loop's
-  count and iterates bit for bit, and launch K1 once per ``prox_f`` call
-  per step run;
+  it), best of ``LOOP_GRAPH_REPEATS`` (``--loop``; 2 in the smoke, to
+  keep its time), against the same loop run eagerly once (the capture
+  predicate patched, as a partition runs it) in one process: the
+  headline to 1e-3 and one config-5 closed-loop step. The graph loop's
+  iter/s, wall µs beside device µs an iteration (a trace of
+  ``LOOP_GRAPH_PROFILED`` steps), busy share, host reads, wasted steps,
+  capture seconds and peak memory; it must replay, read at most one flag
+  a period, give the eager run's count and iterates bit for bit, and
+  launch K1 once per ``prox_f`` call per step run;
 * ``scale_88573_f32``: ``scripts/bench_scale.py``'s problem (a 50-state,
   20-input network fully branched for 10 stages, 88,573 nodes) through
   ``bench_scale.run_tree``: the power iteration, then 250 CP steps
@@ -95,19 +97,19 @@ kernel's, the dual update's) set to 0 just before it and read just after:
   loop (a check period one CUDA graph replay, the branches conditional
   nodes), capped at 1,000 iterations: the first solve of
 * ``accel_loop_headline_f32``: SuperMann and Anderson there through the
-  graph loop and the host loop (``solver._host_loop()``) in turns in one
-  process: each loop's count and T evaluations, iter/s, wall µs beside
-  device µs an iteration (traces of ``ACCEL_LOOP_PROFILED`` iterations, in
-  a process of their own, ``--part accel_traces``),
-  busy share, host reads an iteration, capture seconds and peak memory;
-  the graph loop must give the host loop's iterates and history bit for
-  bit, its device counts of the bodies it ran must equal the host loop's
-  counts of the same bodies (a body not taken runs nothing), it must
-  read the host at most once a period and twice at the end, and in a
-  trace K1's kernels must equal the T evaluations times K1's launches an
-  apply; each method runs on a solver of its own, whose cached loop must
-  go with it; ``power_headline_f32``: the power iteration's device loop
-  (masked periods enqueued) against its host loop, the same lambda and
+  graph loop, and once through the same loop run eagerly, in one
+  process: the graph loop's count and T evaluations, iter/s, wall µs
+  beside device µs an iteration (traces of ``ACCEL_LOOP_PROFILED``
+  iterations, in a process of their own, ``--part accel_traces``), busy
+  share, host reads an iteration, capture seconds and peak memory; it
+  must give the eager run's iterates and history bit for bit and the
+  same device counts of the bodies it ran (a body not taken runs
+  nothing), read the host at most once a period and twice at the end,
+  and in a trace K1's kernels must equal the T evaluations times K1's
+  launches an apply; each method runs on a solver of its own, whose
+  cached loop must go with it; ``power_headline_f32``: the power
+  iteration's device loop (masked periods of ``POWER_PERIOD`` enqueued)
+  against a partition's periods of one iteration, the same lambda and
   count;
 * ``accel_supermann_small_window_f64``, ``accel_anderson_demo_*``:
   SuperMann on the uniform tree (through K1) and Anderson on the demo,
@@ -190,9 +192,9 @@ applies), ``scripts/bench_pallas.py`` (200 applies a path) and
 and under ``stage_path()``, 200 iterations, best of 3), with the same
 checks as the smoke's phases.
 ``--accel-loop`` runs ``accel_loop_headline_f32_to_tol`` (SuperMann and
-Anderson at the headline to 1e-3, each loop best of
+Anderson at the headline to 1e-3, the graph loop best of
 ``ACCEL_LOOP_REPEATS``, with the same checks) and the power iteration's
-two loops at the headline and at 88,573 and 797,161 nodes
+two periods at the headline and at 88,573 and 797,161 nodes
 (``power_*``).
 ``--profile`` runs ``scripts/profile_step.py`` on 100 CP steps of the
 headline (``check_every=25, unroll=25``) and of config 5 (the closed
@@ -266,12 +268,12 @@ PATH_LAUNCHES = {}
 PATH_COND_LAUNCHES = {}
 # the dual-update kernel's launches of each driven path
 PATH_DUAL_LAUNCHES = {}
-# loop_graph: runs of each loop, in turns; the steps profiled for device
-# time and busy share
+# loop_graph: runs of the graph loop; the steps profiled for device time
+# and busy share
 LOOP_GRAPH_REPEATS = 3
 LOOP_GRAPH_REPEATS_SMOKE = 2
 LOOP_GRAPH_PROFILED = 100
-# the accelerated loops' A/B (accel_loop): the smoke's cap and --accel-
+# the accelerated loops' graphs (accel_loop): the smoke's cap and --accel-
 # loop's repeats; the iterations of a traced solve, and the traces of the
 # graph loop (records lost inside a replay lower a trace's counts)
 ACCEL_LOOP_ITERS = 1000
@@ -1658,16 +1660,28 @@ def phase_headline():
           f"K1 launches {calls['k1']} != prox_f calls {calls['prox_f']}")
 
 
+@contextlib.contextmanager
+def _eager():
+    """In the block the loops run their periods eagerly on the card, as a
+    partition's do: the capture predicate (``ops.cond.captures``) patched
+    to false."""
+    real = cond.captures
+    cond.captures = lambda sp: False
+    try:
+        yield
+    finally:
+        cond.captures = real
+
+
 def _loop_runs(solve, repeats):
-    """``solve()`` through the graph loop and the host loop
-    (``solver._host_loop()``) in turns, ``repeats`` times each:
-    per loop the runs' outputs, counts and peak device memory above what
-    was allocated when the run began."""
-    runs = {"graph": [], "host": []}
-    for _ in range(repeats):
-        for loop in runs:
-            scope = solver_mod._host_loop if loop == "host" \
-                else contextlib.nullcontext
+    """``solve()`` through the graph loop ``repeats`` times, then once
+    with its periods run eagerly (the reference): per loop the runs'
+    outputs, counts and peak device memory above what was allocated when
+    the run began."""
+    runs = {"graph": [], "eager": []}
+    for loop, times in (("graph", repeats), ("eager", 1)):
+        scope = _eager if loop == "eager" else contextlib.nullcontext
+        for _ in range(times):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
@@ -1710,16 +1724,18 @@ def _loop_row(runs, profiled):
 
 
 def _check_loops(phase, runs, graph, period):
-    """The graph loop against the host loop: the same count and iterates
-    in every run, the graph path taken (replays, at most one host read a
-    period and one a chunk), K1 launches equal ``prox_f`` calls equal the
-    steps run."""
-    want = runs["host"][0]
-    for r in runs["graph"] + runs["host"]:
+    """The graph loop against the same loop run eagerly: the same count
+    and iterates in every run, the graph path taken (replays, at most one
+    host read a period and one a chunk), K1 launches equal ``prox_f``
+    calls equal the steps run."""
+    want = runs["eager"][0]
+    check(want["calls"]["loop"]["replays"] == 0,
+          f"{phase}: the eager run replayed a graph")
+    for r in runs["graph"]:
         check(r["iters"] == want["iters"]
               and all(np.array_equal(a, b) for a, b in
                       zip(r["arrays"], want["arrays"])),
-              f"{phase}: a run's iterates differ from the host loop's")
+              f"{phase}: a run's iterates differ from the eager run's")
     check(graph["graph_replays"] > 0,
           f"{phase}: the graph loop replayed nothing")
     check(graph["host_reads"] <= -(-graph["iters"] // period) + 2,
@@ -1735,11 +1751,11 @@ def _check_loops(phase, runs, graph, period):
 
 
 def phase_loop_graph(repeats=LOOP_GRAPH_REPEATS):
-    """The device loop's CUDA graphs against the host loop in one process:
-    the headline (float32, ``check_every=25``, to 1e-3) and one closed-loop
-    step of BASELINE config 5 (88,573 nodes, the closed loop's options),
-    each loop in turns, best of ``repeats``; device time and
-    busy share from a profile of ``LOOP_GRAPH_PROFILED`` steps of each."""
+    """The device loop's CUDA graphs against the same loop run eagerly in
+    one process: the headline (float32, ``check_every=25``, to 1e-3) and
+    one closed-loop step of BASELINE config 5 (88,573 nodes, the closed
+    loop's options), the graph loop best of ``repeats``; device time and
+    busy share from a profile of ``LOOP_GRAPH_PROFILED`` steps."""
     problem, x0 = random_network_problem(**HEADLINE)
     solver = rt.Solver(problem)             # the default device: the card
     solver.operator_norm_sq()
@@ -1770,15 +1786,10 @@ def phase_loop_graph(repeats=LOOP_GRAPH_REPEATS):
             ("config5", config5_step, csolver, cx0)):
         phase = f"loop_graph_{name}_f32"
         runs = _loop_runs(solve, repeats)
-        rows = {loop: _loop_row(runs[loop], profile_step.profile_solve(
-                    psolver, px0, LOOP_GRAPH_PROFILED, loop=loop,
-                    **popts[name]))
-                for loop in runs}
-        graph, host = rows["graph"], rows["host"]
-        emit(phase, nodes=psolver.stacked.num_nodes, graph=graph, host=host,
-             graph_over_host_iters_per_second=graph["iters_per_second"]
-             / host["iters_per_second"], repeats=repeats,
-             profiled_steps=LOOP_GRAPH_PROFILED)
+        graph = _loop_row(runs["graph"], profile_step.profile_solve(
+            psolver, px0, LOOP_GRAPH_PROFILED, **popts[name]))
+        emit(phase, nodes=psolver.stacked.num_nodes, graph=graph,
+             repeats=repeats, profiled_steps=LOOP_GRAPH_PROFILED)
         _check_loops(phase, runs, graph, 25)
         if name == "headline":
             check(graph["iters"] == HEADLINE_F32_ITERS,
@@ -1980,16 +1991,16 @@ def _accel_window(phase, problem, x0, iters, **kw):
     return solvers, kw, calls["gpu"]
 
 
-def _accel_runs(solver, x0, method, loops, repeats, path, **opts):
-    """``solver.solve(x0, accel=method)`` through ``loops`` ("graph": the
-    device loop, "host": ``solver._host_loop()``) in turns, ``repeats``
-    times each: per loop the runs' results, counts (``counted(path)``) and
-    peak device memory above what was allocated when the run began."""
-    runs = {loop: [] for loop in loops}
-    for _ in range(repeats):
-        for loop in loops:
-            scope = solver_mod._host_loop if loop == "host" \
-                else contextlib.nullcontext
+def _accel_runs(solver, x0, method, repeats, path, **opts):
+    """``solver.solve(x0, accel=method)`` through the graph loop
+    ``repeats`` times, then once with its periods run eagerly (the
+    reference): per loop ("graph", "eager") the runs' results, counts
+    (``counted(path)``) and peak device memory above what was allocated
+    when the run began."""
+    runs = {"graph": [], "eager": []}
+    for loop, times in (("graph", repeats), ("eager", 1)):
+        scope = _eager if loop == "eager" else contextlib.nullcontext
+        for _ in range(times):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
@@ -2004,8 +2015,7 @@ def _accel_runs(solver, x0, method, loops, repeats, path, **opts):
 @contextlib.contextmanager
 def bodies_run(method):
     """The bodies of ``method``'s loop that ran in the block (body ->
-    runs, from ``accel.BODY_RUNS``: a device loop's own device counters,
-    a host loop's count on the host)."""
+    runs, from ``accel.BODY_RUNS``: the loop's own device counters)."""
     before = dict(accel_mod.BODY_RUNS)
     ran = {}
     yield ran
@@ -2014,11 +2024,11 @@ def bodies_run(method):
                 for name in accel_mod.BODIES[method]})
 
 
-def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
-    """``traces`` solves of ``iters`` iterations through ``loop``, each
-    traced on its own: per trace the device µs an iteration, K1's share of
-    it, the launches an iteration and the kernels that take most of it,
-    the card's busy share of the trace's wall time, and the K1 and
+def _accel_trace(solver, x0, method, iters, traces, **opts):
+    """``traces`` solves of ``iters`` iterations through the graph loop,
+    each traced on its own: per trace the device µs an iteration, K1's
+    share of it, the launches an iteration and the kernels that take most
+    of it, the card's busy share of the trace's wall time, and the K1 and
     conditional-node set kernels it recorded, beside the solve's T
     evaluations and the set kernels the loop counted. Only the device
     events inside the solve's host range count
@@ -2026,8 +2036,6 @@ def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
     records of earlier kernels); records lost inside a graph's replay
     only lower a count, so a count above the expected one is a body that
     ran untaken."""
-    scope = solver_mod._host_loop if loop == "host" \
-        else contextlib.nullcontext
     out = []
     for _ in range(traces):
         got = {}
@@ -2038,8 +2046,7 @@ def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
                                           **dict(opts, max_iters=iters - 1,
                                                  tol=1e-12))
 
-        with scope():
-            events = profile_step.traced_call_events(solve)
+        events = profile_step.traced_call_events(solve)
         summary = profile_step.summarize_trace(events, got["res"].num_iters)
         out.append(dict(
             iters=got["res"].num_iters,
@@ -2058,9 +2065,9 @@ def _accel_trace(solver, x0, method, loop, iters, traces, **opts):
 
 def part_accel_traces():
     """``_accel_trace``'s traces of SuperMann and Anderson at the headline
-    (memory 5, ``check_every=25``): ``ACCEL_LOOP_TRACES`` of a graph solve,
-    after the solve that captures it, and one of a host-loop solve, each
-    of ``ACCEL_LOOP_PROFILED`` iterations; one JSON line a method."""
+    (memory 5, ``check_every=25``): ``ACCEL_LOOP_TRACES`` of a graph solve
+    of ``ACCEL_LOOP_PROFILED`` iterations, after the solve that captures
+    it; one JSON line a method."""
     problem, x0 = random_network_problem(**HEADLINE)
     opts = dict(accel_memory=5, check_every=25)
     for method in ("supermann", "anderson"):
@@ -2069,18 +2076,16 @@ def part_accel_traces():
         solver = rt.Solver(problem, device=DEV)
         solver.solve(x0, accel=method, max_iters=ACCEL_LOOP_PROFILED - 1,
                      tol=1e-12, **opts)
-        print(json.dumps(dict(method=method, **{
-            loop: _accel_trace(solver, x0, method, loop, ACCEL_LOOP_PROFILED,
-                               1 if loop == "host" else ACCEL_LOOP_TRACES,
-                               **opts)
-            for loop in ("graph", "host")})), flush=True)
+        print(json.dumps(dict(method=method, graph=_accel_trace(
+            solver, x0, method, ACCEL_LOOP_PROFILED, ACCEL_LOOP_TRACES,
+            **opts))), flush=True)
         del solver
         gc.collect()
 
 
 def _accel_traces():
     """:func:`part_accel_traces` in a process of its own (this script,
-    ``--part accel_traces``): method -> loop -> traces. In a process that
+    ``--part accel_traces``): method -> "graph" -> traces. In a process that
     had run other traces and graphs before, the card's tracer reported
     kernels that the bodies taken do not launch (more K1 kernels, more set
     kernels than the replays ran; seen on an H100 with CUDA 12.8, where
@@ -2098,21 +2103,19 @@ def _accel_traces():
 
 
 def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
-    """SuperMann and Anderson at the headline through the graph loop and
-    the host loop in turns, after one graph solve that captures (counted
-    under ``warm_paths[method]``; the rest under ``path``), each method on
-    a solver of its own: each loop's
-    count, T evaluations, rate, wall µs beside device µs an iteration
-    (traces of ``ACCEL_LOOP_PROFILED`` iterations, taken in a process of
-    their own: :func:`_accel_traces`), busy share, host reads
+    """SuperMann and Anderson at the headline through the graph loop, after
+    one graph solve that captures (counted under ``warm_paths[method]``;
+    the rest under ``path``), each method on a solver of its own: the
+    graph loop's count, T evaluations, rate, wall µs beside device µs an
+    iteration (traces of ``ACCEL_LOOP_PROFILED`` iterations, taken in a
+    process of their own: :func:`_accel_traces`), busy share, host reads
     an iteration, capture seconds and peak memory; the graph loop held to
-    the host loop's iterates and history bit for bit, its device counts
-    of the bodies it ran to the host loop's counts of the same bodies, its
-    host reads to one a period and two at the end, K1's launches to the
-    ``prox_f`` calls, and K1's kernels in a trace to T evaluations times
-    K1's launches an apply; the method's cached loop freed with its
-    solver. Returns the rows and each method's capturing solve (its
-    result, counts and peak memory)."""
+    the same loop run eagerly: its iterates and history bit for bit and
+    its device counts of the bodies it ran; its host reads to one a period
+    and two at the end, K1's launches to the ``prox_f`` calls, and K1's
+    kernels in a trace to T evaluations times K1's launches an apply; the
+    method's cached loop freed with its solver. Returns the rows and each
+    method's capturing solve (its result, counts and peak memory)."""
     period = opts["check_every"]
     traced = _accel_traces()
     rows, warm_runs = {}, {}
@@ -2137,45 +2140,44 @@ def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
         check(warm["k1"] == warm["prox_f"] > 0,
               f"accel_loop {method}: K1 {warm['k1']} != prox_f "
               f"{warm['prox_f']}")
-        runs = _accel_runs(solver, x0, method, ("graph", "host"), repeats,
-                           path, **opts)
-        row = dict(warm_captures=warm["accel_loop"]["captures"],
-                   capture_seconds=warm["accel_loop"]["capture_seconds"],
-                   capture_host_reads=warm["accel_loop"]["host_reads"])
-        for loop, rs in runs.items():
-            best = min(rs, key=lambda r: r["res"].solve_time)
-            res, calls = best["res"], best["calls"]
-            traces = traced[method][loop]
-            wall_us = 1e6 * res.solve_time / res.num_iters
-            device_us = min(t["device_us_per_iter"] for t in traces)
-            row[loop] = dict(
-                iters=res.num_iters, t_evals=calls["prox_f"],
-                k1_launches=calls["k1"], seconds=[r["res"].solve_time
-                                                  for r in rs],
-                iters_per_second=res.num_iters / res.solve_time,
-                wall_us_per_iter=wall_us, device_us_per_iter=device_us,
-                busy_share=device_us / wall_us,
-                host_reads=calls["host_reads"],
-                host_reads_per_iter=calls["host_reads"] / res.num_iters,
-                loop_counts=calls["accel_loop"], bodies=best["bodies"],
-                set_kernels=calls["cond"],
-                peak_memory_over_start_bytes=max(r["peak"] for r in rs),
-                traces=traces, xi=res.xi.tolist())
-        graph, host = row["graph"], row["host"]
-        row["graph_over_host_iters_per_second"] = \
-            graph["iters_per_second"] / host["iters_per_second"]
-        rows[method] = row
-        want = runs["host"][0]["res"]
-        for r in runs["graph"] + runs["host"] + [warm_runs[method]]:
+        runs = _accel_runs(solver, x0, method, repeats, path, **opts)
+        rs = runs["graph"]
+        best = min(rs, key=lambda r: r["res"].solve_time)
+        res, calls = best["res"], best["calls"]
+        traces = traced[method]["graph"]
+        wall_us = 1e6 * res.solve_time / res.num_iters
+        device_us = min(t["device_us_per_iter"] for t in traces)
+        graph = dict(
+            iters=res.num_iters, t_evals=calls["prox_f"],
+            k1_launches=calls["k1"], seconds=[r["res"].solve_time
+                                              for r in rs],
+            iters_per_second=res.num_iters / res.solve_time,
+            wall_us_per_iter=wall_us, device_us_per_iter=device_us,
+            busy_share=device_us / wall_us,
+            host_reads=calls["host_reads"],
+            host_reads_per_iter=calls["host_reads"] / res.num_iters,
+            loop_counts=calls["accel_loop"], bodies=best["bodies"],
+            set_kernels=calls["cond"],
+            peak_memory_over_start_bytes=max(r["peak"] for r in rs),
+            traces=traces, xi=res.xi.tolist())
+        rows[method] = dict(
+            warm_captures=warm["accel_loop"]["captures"],
+            capture_seconds=warm["accel_loop"]["capture_seconds"],
+            capture_host_reads=warm["accel_loop"]["host_reads"],
+            graph=graph)
+        eager = runs["eager"][0]
+        want = eager["res"]
+        check(eager["calls"]["accel_loop"]["replays"] == 0,
+              f"accel_loop {method}: the eager run replayed a graph")
+        for r in runs["graph"] + runs["eager"] + [warm_runs[method]]:
             got = r["res"]
-            check(r["bodies"] == runs["host"][0]["bodies"]
+            check(r["bodies"] == eager["bodies"]
                   and accel_mod._body_t_evals(method, r["bodies"])
                   == r["calls"]["prox_f"],
                   f"accel_loop {method}: bodies run {r['bodies']} against "
-                  f"the host loop's {runs['host'][0]['bodies']}")
+                  f"the eager run's {eager['bodies']}")
             check(got.num_iters == want.num_iters
-                  and r["calls"]["prox_f"] == runs["host"][0]["calls"][
-                      "prox_f"]
+                  and r["calls"]["prox_f"] == eager["calls"]["prox_f"]
                   and np.array_equal(got.xi_history, want.xi_history,
                                      equal_nan=True)
                   and np.array_equal(got.delta_history, want.delta_history,
@@ -2183,7 +2185,8 @@ def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
                   and all(np.array_equal(a, b) for a, b in
                           zip((*got.primal, *got.dual),
                               (*want.primal, *want.dual))),
-                  f"accel_loop {method}: a run differs from the host loop's")
+                  f"accel_loop {method}: a run differs from the eager "
+                  "run's")
             check(r["calls"]["k1"] == r["calls"]["prox_f"],
                   f"accel_loop {method}: K1 {r['calls']['k1']} != prox_f "
                   f"{r['calls']['prox_f']}")
@@ -2209,7 +2212,7 @@ def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
         del solver, runs
         gc.collect()
         torch.cuda.synchronize()
-        row["allocated_after_solver_freed_bytes"] = \
+        rows[method]["allocated_after_solver_freed_bytes"] = \
             torch.cuda.memory_allocated() - before_solver
         check(not any(slot[0] == key for slot in accel_mod._LOOPS),
               f"accel_loop {method}: the loop outlived its solver")
@@ -2217,33 +2220,37 @@ def _accel_loop_rows(problem, x0, repeats, path, warm_paths, **opts):
 
 
 def _power_rows(solver, repeats):
-    """The power iteration at ``solver``'s problem: the device loop (masked
-    periods enqueued eagerly) and the host loop, in turns, ``repeats``
-    times each: lambda, the count, seconds and host reads; the device loop
-    held to the host loop's lambda and count, and to one read a period and
-    one at the end."""
+    """The power iteration at ``solver``'s problem: the single device's
+    loop (``POWER_PERIOD`` masked iterations a period, enqueued eagerly)
+    and a partition's (a period of one iteration), in turns, ``repeats``
+    times each: lambda, the count, seconds and host reads; both loops held
+    to the same lambda and count, the single device's to one read a period
+    and one at the end."""
     sp = solver.stacked
-    runs = {"device": [], "host": []}
+    runs = {"device": [], "period_1": []}
+    period = solver_mod.POWER_PERIOD
     for _ in range(repeats):
         for mode in runs:
             before = dict(solver_mod.POWER_COUNTS)
             torch.cuda.synchronize()
             tic = time.perf_counter()
-            if mode == "host":
-                lam, k = solver_mod._power_iteration_host(sp)
-            else:
+            solver_mod.POWER_PERIOD = 1 if mode == "period_1" else period
+            try:
                 lam, k = solver_mod._power_iteration(sp)
+            finally:
+                solver_mod.POWER_PERIOD = period
             torch.cuda.synchronize()
             runs[mode].append(dict(
                 lam=lam, iters=k, seconds=time.perf_counter() - tic,
                 host_reads=solver_mod.POWER_COUNTS["host_reads"]
                 - before["host_reads"]))
-    want = runs["host"][0]
+    want = runs["period_1"][0]
     for mode, rs in runs.items():
         for r in rs:
             check(r["lam"] == want["lam"] and r["iters"] == want["iters"],
                   f"power iteration ({mode}): {r['lam']}, {r['iters']} "
-                  f"against the host loop's {want['lam']}, {want['iters']}")
+                  f"against a period of one's {want['lam']}, "
+                  f"{want['iters']}")
             if mode == "device":
                 check(r["host_reads"] <= -(-r["iters"]
                                            // solver_mod.POWER_PERIOD) + 1,
@@ -2258,10 +2265,11 @@ def _power_rows(solver, repeats):
 
 def phase_accel():
     """SuperMann on the headline (1,000 iterations at most) through the
-    device loop; the A/B of the accelerated loops there
-    (``accel_loop_headline_f32``); the power iteration's loops at the
-    headline; SuperMann on the uniform fixture (through K1) and Anderson
-    on the demo, each in float64 on the card against the CPU port."""
+    device loop; the accelerated loops' graphs there against the same
+    loops run eagerly (``accel_loop_headline_f32``); the power iteration's
+    two periods at the headline; SuperMann on the uniform fixture (through
+    K1) and Anderson on the demo, each in float64 on the card against the
+    CPU port."""
     problem, x0 = random_network_problem(**HEADLINE)
     opts = dict(max_iters=ACCEL_LOOP_ITERS, tol=1e-3, accel_memory=5,
                 check_every=25)
@@ -2327,10 +2335,10 @@ def phase_accel():
 
 
 def phase_accel_loop():
-    """``--accel-loop``: the accelerated loops' A/B at the headline to 1e-3
-    (best of ``ACCEL_LOOP_REPEATS`` for each loop), and the power
-    iteration's loops at the headline and at 88,573 and 797,161 nodes
-    (best of the same)."""
+    """``--accel-loop``: the accelerated loops' graphs at the headline to
+    1e-3 (best of ``ACCEL_LOOP_REPEATS``) against the same loops run
+    eagerly, and the power iteration's two periods at the headline and at
+    88,573 and 797,161 nodes (best of the same)."""
     problem, x0 = random_network_problem(**HEADLINE)
     rows, _ = _accel_loop_rows(problem, x0, ACCEL_LOOP_REPEATS,
                                "accel_loop_headline_f32_to_tol", {},
@@ -2665,12 +2673,13 @@ def main():
                     help="run the partitioned phases alone (subtree, flat)")
     ap.add_argument("--loop", action="store_true",
                     help="run the loop_graph phase alone (the graph loop "
-                         "against the host loop)")
+                         "against the same loop run eagerly)")
     ap.add_argument("--dual", action="store_true",
                     help="run the dual-update kernel's phase alone")
     ap.add_argument("--accel-loop", action="store_true",
-                    help="run the accelerated loops' A/B to 1e-3 and the "
-                         "power iteration's A/B alone")
+                    help="run the accelerated loops' graphs against the "
+                         "same loops run eagerly to 1e-3, and the power "
+                         "iteration's periods, alone")
     ap.add_argument("--scale", action="store_true",
                     help="run the scale, sweep, batch and partition "
                          "runners' full rows instead")

@@ -36,27 +36,19 @@ its counters on the device (:func:`_device_loop`, the jitted
 ``running`` flag, ``lax.cond`` is :func:`raocp_tpu_torch.ops.cond.branch`
 (the bodies write into fixed buffers), and the loop runs a period of
 iterations at a time (:class:`raocp_tpu_torch.ops.cond.Periods`). On a
-card a period is one replay of a CUDA graph whose branches are conditional
-nodes, captured at a problem's first solve and cached per problem and
-options (``_LOOPS``); the host reads one flag a period, and the T
-evaluations, the iterations and the final residuals once at the end. On
-the CPU the same periods run eagerly.
+single device on a card a period is one replay of a CUDA graph whose
+branches are conditional nodes, captured at a problem's first solve and
+cached per problem and options (``_LOOPS``); the host reads one flag a
+period, and the T evaluations, the iterations and the final residuals
+once at the end. Anywhere else the same periods run eagerly
+(:func:`raocp_tpu_torch.ops.cond.captures`): on the CPU, and on the flat
+partition, whose norms and inner products sum over the ranks with a gloo
+all-reduce (:func:`_allsum`) that a graph cannot capture; each branch then
+reads an all-reduced predicate, so every rank takes the same branches.
+SuperMann's safeguard scalars are float64 (``_SAFEGUARD``).
 
-The host loops (:func:`_run_cp_anderson_host`,
-:func:`_run_cp_supermann_host`) take each branch on the host: one
-device-to-host read per accepted iteration (Anderson's safeguard;
-SuperMann's residual norm), plus one per SuperMann line-search try, plus
-the read of each residual check. They run on the flat partition, whose
-norms and inner products sum over the ranks with a gloo all-reduce
-(:func:`_allsum`) that a graph cannot capture, so every rank takes the
-same branches; and inside ``solver._host_loop()``, the switch of an A/B of
-the two loops. Both loops take the same decisions in the same precision
-(SuperMann's safeguard scalars in float64, as the host loop's Python
-floats), so they give the same iterates, counts and history bit for bit.
-
-Every read goes through :func:`_read`, which counts it in
-:data:`HOST_READS`; :data:`LOOP_COUNTS` counts what the device loops ran
-and times them.
+:data:`LOOP_COUNTS` counts what the loops ran and their reads of the
+host (:func:`_read`), and times them.
 """
 
 import collections
@@ -82,16 +74,14 @@ from raocp_tpu_torch.ops.prox import half_shift_dual
 from raocp_tpu_torch.parallel.sharding import all_reduce
 from raocp_tpu_torch.solver import _cp_residuals, _cp_step
 
-__all__ = ["run_cp_anderson", "run_cp_supermann", "HOST_READS",
-           "LOOP_COUNTS", "BODY_RUNS"]
-
-HOST_READS = 0
+__all__ = ["run_cp_anderson", "run_cp_supermann", "LOOP_COUNTS",
+           "BODY_RUNS"]
 
 # What the device loops ran, summed since import (read deltas around a
 # run): periods (eager or replayed), of them graph replays; captures and
 # their seconds (the eager first period, the warm-up capture and the
-# graph); the device loops' host reads (a flag a period, the final counts
-# and history; the capture's eager branches); T evaluations and iterations
+# graph); the loops' host reads (a flag a period, the final counts and
+# history; the capture's eager branches); T evaluations and iterations
 # (the device's counts), and of the T evaluations those that replays ran.
 # A replayed T evaluation is a prox_f call that Python made once, at
 # capture (``scripts.bench_configs.counted_calls`` adds them to its count);
@@ -102,18 +92,18 @@ HOST_READS = 0
 # (``raocp.loop.drive``) and each replay in it (``raocp.loop.launch``);
 # device seconds from the card's clock (``ops.cond.Flags``): the replayed
 # periods whose flag was read, their number, and the card's gaps between
-# two of them in one call. The host loops add nothing here.
+# two of them in one call.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    host_reads=0, t_evals=0, iterations=0,
                    replayed_t_evals=0, drive_seconds=0.0,
                    launch_seconds=0.0, period_device_seconds=0.0,
                    gap_device_seconds=0.0, timed_periods=0)
 
-# The bodies each loop ran, summed since import: (kind, body) -> runs. A
-# device loop counts them on the device (an int64 counter a body, never
-# reset, that the body itself adds to, read with the final counts), a host
-# loop on the host; one run gives the same counts through either loop, so
-# a body that a replay ran untaken shows there. T evaluations:
+# The bodies each loop ran, summed since import: (kind, body) -> runs,
+# counted on the device (an int64 counter a body, never reset, that the
+# body itself adds to, read with the final counts); one run gives the same
+# counts replayed or eager, so a body that a replay ran untaken shows
+# there. T evaluations:
 # Anderson's are 1 + iteration + fallback, SuperMann's 1 + attempt + blind
 # + plain.
 BODIES = {"anderson": ("iteration", "accepted", "fallback"),
@@ -122,6 +112,10 @@ BODY_RUNS = collections.Counter()
 
 # guarded iterations in a period of a loop that checks every iteration
 PERIOD_CHECK_EVERY_1 = 16
+
+# the dtype of SuperMann's safeguard scalars (eta_safe, r_safe, eps and the
+# norms they meet), whatever the problem's
+_SAFEGUARD = torch.float64
 
 _NP = len(Primal._fields)          # 5 primal leaves
 _ND = len(Dual._fields)            # 11 dual leaves
@@ -149,18 +143,15 @@ _LAYOUTS = {}
 # T evaluations run eagerly (not captured), summed since import
 _EAGER_T = 0
 
-# each problem's device loops on a card: (id(sp), kind) -> (key, loop);
+# each problem's loops that capture: (id(sp), kind) -> (key, loop);
 # a loop holds no reference to its problem (it comes with each call), so
 # the entry goes with the problem
 _LOOPS = {}
 
 
-def _read(t, loop=False):
-    """One device-to-host read (a sync), counted; ``loop``: a device
-    loop's read, also in ``LOOP_COUNTS``."""
-    global HOST_READS
-    HOST_READS += 1
-    LOOP_COUNTS["host_reads"] += loop
+def _read(t):
+    """One device-to-host read (a sync), counted in ``LOOP_COUNTS``."""
+    LOOP_COUNTS["host_reads"] += 1
     return t.cpu().numpy()
 
 
@@ -290,23 +281,6 @@ def _residuals(sp, W, T, alpha):
     return _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt, Ltn, alpha, alpha)
 
 
-def _residual_row(sp, W, T, alpha):
-    """The [xi_0..2, delta_0..2] stopping residuals of W -> T(W) as a NumPy
-    row (one extra operator apply, one host read)."""
-    return _read(torch.cat(_residuals(sp, W, T, alpha)))
-
-
-def _history(max_iters, check_every):
-    return np.full((max_iters + 1, 6), 0.0 if check_every == 1 else np.nan)
-
-
-def _host_loops(sp) -> bool:
-    """Whether the accelerated loops take their branches on the host: on
-    the flat partition (its sums are gloo all-reduces, which a graph
-    cannot capture) and inside ``solver._host_loop()``."""
-    return solver_mod._HOST_LOOP or sp.spmd_group is not None
-
-
 # -- the device loops (JAX: the jitted while_loops) --------------------------
 
 def _loop_state(sp, kind, W0, memory, capacity, scalars):
@@ -374,8 +348,8 @@ def _ran(L, body):
 
 def _advance(L):
     """W <- Wn, R <- Rn, k += 1, and the loop's condition after it: the
-    last checked residual above tol (compared in float64, as the host
-    loop's NumPy rows are) and k < max_iters + 1."""
+    last checked residual above tol (compared in float64) and
+    k < max_iters + 1."""
     L.W.copy_(L.Wn)
     L.R.copy_(L.Rn)
     L.k.add_(1)
@@ -437,11 +411,11 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
     """One iteration of :func:`run_cp_supermann`'s loop on the device
     state ``L``, in place, under the guard of ``L.running`` (JAX
     ``accel.py:352``). K0 (blind), the line search's ``ls_max`` tries
-    (each under the guard "admitted and not yet accepted", at the host
-    loop's constant tau = beta^j) and the plain fallback are bodies of
-    their own, each writing (Wn, Rn) in place; then the Broyden push and
-    the check. The safeguard scalars (eta_safe, r_safe, eps, the norms they
-    meet) are float64, as the host loop's Python floats."""
+    (each under the guard "admitted and not yet accepted", at the constant
+    tau = beta^j of try j) and the plain fallback are bodies of their own,
+    each writing (Wn, Rn) in place; then the Broyden push and the check.
+    The safeguard scalars (eta_safe, r_safe, eps, the norms they meet) are
+    ``_SAFEGUARD`` (float64)."""
     dt = sp.dtype
 
     def apply_h(V):
@@ -455,7 +429,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
 
     def body():
         _ran(L, "iteration")
-        norm_r = _norm(sp, L.R).double()
+        norm_r = _norm(sp, L.R).to(_SAFEGUARD)
         d = -apply_h(L.R)
         blind = norm_r <= c0 * L.eta_safe
         admit = ~blind & (norm_r <= L.r_safe)
@@ -467,7 +441,7 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
                 # backtrack: the candidate w + tau d and its residual
                 _ran(L, "attempt")
                 step_to(torch.add(L.W, tau * d, out=L.Wn))
-                norm_c = _norm(sp, L.Rn).double()
+                norm_c = _norm(sp, L.Rn).to(_SAFEGUARD)
                 L.norm_c.copy_(norm_c)
                 L.ok.copy_(norm_c <= c1 * norm_r)
                 L.tries.add_(1)
@@ -521,13 +495,14 @@ def _supermann_iteration(sp, L, checked, ls_max, c0, c1, q_eps, beta):
 
 def _loop_for(sp, kind, memory, period, check_every, options, capacity,
               make):
-    """The problem's device loop of ``kind`` for these options: on a card
-    the cached one (kept while the key holds and its history holds
-    ``capacity`` rows, so a solver's later solves replay its graph), else a
-    new one (``make()``). The key is what changes the captured program: the
+    """The problem's device loop of ``kind`` for these options: where the
+    loop captures (:func:`~raocp_tpu_torch.ops.cond.captures`) the cached
+    one (kept while the key holds and its history holds ``capacity`` rows,
+    so a solver's later solves replay its graph), else a new one
+    (``make()``). The key is what changes the captured program: the
     options, the period and the dynamics projection's dispatch (K1, the
     stage path, or a patched sweep)."""
-    if sp.device.type != "cuda":
+    if not cond_mod.captures(sp):
         return make()
     key = (memory, period, check_every, options,
            sweep_mod.sweep_eligible(sp), prox_mod.project_dynamics_sweep)
@@ -551,21 +526,20 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
     ``check_every=1`` every iteration checks and a period is
     ``PERIOD_CHECK_EVERY_1`` of them), the cap and the tolerance stop it in
     mid-period, and the host reads one flag a period
-    (:class:`~raocp_tpu_torch.ops.cond.Periods`; on a card one period is
-    enqueued ahead of the flag). ``iteration(sp, L, checked)`` is one
-    guarded iteration (it must hold no reference to ``sp``: a card's loop
-    is cached), ``scalars`` the loop's own 0-d buffers and ``init(L, W0,
-    R0)`` sets what a solve starts from. Returns (z, eta, iters, t_evals,
-    err NumPy [3], hist NumPy [iters, 6])."""
-    global HOST_READS
+    (:class:`~raocp_tpu_torch.ops.cond.Periods`; where it captures one
+    period is enqueued ahead of the flag). ``iteration(sp, L, checked)`` is
+    one guarded iteration (it must hold no reference to ``sp``: a loop
+    that captures is cached), ``scalars`` the loop's own 0-d buffers and
+    ``init(L, W0, R0)`` sets what a solve starts from. Returns (z, eta,
+    iters, t_evals, err NumPy [3], hist NumPy [iters, 6])."""
     if check_every < 1:
         raise ValueError("check_every must be at least 1")
     period = PERIOD_CHECK_EVERY_1 if check_every == 1 else check_every
     capacity = max(1024, 1 << max_iters.bit_length())
-    cuda = sp.device.type == "cuda"
+    cached = cond_mod.captures(sp)
     eager_t = _EAGER_T
     before = dict(LOOP_COUNTS)
-    with (torch.cuda.device(sp.device) if cuda
+    with (torch.cuda.device(sp.device) if sp.device.type == "cuda"
           else contextlib.nullcontext()):
         a, shift, W0, T0 = _start(sp, z0, eta0, alpha, x0)
         R0 = T0 - W0 if kind == "anderson" else W0 - T0
@@ -580,7 +554,7 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
                 for checked in checks:
                     iteration(sp, L, checked)
 
-            L.periods = Periods(sp.device, run_period, L.running, True,
+            L.periods = Periods(sp.device, run_period, L.running, cached,
                                 LOOP_COUNTS)
             return L
 
@@ -591,18 +565,16 @@ def _device_loop(sp, kind, z0, eta0, x0, alpha, tol, max_iters, memory,
         with cond_mod.span("raocp.loop.drive", LOOP_COUNTS,
                            "drive_seconds"):
             L.periods.run(-(-(max_iters + 1) // period),
-                          solver_mod._lookahead(sp.device), sp, L)
-        HOST_READS += LOOP_COUNTS["host_reads"] - before["host_reads"]
+                          solver_mod._lookahead(sp), sp, L)
         out = _read(torch.cat([torch.stack([L.k, L.evals]).double(),
-                               L.bodies.double(), L.err.double()]),
-                    loop=True)
+                               L.bodies.double(), L.err.double()]))
         iters, evals = int(out[0]), int(out[1])
         seen = out[2:2 + len(L.seen)].astype(np.int64)
         ran = dict(zip(BODIES[kind], (seen - L.seen).tolist()))
         L.seen = seen
-        hist = _read(L.hist[:iters], loop=True).astype(np.float64)
+        hist = _read(L.hist[:iters]).astype(np.float64)
         z, eta, _, _ = _split(sp, L.W)
-        if cuda:                     # the buffers stay with the cached loop
+        if cached:                   # the buffers stay with the cached loop
             z, eta = (type(t)(*(v.clone() for v in t)) for t in (z, eta))
     eager = _EAGER_T - eager_t
     BODY_RUNS.update({(kind, name): n for name, n in ran.items()})
@@ -643,12 +615,8 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
 
     Accept the Anderson candidate iff ||r_cand|| <= theta ||r||, else take
     the plain step w+ = T(w) and evaluate T once more there. The loop runs
-    on the device (:func:`_device_loop`); on the flat partition and inside
-    ``solver._host_loop()`` it is :func:`_run_cp_anderson_host`.
+    on the device (:func:`_device_loop`).
     """
-    if _host_loops(sp):
-        return _run_cp_anderson_host(sp, z0, eta0, x0, alpha, tol, max_iters,
-                                     memory, theta, reg, check_every)
     dt, dev = sp.dtype, sp.device
     scalars = dict(pushes=torch.int64)
 
@@ -686,15 +654,10 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
 
     Returns (z, eta, iters, t_evals, err, hist) as
     :func:`run_cp_anderson` does. The loop runs on the device
-    (:func:`_device_loop`); on the flat partition and inside
-    ``solver._host_loop()`` it is :func:`_run_cp_supermann_host`.
+    (:func:`_device_loop`).
     """
-    if _host_loops(sp):
-        return _run_cp_supermann_host(sp, z0, eta0, x0, alpha, tol,
-                                      max_iters, memory, ls_max, c0, c1,
-                                      q_eps, beta, check_every)
     dt, dev = sp.dtype, sp.device
-    f64 = torch.float64
+    f64 = _SAFEGUARD
     scalars = dict(eta_safe=f64, r_safe=f64, eps=f64, norm_c=f64,
                    ok=torch.bool, tries=torch.int64, slot=torch.int64)
 
@@ -705,7 +668,7 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
             L.valid = torch.zeros((memory,), dtype=dt, device=dev)
         for h in (L.U, L.Y, L.valid):
             h.zero_()
-        nr0 = _norm(sp, R0).double()
+        nr0 = _norm(sp, R0).to(_SAFEGUARD)
         for v in (L.eta_safe, L.r_safe, L.eps):
             v.copy_(nr0)
         L.slot.zero_()
@@ -716,147 +679,3 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
         lambda sp, L, checked: _supermann_iteration(sp, L, checked, ls_max,
                                                     c0, c1, q_eps, beta),
         scalars, init)
-
-
-# -- the host loops (the flat partition's, and the A/B's) ---------------------
-
-def _run_cp_anderson_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
-                    max_iters: int, memory: int = 5, theta: float = 1.0,
-                    reg: float = 1e-10, check_every: int = 1):
-    """:func:`run_cp_anderson` with its branches taken on the host: one
-    read of the safeguard an iteration (from the second) and one of each
-    residual check."""
-    dt, dev = sp.dtype, sp.device
-    a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
-    R = T - W                               # r = T(w) - w, extended
-    err = _residual_row(sp, W, T, a)[:3]
-    dW = _h_zeros(W, memory)
-    dR = _h_zeros(W, memory)
-    G = torch.zeros((memory, memory), dtype=dt, device=dev)
-    reg_eye = reg * torch.eye(memory, dtype=dt, device=dev)
-    slots = torch.arange(memory, device=dev)
-    hist = _history(max_iters, check_every)
-    k, evals, pushes = 0, 1, 0
-    ran = collections.Counter()
-    while k == 0 or (err.max() > tol and k < max_iters + 1):
-        ran["iteration"] += 1
-        valid = (slots < pushes).to(dt)
-        Gm = G * (valid[:, None] * valid[None, :]) + reg_eye
-        b = _h_dot(sp, dR, R) * valid
-        gamma = _solve(Gm, b) * valid
-        W_cand = (W + R) - (_h_combo(dW, gamma) + _h_combo(dR, gamma))
-        T_cand = _t_ext(sp, W_cand, a, x0, shift)
-        R_cand = T_cand - W_cand
-        if pushes > 0 and bool(_read(_norm(sp, R_cand)
-                                     <= theta * _norm(sp, R))):
-            W_new, R_new = W_cand, R_cand
-            evals += 1
-            ran["accepted"] += 1
-        else:
-            # the plain step w+ = T(w) = w + r; one more T evaluation
-            # refreshes the residual there
-            ran["fallback"] += 1
-            W_new = W + R
-            R_new = _t_ext(sp, W_new, a, x0, shift) - W_new
-            evals += 2
-        if check_every == 1 or (k + 1) % check_every == 0:
-            hist[k] = _residual_row(sp, W_new, W_new + R_new, a)
-            err = hist[k, :3]
-        slot = pushes % memory
-        row = R_new - R
-        dR[slot].copy_(row)
-        dW[slot].copy_(W_new - W)
-        g_row = _h_dot(sp, dR, row)          # fills the slot's row + column
-        G[slot, :] = g_row
-        G[:, slot] = g_row
-        W, R = W_new, R_new
-        k += 1
-        pushes += 1
-    BODY_RUNS.update({("anderson", name): n for name, n in ran.items()})
-    z, eta, _, _ = _split(sp, W)
-    return z, eta, k, evals, err, hist[:k]
-
-
-def _run_cp_supermann_host(sp: StackedProblem, z0, eta0, x0, alpha, tol,
-                     max_iters: int, memory: int = 5, ls_max: int = 1,
-                     c0: float = 0.99, c1: float = 1.0, q_eps: float = 0.95,
-                     beta: float = 0.5, check_every: int = 1):
-    """:func:`run_cp_supermann` with its branches taken on the host: one
-    read of the residual norm an iteration, one of each line-search try and
-    one of each residual check; the safeguard scalars are Python floats."""
-    dt, dev = sp.dtype, sp.device
-    a, shift, W, T = _start(sp, z0, eta0, alpha, x0)
-    R = W - T                               # R(w) = w - T(w), extended
-    err = _residual_row(sp, W, T, a)[:3]
-    nr0 = float(_read(_norm(sp, R)))
-    U = _h_zeros(W, memory)                 # Broyden vectors u_i
-    Y = _h_zeros(W, memory)                 # y_i = r_{i+1} - r_i
-    valid = torch.zeros((memory,), dtype=dt, device=dev)
-    hist = _history(max_iters, check_every)
-    eta_safe = r_safe = eps = nr0
-    slot, k, evals = 0, 0, 1
-    ran = collections.Counter()
-
-    def apply_h(V):
-        w = _h_dot(sp, Y, V) * valid
-        return V + _h_combo(U, w)
-
-    def plain_step(j):
-        ran["plain"] += 1
-        W_p = W - R
-        return W_p, W_p - _t_ext(sp, W_p, a, x0, shift), j + 1
-
-    while k == 0 or (err.max() > tol and k < max_iters + 1):
-        ran["iteration"] += 1
-        norm_r = float(_read(_norm(sp, R)))
-        d = -apply_h(R)
-        if norm_r <= c0 * eta_safe:
-            # K0: accept w + d without a test; eta_safe tightens
-            ran["blind"] += 1
-            W_n = W + d
-            R_n = W_n - _t_ext(sp, W_n, a, x0, shift)
-            eta_safe = norm_r
-            ev = 1
-        elif norm_r <= r_safe:
-            # K1: backtrack until the residual does not grow
-            tau, ok, j = 1.0, False, 0
-            while not ok and j < ls_max:
-                ran["attempt"] += 1
-                W_c = W + tau * d
-                R_c = W_c - _t_ext(sp, W_c, a, x0, shift)
-                norm_c = float(_read(_norm(sp, R_c)))
-                ok = norm_c <= c1 * norm_r
-                tau *= beta
-                j += 1
-            if ok:
-                ran["accept"] += 1
-                W_n, R_n, ev = W_c, R_c, j
-                r_safe = norm_c + eps
-            else:
-                W_n, R_n, ev = plain_step(j)
-        else:
-            W_n, R_n, ev = plain_step(0)
-
-        # Broyden push: u = (s - H y) / (y.y); degenerate pairs are masked
-        s = W_n - W
-        y = R_n - R
-        yy = _sq(sp, y)
-        good = yy > 1e-30
-        denom = torch.where(good, yy, torch.ones_like(yy))
-        gz = good.to(dt)
-        Hy = apply_h(y)
-        U[slot].copy_((s - Hy) / denom * gz)
-        Y[slot].copy_(y)
-        valid[slot] = gz
-        slot = (slot + 1) % memory
-
-        if check_every == 1 or (k + 1) % check_every == 0:
-            hist[k] = _residual_row(sp, W_n, W_n - R_n, a)
-            err = hist[k, :3]
-        W, R = W_n, R_n
-        eps *= q_eps
-        k += 1
-        evals += ev
-    BODY_RUNS.update({("supermann", name): n for name, n in ran.items()})
-    z, eta, _, _ = _split(sp, W)
-    return z, eta, k, evals, err, hist[:k]

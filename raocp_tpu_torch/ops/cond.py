@@ -20,8 +20,9 @@ the branch: whatever follows reads fixed addresses, whichever body ran.
   nothing. (PyTorch 2.11's ``CUDAGraph`` has no ``begin_capture_to_if_node``,
   and ``torch.cond`` traces its branches, which K1's library call does not
   survive.)
-* Eagerly (on the CPU, and in a card's first period before its capture) it
-  reads ``pred`` and runs one body: the plain version of the nodes.
+* Eagerly (wherever the loop does not capture, :func:`captures`, and in a
+  card's first period before its capture) it reads ``pred`` and runs one
+  body: the plain version of the nodes.
 
 A capture into a conditional node that fails raises; nothing reruns on
 the host.
@@ -105,6 +106,15 @@ def _check(err: int, what: str):
     if err != 0:
         msg = _library().raocp_cond_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def captures(sp) -> bool:
+    """Whether the device loops on the problem ``sp`` capture their periods
+    as CUDA graphs: on a single device on a card. Anything else runs the
+    same periods eagerly: the CPU, and a partition, whose collectives are
+    staged on the host (a graph cannot capture them; eagerly each branch
+    reads an all-reduced predicate, the same on every rank)."""
+    return sp.device.type == "cuda" and sp.spmd_group is None
 
 
 def capturing(t: torch.Tensor) -> bool:
@@ -344,10 +354,11 @@ class Periods:
     with each call (:meth:`run`), so a cached loop keeps no reference to
     them.
 
-    On a card with ``graph`` the first period runs eagerly (it builds K1's
-    library, packs its weights, makes the cuBLAS and cuSOLVER handles and
-    grows the allocator outside any graph: a library's first call inside
-    a body does not survive the capture), a relaxed capture of a period
+    With ``graph`` (:func:`captures`: a single device on a card) the
+    first period runs eagerly (it builds K1's library, packs its weights,
+    makes the cuBLAS and cuSOLVER handles and grows the allocator outside
+    any graph: a library's first call inside a body does not survive the
+    capture), a relaxed capture of a period
     that is thrown away then meets every body once, both sides of each
     branch one after the other and no conditional node (the side that the
     eager period did not take is met there; a body that cannot be
@@ -357,8 +368,7 @@ class Periods:
     card's clock (:class:`Flags`), that every later period replays.
     Without ``graph`` each period is enqueued eagerly. The host reads each
     period's flag through :class:`Flags`, ``lookahead`` periods enqueued
-    ahead of the read (:func:`drive`); on the CPU every period runs
-    eagerly.
+    ahead of the read (:func:`drive`).
 
     ``counts`` takes the periods and host reads; with ``graph``, also the
     replays, captures, capture and launch seconds and the marks' device
@@ -374,7 +384,7 @@ class Periods:
         self.device = device
         self.period = period
         self.running = running
-        self.use_graph = graph and device.type == "cuda"
+        self.use_graph = graph
         self.counts = counts
         self.graph = None
         self.recorded = 0

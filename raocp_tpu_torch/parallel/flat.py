@@ -289,14 +289,3 @@ class FlatProblem:
             self.plan.block(_PRIMAL_SPACES[k], rng.standard_normal(shape),
                             self._rows(_PRIMAL_SPACES[k])),
             dtype=sp.dtype, device=sp.device) for k, shape in shapes.items()})
-
-    def run_cp(self, z0, eta0, x0, alpha1, alpha2, tol, max_iters: int,
-               check_every: int = 1, unroll: int = 1,
-               adaptive: bool = False, relax: float = 1.0,
-               log_every=None, k0: int = 0):
-        """The CP loop on this rank's blocks (iterates in and out in the
-        block layout); every host branch reads all-reduced values."""
-        from raocp_tpu_torch.solver import _run_cp_host
-        return _run_cp_host(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
-                            max_iters, check_every, unroll, adaptive, relax,
-                            log_every, k0)

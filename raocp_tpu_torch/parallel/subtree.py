@@ -372,26 +372,6 @@ class SubtreeProblem:
     def zero_dual_global_layout(self) -> Dual:
         return self._zero_block_layout(self.sp.zero_dual())
 
-    # -- the solver on the block ---------------------------------------------
-
-    def power_iteration(self):
-        """lambda_max(L'L) by SPMD power iteration over the ranks (the same
-        value on every rank)."""
-        from raocp_tpu_torch.solver import _power_iteration_host
-        return _power_iteration_host(self.sp)
-
-    def run_cp(self, z0, eta0, x0, alpha1, alpha2, tol, max_iters: int,
-               check_every: int = 1, unroll: int = 1,
-               adaptive: bool = False, relax: float = 1.0,
-               log_every=None, k0: int = 0):
-        """The CP loop on this rank's block: iterates in, iterates out, in
-        the block layout; every host branch reads all-reduced values, so
-        the ranks take the same branches."""
-        from raocp_tpu_torch.solver import _run_cp_host
-        return _run_cp_host(self.sp, z0, eta0, x0, alpha1, alpha2, tol,
-                            max_iters, check_every, unroll, adaptive, relax,
-                            log_every, k0)
-
 
 def build_subtree_problem(spec, mesh, dtype=None, offline: str = "host",
                           frontier: Optional[int] = None,

@@ -3,7 +3,6 @@
 
     python -m raocp_tpu_torch.scripts.bench_accel [--configs 1,2,3,4]
         [--repeats 3] [--dtype float32|float64] [--device cpu]
-        [--loop graph|host]
 
 Each config (``offline="device"``, at most 6,000 iterations for configs 1
 and 2 and 20,000 for configs 3 and 4, as the JAX script caps them) runs
@@ -15,9 +14,8 @@ the T evaluations (``prox_f`` calls) of the timed solve, the dtype, the
 device, the card's ``name, power.limit``, K1's launches, the peak device
 memory, and the JAX package's float64 count and T evaluations on the CPU
 for the same options (``jax_reference.json``) beside the port's, the
-loop (``--loop``: ``graph``, the solve's own loops, or ``host``, the loops
-that read the host every iteration), the timed solve's host reads an
-iteration and what its loops ran (``loop``, ``accel_loop``). The
+timed solve's host reads an iteration and what its loops ran (``loop``,
+``accel_loop``). The
 accelerators amplify rounding, so their counts are reported, not held.
 Each method is timed as the best of ``--repeats`` solves after a warm-up
 of 25 iterations. It runs on the card unless ``--device cpu`` is given,
@@ -25,12 +23,10 @@ and a row that raises fails the run.
 """
 
 import argparse
-import contextlib
 import json
 
 import torch
 
-from raocp_tpu_torch import solver as solver_mod
 from raocp_tpu_torch.core.stacked import _torch_dtype, default_dtype
 from raocp_tpu_torch.scripts.bench_configs import CONFIGS, keyed_rows
 
@@ -60,27 +56,17 @@ def accel_solve(k: int, run: str) -> dict:
 
 
 def run_accel(k: int, dtype=None, device="cuda", repeats: int = 3,
-              runs=tuple(RUNS), loop: str = "graph") -> list:
-    """Config ``k``'s rows, one a method of ``runs``, through ``loop``:
-    ``"graph"`` (the solve's own loops, on a card CUDA graphs of their
-    check periods) or ``"host"`` (the loops that read the host,
-    ``solver._host_loop()``)."""
-    if loop not in ("graph", "host"):
-        raise ValueError(f"unknown loop '{loop}' (graph or host)")
+              runs=tuple(RUNS)) -> list:
+    """Config ``k``'s rows, one a method of ``runs``."""
     dtype = default_dtype(device) if dtype is None else _torch_dtype(dtype)
     keys = {run: accel_solve(k, run) for run in runs}
-    scope = solver_mod._host_loop if loop == "host" \
-        else contextlib.nullcontext
-    with scope():
-        return [dict(run=run, **row, xi_max=max(row["xi"]),
-                     t_evals=row["prox_f_calls"],
-                     relax=RUNS[run].get("relax"),
-                     memory=RUNS[run].get("accel_memory"),
-                     jax_t_evals=ref.get("t_evals"), loop=loop,
-                     host_reads_per_iter=row["host_reads"]
-                     / row["iterations"])
-                for run, row, ref in keyed_rows(CONFIGS[k], keys, dtype,
-                                                device, repeats)]
+    return [dict(run=run, **row, xi_max=max(row["xi"]),
+                 t_evals=row["prox_f_calls"], relax=RUNS[run].get("relax"),
+                 memory=RUNS[run].get("accel_memory"),
+                 jax_t_evals=ref.get("t_evals"),
+                 host_reads_per_iter=row["host_reads"] / row["iterations"])
+            for run, row, ref in keyed_rows(CONFIGS[k], keys, dtype, device,
+                                            repeats)]
 
 
 def main(argv=None):
@@ -90,12 +76,10 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=("float32", "float64"),
                     help="default: float32 on the card, float64 on the CPU")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--loop", choices=("graph", "host"), default="graph")
     args = ap.parse_args(argv)
     dtype = None if args.dtype is None else getattr(torch, args.dtype)
     for k in (int(c) for c in args.configs.split(",")):
-        for row in run_accel(k, dtype, args.device, args.repeats,
-                             loop=args.loop):
+        for row in run_accel(k, dtype, args.device, args.repeats):
             print(json.dumps(row), flush=True)
 
 

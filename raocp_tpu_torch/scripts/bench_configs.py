@@ -138,7 +138,6 @@ def counted_calls():
 
     before = sweep.LAUNCHES
     loops = dict(solver_mod.LOOP_COUNTS), dict(accel.LOOP_COUNTS)
-    reads = accel.HOST_READS
     solver_mod.prox_f = counting
     try:
         yield calls
@@ -151,9 +150,9 @@ def counted_calls():
         calls["prox_f"] += (calls["loop"]["replayed_steps"]
                             + calls["accel_loop"]["replayed_t_evals"])
         # every read of the host in the loops: the plain loops' and the
-        # accelerated loops' (their host loops' reads included)
+        # accelerated loops'
         calls["host_reads"] = (calls["loop"]["host_reads"]
-                               + accel.HOST_READS - reads)
+                               + calls["accel_loop"]["host_reads"])
 
 
 def sync(device):

@@ -2,7 +2,7 @@
 the JAX package's ``scripts/bench_scale.py``).
 
     python -m raocp_tpu_torch.scripts.bench_scale [--iters 1000]
-        [--repeats 3] [--unroll 5] [--device cpu] [--loop graph|host]
+        [--repeats 3] [--unroll 5] [--device cpu]
 
 The problem: a 50-state, 20-input network on a 3-mode chain fully branched
 for 10 stages (88,573 nodes), AVaR(0.95), box constraints, float32 on the
@@ -21,7 +21,6 @@ script.
 """
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import time
@@ -75,7 +74,7 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
              iters: int = ITERS, repeats: int = 1, unroll: int = 5,
              check_every: int = CHECK_EVERY, power_rel_tol: float = 1e-12,
              tol: float = 0.0, alpha=None, dtype=torch.float32,
-             device="cuda", loop: str = "graph"):
+             device="cuda"):
     """Build :func:`tree_problem` on ``device`` (``offline="device"``), take
     the step size from ``_power_iteration`` at ``power_rel_tol`` (or use
     ``alpha``), run the CP loop (``solver._run_cp``, as the JAX scripts
@@ -87,8 +86,7 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
     capture of the device loop's CUDA graphs (the port compiles no kernel
     per call); the row's ``loop_*`` fields are ``solver.LOOP_COUNTS`` over
     all the runs (captures and their seconds, replays, host reads).
-    ``loop="host"`` runs the host loop instead (``solver._host_loop()``),
-    for an A/B. Returns a :class:`TreeRun`."""
+    Returns a :class:`TreeRun`."""
     dtype = _torch_dtype(dtype)
     sync(device)
     tic = time.perf_counter()
@@ -114,17 +112,12 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
     x0t = torch.as_tensor(np.asarray(x0, dtype=np.float64), dtype=sp.dtype,
                           device=sp.device)
 
-    if loop not in ("graph", "host"):
-        raise ValueError(f"unknown loop '{loop}' (graph or host)")
-
     def run(steps):
         z0 = sp.zero_primal()
         z0.x[0] = x0t
-        with (solver_mod._host_loop() if loop == "host"
-              else contextlib.nullcontext()):
-            return solver_mod._run_cp(sp, z0, sp.zero_dual(), x0t, alpha,
-                                      alpha, tol, steps,
-                                      check_every=check_every, unroll=unroll)
+        return solver_mod._run_cp(sp, z0, sp.zero_dual(), x0t, alpha, alpha,
+                                  tol, steps, check_every=check_every,
+                                  unroll=unroll)
 
     counts = dict(solver_mod.LOOP_COUNTS)
     run(check_every)
@@ -147,7 +140,7 @@ def run_tree(num_stages: int, num_states: int = 50, num_inputs: int = 20,
         **power, alpha=float(alpha), iters=steps, tol=tol,
         converged=bool(tol > 0 and float(err.max()) <= tol),
         seconds=best, all_seconds=seconds, ms_per_step=1e3 * best / steps,
-        repeats=repeats, unroll=unroll, check_every=check_every, loop=loop,
+        repeats=repeats, unroll=unroll, check_every=check_every,
         **device_fields(sp), k1_launches=calls["k1"],
         prox_f_calls=calls["prox_f"],
         **{f"loop_{k}": solver_mod.LOOP_COUNTS[k] - v
@@ -170,13 +163,9 @@ def main(argv=None):
                          "where the cap falls; the JAX script's while-loop "
                          "unrolls its body by it")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--loop", choices=("graph", "host"), default="graph",
-                    help="the device loop (CUDA graphs of its check "
-                         "periods) or the host loop, for an A/B")
     args = ap.parse_args(argv)
     row = run_tree(10, iters=args.iters, repeats=args.repeats,
-                   unroll=args.unroll, device=args.device,
-                   loop=args.loop).row
+                   unroll=args.unroll, device=args.device).row
     print(json.dumps(row), flush=True)
     if not row["finite"]:
         raise SystemExit("the iterates are not finite")

@@ -4,7 +4,7 @@ JAX package's ``scripts/profile_step.py``).
 
     python -m raocp_tpu_torch.scripts.profile_step [--steps 100]
         [--config headline|config5|tree797161|headline_supermann|
-                  headline_anderson] [--loop graph|host]
+                  headline_anderson]
 
 ``headline`` (BASELINE config 4: 9,841 nodes, float32) runs 100 CP steps
 at ``check_every=25, unroll=25``; ``headline_supermann`` and
@@ -18,14 +18,10 @@ the card's busy share, the launches a step, K1's share of the device time
 and the kernels that take most of it, each ``raocp.*`` span's self time
 and the card's idle time by the span open in it, the host's reads a step,
 and the Solver's power iteration (its count and seconds at the Solver's
-own tolerance). ``--loop host`` traces the host loop instead of the solve's
-own (CUDA graphs of its check periods; for the accelerated loops, whose
-branches are conditional nodes of the graphs, the loops that take their
-branches on the host). It needs a card.
+own tolerance). It needs a card.
 """
 
 import argparse
-import contextlib
 import heapq
 import json
 import os
@@ -227,8 +223,7 @@ def summarize_trace(events: list, steps: int, top: int = 8) -> dict:
         idle_ms_per_step_by_span=per_step(_idle_by_span(gaps, spans)))
 
 
-def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
-                  **options) -> dict:
+def profile_solve(solver: Solver, x0, steps: int, **options) -> dict:
     """``steps`` CP steps of ``solver`` from ``x0`` (tolerance 1e-12, so
     every step runs; a multiple of the check period, so that the device
     loop runs no eager tail) under ``solve(profile_dir=...)``, after one
@@ -236,46 +231,34 @@ def profile_solve(solver: Solver, x0, steps: int, loop: str = "graph",
     solve of the same steps (K1's packing, the allocator's warm-up, the
     graphs' capture): the trace's :func:`summarize_trace`, beside the
     traced solve's K1 launches, ``prox_f`` calls and the device loop's
-    replays and host reads. ``loop`` is ``"graph"`` (the solve's own
-    loop: CUDA graphs of its check periods) or ``"host"`` (the host loop,
-    ``solver._host_loop()``)."""
+    replays and host reads."""
     if solver.stacked.device.type != "cuda":
         raise RuntimeError("the step's profile reads the card's trace; the "
                            "solver is not on a card")
-    if loop not in ("graph", "host"):
-        raise ValueError(f"unknown loop '{loop}' (graph or host)")
     # the loop's cap runs unroll * ceil((max_iters + 2 - unroll) / unroll)
     # steps: exactly ``steps`` (whole check periods, no eager tail, where
     # they divide it)
     unroll = options.get("unroll", 1)
     opts = dict(max_iters=steps + unroll - 2, tol=1e-12, **options)
-    scope = solver_mod._host_loop if loop == "host" \
-        else contextlib.nullcontext
     # an accelerated solve's loop counts its iterations and host reads in
-    # accel.LOOP_COUNTS (every host read of both of its loops in
-    # accel.HOST_READS)
+    # accel.LOOP_COUNTS
     counts, steps_key = ((accel.LOOP_COUNTS, "iterations")
                          if options.get("accel") else
                          (solver_mod.LOOP_COUNTS, "steps"))
-    with scope():
-        solver.solve(x0, **opts)
-        before = dict(counts)
-        reads = accel.HOST_READS
-        with tempfile.TemporaryDirectory() as folder, \
-                counted_calls() as calls:
-            res = solver.solve(x0, profile_dir=folder, **opts)
-            events = trace_events(os.path.join(folder, "trace.json"))
+    solver.solve(x0, **opts)
+    before = dict(counts)
+    with tempfile.TemporaryDirectory() as folder, counted_calls() as calls:
+        res = solver.solve(x0, profile_dir=folder, **opts)
+        events = trace_events(os.path.join(folder, "trace.json"))
     ran = {k: counts[k] - before[k]
            for k in ("replays", "host_reads", steps_key)}
-    if options.get("accel"):
-        ran["host_reads"] = accel.HOST_READS - reads
     return dict(summarize_trace(events, res.num_iters),
                 nodes=solver.stacked.num_nodes,
                 dtype=str(solver.stacked.dtype),
                 device=str(solver.stacked.device),
                 k1_path=sweep_eligible(solver.stacked),
                 k1_launches=calls["k1"], prox_f_calls=calls["prox_f"],
-                loop=loop, graph_replays=ran["replays"],
+                graph_replays=ran["replays"],
                 device_loop_steps=ran[steps_key],
                 host_reads_per_step=ran["host_reads"] / res.num_iters,
                 options=options)
@@ -312,9 +295,9 @@ PROFILES = {
 
 
 def run_profile(name: str = "headline", steps: int = 100,
-                device="cuda", loop: str = "graph") -> dict:
-    """The step profile of ``PROFILES[name]`` on ``device`` (a card),
-    through ``loop`` (:func:`profile_solve`)."""
+                device="cuda") -> dict:
+    """The step profile of ``PROFILES[name]`` on ``device`` (a card)
+    (:func:`profile_solve`)."""
     make, options = PROFILES[name]
     solver, x0 = make(device)
     sync(device)
@@ -324,17 +307,15 @@ def run_profile(name: str = "headline", steps: int = 100,
     power_s = time.perf_counter() - tic
     return dict(profile=name, power_iterations=solver.power_iterations,
                 power_seconds=power_s,
-                **profile_solve(solver, x0, steps, loop, **options))
+                **profile_solve(solver, x0, steps, **options))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--config", choices=sorted(PROFILES), default="headline")
-    ap.add_argument("--loop", choices=("graph", "host"), default="graph")
     args = ap.parse_args(argv)
-    print(json.dumps(run_profile(args.config, args.steps, loop=args.loop)),
-          flush=True)
+    print(json.dumps(run_profile(args.config, args.steps)), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,10 @@
 
 Parity: reference ``raocp/core/solver.py:12`` (``Solver.chock``). As the
 JAX package's jitted ``while_loop`` does, the loop keeps its state on the
-device and runs a check period at a time (:func:`_device_loop`): on a card
-each period is a replay of a captured CUDA graph and the host reads one
-flag a period; on the CPU the same period runs eagerly. Like the JAX
+device and runs a check period at a time (:func:`_device_loop`), and the
+host reads one flag a period. A single device on a card replays each
+period as a captured CUDA graph; anything else runs the same periods
+eagerly (:func:`raocp_tpu_torch.ops.cond.captures`). Like the JAX
 package it carries L z and L'eta between iterations, so a step costs two
 operator applies, plus one for the xi_0 residual at a check. Chunked
 solves (:func:`_chunked_loop`), batch solves (:func:`_run_cp_batch`: B
@@ -14,13 +15,11 @@ the accelerated loops (:mod:`raocp_tpu_torch.accel`) and the reporting
 helpers (``validate``, plots, pgfplots exports) keep the JAX package's
 semantics; the accelerated loops and the power iteration keep their state
 on the device too (:mod:`raocp_tpu_torch.accel`, :func:`_power_iteration`).
-Under a ``mesh`` the loop runs SPMD over ``torch.distributed``,
+Under a ``mesh`` the same loops run SPMD over ``torch.distributed``,
 one process a rank, on the replicated-spine subtree partition
 (:mod:`raocp_tpu_torch.parallel.subtree`) or the flat node partition
-(:mod:`raocp_tpu_torch.parallel.flat`), whose collectives are staged on the
-host: they run the host loops (:func:`_run_cp_host`,
-:func:`_power_iteration_host`, the accelerated host loops), which read the
-device at every check.
+(:mod:`raocp_tpu_torch.parallel.flat`), eagerly: their collectives are
+staged on the host.
 """
 
 import contextlib
@@ -165,33 +164,13 @@ def _power_start(sp: StackedProblem):
     return _normalise(z, torch.sqrt(_sp_primal_dot(sp, z, z)))
 
 
-def _power_iteration_host(sp: StackedProblem, max_iters: int = 10000,
-                          rel_tol: float = 1e-12):
-    """:func:`_power_iteration` with its test on the host: one read of the
-    Rayleigh quotient an iteration. The partitions' loop (their inner
-    products are gloo all-reduces; the test reads an all-reduced value, the
-    same on every rank), and the loop inside :func:`_host_loop`."""
-    z = _power_start(sp)
-    lam, lam_prev = 0.0, -1.0
-    k = 0
-    while (k < 2 or abs(lam - lam_prev) > rel_tol * abs(lam)) \
-            and k < max_iters:
-        w = ell_t(sp, ell(sp, z))
-        # Rayleigh quotient
-        lam_prev, lam = lam, float(_sp_primal_dot(sp, z, w))
-        POWER_COUNTS["host_reads"] += 1
-        z = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
-        k += 1
-    POWER_COUNTS["iterations"] += k
-    return lam, k
-
-
-# The power iteration's device loop: iterations a period (enqueued eagerly,
-# none ahead of the flag read: a period past convergence would cost a
-# period of masked iterations); its counts since import (periods, host
-# reads, iterations), as LOOP_COUNTS. A period replayed as a CUDA graph
-# was slower on an H100 at 9,841, 88,573 and 797,161 nodes: the capture
-# costs more than 24-odd iterations' replays save (PERF.md).
+# The power iteration's device loop: iterations a period on one device
+# (enqueued eagerly, none ahead of the flag read: a period past
+# convergence would cost a period of masked iterations); its counts since
+# import (periods, host reads, iterations), as LOOP_COUNTS. A period
+# replayed as a CUDA graph was slower on an H100 at 9,841, 88,573 and
+# 797,161 nodes: the capture costs more than 24-odd iterations' replays
+# save (PERF.md).
 POWER_PERIOD = 4
 POWER_COUNTS = dict(periods=0, host_reads=0, iterations=0)
 
@@ -202,24 +181,24 @@ def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
     ``solver.py:135``), from :func:`_power_start`. Returns (lambda as
     float, iterations).
 
-    The loop keeps lambda (in float64, as the host loop's Python float),
-    the count and the running flag on the device, ``POWER_PERIOD``
-    iterations a period (:class:`~raocp_tpu_torch.ops.cond.Periods`),
-    each period enqueued eagerly: the host reads one flag a period and
-    lambda with the count at the end. An iteration past convergence is
-    masked (``torch.where``): it moves neither z, lambda nor the count, so
-    both give the host loop's lambda and count bit for bit. The partitions
-    and :func:`_host_loop` run :func:`_power_iteration_host`."""
-    if sp.spmd_group is not None or _HOST_LOOP:
-        return _power_iteration_host(sp, max_iters, rel_tol)
+    The loop keeps lambda (in float64), the count and the running flag on
+    the device, ``POWER_PERIOD`` iterations a period
+    (:class:`~raocp_tpu_torch.ops.cond.Periods`), each period enqueued
+    eagerly: the host reads one flag a period and lambda with the count at
+    the end. An iteration past convergence is masked (``torch.where``): it
+    moves neither z, lambda nor the count, so the length of a period
+    changes neither. A partition's period is one iteration: its
+    inner products are all-reduces that read the host anyway, and a
+    masked iteration would still run them."""
     dev = sp.device
+    per = POWER_PERIOD if sp.spmd_group is None else 1
     z = _power_start(sp)
     lam = torch.zeros((), dtype=torch.float64, device=dev)
     k = torch.zeros((), dtype=torch.int64, device=dev)
     running = torch.full((), max_iters > 0, device=dev)
 
     def period():
-        for _ in range(POWER_PERIOD):
+        for _ in range(per):
             w = ell_t(sp, ell(sp, z))
             lam_new = _sp_primal_dot(sp, z, w).double()  # Rayleigh quotient
             z_new = _normalise(w, torch.sqrt(_sp_primal_dot(sp, w, w)))
@@ -236,7 +215,7 @@ def _power_iteration(sp: StackedProblem, max_iters: int = 10000,
     with (torch.cuda.device(dev) if dev.type == "cuda"
           else contextlib.nullcontext()):
         periods = cond.Periods(dev, period, running, False, POWER_COUNTS)
-        periods.run(max(1, -(-max_iters // POWER_PERIOD)), 0)
+        periods.run(max(1, -(-max_iters // per)), 0)
         out = torch.stack([lam, k.double()]).cpu().numpy()
     POWER_COUNTS["host_reads"] += 1
     POWER_COUNTS["iterations"] += int(out[1])
@@ -343,10 +322,9 @@ def _log_residuals(k, err):
 # What the solver module ran: its loops, and the Solver's construction
 # phases; summed since import (read deltas around a run, as for
 # ``ops.sweep.LAUNCHES``). ``host_reads`` counts the host's reads of the
-# device inside a loop: a check's residuals in the host loops, a period's
-# flag (and a logged period's rows) in the device loop. Then the device
-# loop's: periods (eager or replayed), of them graph replays; captures and
-# their seconds (the eager first period and both graphs); CP steps run on
+# device inside a loop: a period's flag (and a logged period's rows). Then
+# the loop's periods (eager or replayed), of them graph replays; captures
+# and their seconds (the eager first period and both graphs); CP steps run on
 # the device, and of them those run past convergence (the period enqueued
 # ahead of the flag that stopped the loop) and those that replays ran. A
 # replayed step is a prox_f call that Python made once, at capture
@@ -370,184 +348,18 @@ LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    timed_periods=0, dual_launches=0)
 
 
-def _run_cp_host(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
-                 max_iters: int, check_every: int = 1, unroll: int = 1,
-                 adaptive: bool = False, relax: float = 1.0,
-                 log_every: Optional[int] = None, k0: int = 0):
-    """The CP loop driven from the host, step by step, with the JAX
-    package's semantics: the loop of the partitions, whose collectives are
-    staged on the host (:func:`_run_cp` runs the single device's). Returns
-    (z, eta, iters, final errors as NumPy [3], history NumPy [iters, 6]).
-
-    ``log_every=j`` prints the last checked residuals after every step
-    whose loop index is a multiple of j (JAX ``solver.py:442``), with the
-    index offset by ``k0`` (the iterations of earlier chunks); it reads
-    nothing from the device beyond the checks. Under the subtree partition
-    the residuals are all-reduced, the same on every rank, and only rank 0
-    prints.
-
-    ``check_every=k`` evaluates the residuals (and the stopping test) only
-    at every k-th iteration; unchecked history rows are NaN (all rows are
-    written when k = 1). ``unroll=u`` is the number of steps per loop trip:
-    the stopping test runs after each trip, so the iteration cap is
-    ``k + u < max_iters + 2`` as in the JAX loop (u must divide
-    check_every, or be 1). ``adaptive`` rebalances alpha1/alpha2 at each
-    check keeping their product; ``relax=rho`` over-relaxes each step after
-    the residual evaluation (Condat). The host reads the device only at a
-    check.
-    """
-    if unroll > 1 and check_every % unroll != 0:
-        raise ValueError("unroll must divide check_every")
-    dt, dev = sp.dtype, sp.device
-    z, eta = Primal(*z0), Dual(*eta0)
-    Lz = ell(sp, z)
-    Lt = ell_t(sp, eta)
-    shift = half_shift_dual(sp)
-    a1 = torch.as_tensor(alpha1, dtype=dt, device=dev)
-    a2 = torch.as_tensor(alpha2, dtype=dt, device=dev)
-    phi = torch.as_tensor(_ADAPT_PHI, dtype=dt, device=dev)
-    hist = np.full((max_iters + unroll, 6),
-                   0.0 if check_every == 1 else np.nan)
-    err_np = np.full(3, np.inf)
-    if sp.spmd_group is not None and dist.get_rank(sp.spmd_group) != 0:
-        log_every = None
-    k = 0
-    while k == 0 or (err_np.max() > tol and k + unroll < max_iters + 2):
-        for i in range(unroll):
-            zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, a1, a2, x0,
-                                        shift)
-            if check_every == 1 or (k + i + 1) % check_every == 0:
-                err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt,
-                                          Ltn, a1, a2)
-                if adaptive:
-                    a1, a2, phi = _rebalance(a1, a2, phi, err)
-                row = torch.cat([err, derr]).cpu().numpy()   # the one sync
-                LOOP_COUNTS["host_reads"] += 1
-                hist[k + i] = row
-                err_np = row[:3]
-            if log_every is not None and (k + i) % log_every == 0:
-                _log_residuals(k0 + k + i, err_np)
-            if relax != 1.0:
-                # over-relaxation after the residual evaluation; the carried
-                # operator images relax linearly
-                z, eta, Lz, Lt = (
-                    type(cur)(*(c + relax * (p - c) for c, p in zip(cur, nw)))
-                    for cur, nw in ((z, zn), (eta, en), (Lz, Lzn), (Lt, Ltn)))
-            else:
-                z, eta, Lz, Lt = zn, en, Lzn, Ltn
-        k += unroll
-    return z, eta, k, err_np, hist[:k]
-
-
-def _running_lanes(keep, new, old):
-    """``new`` on the lanes that ``keep`` ([B] bool, or None for all) marks
-    running, ``old`` on the others, leaf by leaf."""
-    if keep is None:
-        return new
-    kept = [torch.where(lane_view(keep, o), nw, o) for nw, o in zip(new, old)]
-    return type(old)(*kept) if isinstance(old, (Primal, Dual)) \
-        else tuple(kept)
-
-
-def _run_cp_batch_host(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2,
-                       tol, max_iters: int, check_every: int = 1,
-                       unroll: int = 1, adaptive: bool = False,
-                       relax: float = 1.0):
-    """The CP loop of :func:`_run_cp_host` for B lanes at once (the JAX
-    package's ``jax.vmap`` of its loop): the iterates carry a leading lane
-    axis, x0s is [B, n], and every step of every operator is one call for
-    all lanes. Returns (z, eta, iters [B], final errors [B, 3], history
-    [B, max_iters + unroll, 6]).
-
-    Each lane keeps the semantics of its own solve. Its loop condition
-    (``k == 0`` or its last checked residual above ``tol`` and ``k +
-    unroll < max_iters + 2``) is read on the host after every trip, from
-    the one sync a check makes ([B, 6]); once it is false the lane keeps
-    its carry through ``torch.where`` (its steps, with ``adaptive``, too),
-    writes no more history and stops counting, and the loop ends when no
-    lane runs. Lanes are never taken out of the batch: the shapes, and so
-    every lane's arithmetic, stay those of the first step.
-    """
-    if unroll > 1 and check_every % unroll != 0:
-        raise ValueError("unroll must divide check_every")
-    dt, dev = sp.dtype, sp.device
-    lanes = x0s.shape[0]
-    z, eta = Primal(*z0), Dual(*eta0)
-    Lz = ell(sp, z)
-    Lt = ell_t(sp, eta)
-    shift = half_shift_dual(sp)
-    # one step size for all lanes, unless a rebalance gives each its own
-    steps = (lanes,) if adaptive else ()
-    a1 = torch.full(steps, alpha1, dtype=dt, device=dev)
-    a2 = torch.full(steps, alpha2, dtype=dt, device=dev)
-    phi = torch.full(steps, _ADAPT_PHI, dtype=dt, device=dev)
-    hist = np.full((lanes, max_iters + unroll, 6),
-                   0.0 if check_every == 1 else np.nan)
-    err_np = np.full((lanes, 3), np.inf)
-    iters = np.zeros(lanes, dtype=np.int64)
-    running = np.ones(lanes, dtype=bool)
-    k = 0
-    while running.any():
-        keep = None if running.all() else torch.as_tensor(running, device=dev)
-        for i in range(unroll):
-            zn, en, Lzn, Ltn = _cp_step(sp, z, eta, Lz, Lt, a1, a2, x0s,
-                                        shift)
-            if check_every == 1 or (k + i + 1) % check_every == 0:
-                err, derr = _cp_residuals(sp, z, zn, eta, en, Lz, Lzn, Lt,
-                                          Ltn, a1, a2)
-                if adaptive:
-                    a1, a2, phi = _running_lanes(
-                        keep, _rebalance(a1, a2, phi, err), (a1, a2, phi))
-                rows = torch.cat([err, derr], dim=1).cpu().numpy()  # sync
-                LOOP_COUNTS["host_reads"] += 1
-                hist[running, k + i] = rows[running]
-                err_np[running] = rows[running, :3]
-            if relax != 1.0:
-                new = [type(cur)(*(c + relax * (p - c)
-                                   for c, p in zip(cur, nw)))
-                       for cur, nw in ((z, zn), (eta, en), (Lz, Lzn),
-                                       (Lt, Ltn))]
-            else:
-                new = (zn, en, Lzn, Ltn)
-            z, eta, Lz, Lt = (_running_lanes(keep, nw, cur) for nw, cur
-                              in zip(new, (z, eta, Lz, Lt)))
-        k += unroll
-        iters[running] = k
-        running &= (err_np.max(axis=1) > tol) & (k + unroll < max_iters + 2)
-    return z, eta, iters, err_np, hist
-
-
 # -- the device-resident loop (JAX: _run_cp's jitted while_loop) -----------
 
-# set only inside _host_loop()
-_HOST_LOOP = False
-# the loop of each problem on a card: id(sp) -> (key, _DeviceLoop)
+# the loop of each problem that captures: id(sp) -> (key, _DeviceLoop)
 _LOOPS = {}
 
 
-@contextlib.contextmanager
-def _host_loop():
-    """Within the block :func:`_run_cp` and :func:`_run_cp_batch` run the
-    host loops (:func:`_run_cp_host`, :func:`_run_cp_batch_host`), and so
-    do :func:`_power_iteration` and the accelerated loops
-    (``accel._run_cp_anderson_host``, ``accel._run_cp_supermann_host``):
-    the switch of an A/B of the two loops (``chip_smoke.py``'s
-    ``loop_graph`` and ``accel_loop``, ``scripts/bench_sweep.py``,
-    ``scripts/bench_accel.py``). The previous state returns on exit, also
-    on an exception."""
-    global _HOST_LOOP
-    saved = _HOST_LOOP
-    _HOST_LOOP = True
-    try:
-        yield
-    finally:
-        _HOST_LOOP = saved
-
-
-def _lookahead(device: torch.device) -> int:
-    """Periods enqueued ahead of the flag the host reads: one on a card (it
-    never waits for the host), none on the CPU (nothing runs ahead)."""
-    return 1 if device.type == "cuda" else 0
+def _lookahead(sp) -> int:
+    """Periods enqueued ahead of the flag the host reads: one where the
+    loop captures (the card never waits for the host), none elsewhere
+    (nothing runs ahead, and a partition runs no collective past the
+    loop's end)."""
+    return 1 if cond.captures(sp) else 0
 
 
 def _trip_cap(max_iters: int, unroll: int) -> int:
@@ -603,14 +415,12 @@ def _period(sp: StackedProblem, src: _Carry, dst: _Carry, steps: int,
     at the device's count (``index_copy_``). ``relax`` over-relaxes each
     step after its residuals. ``running`` then
     takes the loop's condition: the last checked residual above ``tol``
-    (compared in float64, as on the host) and k + unroll < max_iters + 2
-    (k < ``limit``).
+    (compared in float64) and k + unroll < max_iters + 2 (k < ``limit``).
 
     In a batch (``src.iters`` set) the lanes that ``src.running`` marks
     move; the others keep their carry, rows, count and flag. The mask is
     constant over a period and the lanes' arithmetic is independent, so
-    one :func:`_store` at its end gives the host loop's per-step masking
-    (:func:`_running_lanes`)."""
+    one :func:`_store` at its end masks every step of the period."""
     keep = src.running if src.iters is not None else None
     z, eta, Lz, Lt = src.z, src.eta, src.Lz, src.Lt
     a1, a2, phi, err, derr = src.a1, src.a2, src.phi, src.err, src.derr
@@ -651,7 +461,8 @@ class _DeviceLoop:
     """The device loop's buffers for one problem and one shape of period:
     two carries that periods alternate between (0 -> 1, then 1 -> 0, so a
     period run past convergence never overwrites the converged one), the
-    history, x0, tol and the cap; on a card the two CUDA graphs of a
+    history, x0, tol and the cap; where the loop captures
+    (:func:`~raocp_tpu_torch.ops.cond.captures`) the two CUDA graphs of a
     period, captured at first use; the flags the host reads
     (:class:`~raocp_tpu_torch.ops.cond.Flags`)."""
 
@@ -687,7 +498,8 @@ class _DeviceLoop:
         self.graphs = None
         self.k1_per_period = 0
         self.dual_per_period = 0
-        self.flags = cond.Flags(dev, LOOP_COUNTS, lead, marked=True)
+        self.flags = cond.Flags(dev, LOOP_COUNTS, lead,
+                                marked=cond.captures(sp))
 
     def load(self, z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol, limit,
              rows, fill):
@@ -755,11 +567,11 @@ class _DeviceLoop:
 
     def launch(self, sp, n: int):
         """Period ``n`` (from carry n % 2): a graph replay (the span
-        ``raocp.loop.launch``), or on the first use of a card's loop its
-        capture; eagerly on the CPU. Then its flag."""
+        ``raocp.loop.launch``), or on the first use of a loop that captures
+        its capture; eagerly elsewhere. Then its flag."""
         parity = n % 2
         replay = self.graphs is not None
-        if sp.device.type != "cuda":
+        if not cond.captures(sp):
             self.run_period(sp, parity)
         elif not replay:
             self.capture(sp)            # period 0 runs eagerly in it
@@ -785,16 +597,16 @@ class _DeviceLoop:
 
 def _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive, relax,
               rows) -> _DeviceLoop:
-    """The problem's device loop for this shape of period: on a card the
-    cached one (one a problem, kept while the key holds, so a solver's
-    later solves, chunks and closed-loop steps replay its graphs), else a
-    new one. The key is what changes the captured program: the lanes, the
-    period, ``adaptive``, ``relax``, the dynamics projection's
+    """The problem's device loop for this shape of period: where the loop
+    captures, the cached one (one a problem, kept while the key holds, so a
+    solver's later solves, chunks and closed-loop steps replay its graphs),
+    else a new one. The key is what changes the captured program: the
+    lanes, the period, ``adaptive``, ``relax``, the dynamics projection's
     dispatch (K1, the stage path, or a patched sweep), the dual update
     (the kernel, or a patched one) and the history's capacity (a power of
     two, at least 1,024 rows)."""
     capacity = max(1024, 1 << (rows - 1).bit_length())
-    if sp.device.type != "cuda":
+    if not cond.captures(sp):
         return _DeviceLoop(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
                            relax, rows)
     key = (lanes, steps, adaptive, relax, sweep_mod.sweep_eligible(sp),
@@ -818,9 +630,9 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
     ``while_loop``): a period is ``check_every`` steps, its last a check
     (``unroll`` divides it, or is 1 at ``check_every=1``), so the tolerance
     can stop the loop only at a period's end, and the host reads one flag
-    a period. On a card each
+    a period. Where the loop captures (a single device on a card) each
     period is a replay of a captured CUDA graph, the next one enqueued
-    before the host reads the last one's flag; on the CPU it runs eagerly.
+    before the host reads the last one's flag; elsewhere it runs eagerly.
     The cap is known to the host: full periods up to it, then the tail's
     steps (no check falls in them) eagerly. Returns (the final carry, the
     steps taken, the loop)."""
@@ -840,6 +652,8 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
         loop.load(z0, eta0, Lz0, Lt0, x0, alpha1, alpha2, tol,
                   max_iters + 2 - unroll, rows, fill)
         logged = [np.full(3, np.inf)]
+        if sp.spmd_group is not None and dist.get_rank(sp.spmd_group) != 0:
+            log_every = None        # a partition's lines: rank 0's alone
 
         def log(n):
             if log_every is not None:
@@ -849,7 +663,7 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
         with cond.span("raocp.loop.drive", LOOP_COUNTS, "drive_seconds"):
             done, launched, stopped = cond.drive(
                 lambda n: loop.launch(sp, n), loop.flag, full,
-                _lookahead(sp.device), log)
+                _lookahead(sp), log)
         LOOP_COUNTS["wasted_steps"] += steps * (launched - done)
         err_np = logged[0]
         k = done * steps
@@ -867,7 +681,7 @@ def _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol, max_iters,
 
 def _log_period(hist, start, steps, checked, log_every, k0, err_np):
     """``log_every``'s lines of the steps [start, start + steps), in the
-    host loop's order: each step's index with the last residuals checked at
+    JAX loop's order: each step's index with the last residuals checked at
     or before it. Reads the check's row of a ``checked`` period; returns
     the last checked residuals."""
     for j in range(start, start + steps):
@@ -884,14 +698,14 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
             adaptive: bool = False, relax: float = 1.0,
             log_every: Optional[int] = None, k0: int = 0):
     """The CP loop with the JAX package's semantics, its state on the
-    device (:func:`_device_loop`). Returns (z, eta, iters, final errors as
-    NumPy [3], history NumPy [iters, 6]): the same iterates, count and
-    history rows as :func:`_run_cp_host`, bit for bit.
+    device (:func:`_device_loop`), on one device or on a partition's
+    blocks. Returns (z, eta, iters, final errors as NumPy [3], history
+    NumPy [iters, 6]).
 
     ``log_every=j`` prints the last checked residuals after every step
     whose loop index is a multiple of j (JAX ``solver.py:442``), with the
-    index offset by ``k0`` (the iterations of earlier chunks): the host
-    loop's lines in its order, printed as each period's flag is read.
+    index offset by ``k0`` (the iterations of earlier chunks), printed as
+    each period's flag is read; on a partition rank 0 alone prints.
 
     ``check_every=k`` evaluates the residuals (and the stopping test) only
     at every k-th iteration; unchecked history rows are NaN (all rows are
@@ -902,20 +716,14 @@ def _run_cp(sp: StackedProblem, z0, eta0, x0, alpha1, alpha2, tol,
     their product; ``relax=rho`` over-relaxes each step after the residual
     evaluation (Condat).
 
-    On a card the loop captures its periods as CUDA graphs (cached per
-    problem) and a capture or replay that fails raises; nothing reruns on
-    the host. Inside :func:`_host_loop` it is :func:`_run_cp_host`."""
-    if _HOST_LOOP:
-        return _run_cp_host(sp, z0, eta0, x0, alpha1, alpha2, tol,
-                            max_iters, check_every, unroll, adaptive, relax,
-                            log_every, k0)
-    if sp.spmd_group is not None:
-        raise ValueError("a partition's collectives are staged on the "
-                         "host: its loop is _run_cp_host")
+    A single device on a card captures its periods as CUDA graphs (cached
+    per problem), and a capture or replay that fails raises; nothing reruns
+    eagerly. A partition, whose collectives are staged on the host, runs
+    the same periods eagerly, as the CPU does."""
     final, k, loop = _device_loop(sp, z0, eta0, x0, alpha1, alpha2, tol,
                                   max_iters, check_every, unroll, adaptive,
                                   relax, log_every, k0)
-    cached = sp.device.type == "cuda"
+    cached = cond.captures(sp)
     z = Primal(*(v.clone() if cached else v for v in final.z))
     eta = Dual(*(v.clone() if cached else v for v in final.eta))
     hist = loop.hist[:k].cpu().numpy().astype(np.float64)
@@ -932,23 +740,14 @@ def _run_cp_batch(sp: StackedProblem, z0, eta0, x0s, alpha1, alpha2, tol,
     all lanes. Returns (z, eta, iters [B], final errors [B, 3], history
     [B, max_iters + unroll, 6]).
 
-    Each lane keeps the semantics of its own solve, as in
-    :func:`_run_cp_batch_host`: once its loop condition is false it keeps
-    its carry, writes no more history and stops counting; the loop ends
-    when no lane runs, which the host reads as one [B] flag a period.
-    Lanes are never taken out of the batch. Inside :func:`_host_loop` it is
-    :func:`_run_cp_batch_host`."""
-    if _HOST_LOOP:
-        return _run_cp_batch_host(sp, z0, eta0, x0s, alpha1, alpha2, tol,
-                                  max_iters, check_every, unroll, adaptive,
-                                  relax)
-    if sp.spmd_group is not None:
-        raise ValueError("a partition's collectives are staged on the "
-                         "host: its loop is _run_cp_batch_host")
+    Each lane keeps the semantics of its own solve: once its loop
+    condition is false it keeps its carry, writes no more history and
+    stops counting; the loop ends when no lane runs, which the host reads
+    as one [B] flag a period. Lanes are never taken out of the batch."""
     final, _, loop = _device_loop(sp, z0, eta0, x0s, alpha1, alpha2, tol,
                                   max_iters, check_every, unroll, adaptive,
                                   relax, lanes=x0s.shape[0])
-    cached = sp.device.type == "cuda"
+    cached = cond.captures(sp)
     z = Primal(*(v.clone() if cached else v for v in final.z))
     eta = Dual(*(v.clone() if cached else v for v in final.eta))
     hist = loop.hist[:, :max_iters + unroll].cpu().numpy()
@@ -1243,17 +1042,13 @@ class Solver:
             ``"supermann"`` (aliases ``"broyden"``, ``"lbfgs"``); see
             :mod:`raocp_tpu_torch.accel`. Accelerated solves step with
             ``alpha`` itself and ignore ``step_ratio``, ``adaptive``,
-            ``relax``, ``unroll`` and ``chunk_iters``. On one device their
-            loops keep state and branches on the device (on a card a check
-            period is one CUDA graph replay whose branches are conditional
-            nodes, and the host reads one flag a period); on the flat
-            partition, whose sums are gloo all-reduces, and inside
-            :func:`_host_loop` they take their branches on the host.
-
-        The plain loop runs on the device as well (:func:`_run_cp`), and
-        so does the power iteration that sets the default ``alpha``
-        (:func:`_power_iteration`, once a Solver); a partition runs their
-        host loops.
+            ``relax``, ``unroll`` and ``chunk_iters``. Their loops keep
+            state and branches on the device, as the plain loop
+            (:func:`_run_cp`) and the power iteration that sets the default
+            ``alpha`` (:func:`_power_iteration`, once a Solver) do: a single
+            device on a card replays a check period as one CUDA graph
+            (branches as conditional nodes) and reads one flag a period;
+            anything else runs the same periods eagerly.
         :param accel_memory: Anderson / Broyden history depth
         :param check_every: evaluate the residuals every k-th iteration
         :param unroll: CP steps per loop trip (must divide check_every)
@@ -1310,12 +1105,11 @@ class Solver:
         else:
             z0 = conv(warm_start[0], Primal)
             eta0 = conv(warm_start[1], Dual)
+        run_cp = functools.partial(_run_cp, sp)
         if stp is None:
-            run_cp = functools.partial(_run_cp, sp)
             write_checkpoint = _write_iterate_npz
             trace = "trace.json"
         else:
-            run_cp = stp.run_cp
             write_checkpoint = functools.partial(_write_global_checkpoint,
                                                  stp)
             trace = f"trace.rank{stp.rank}.json"
@@ -1418,10 +1212,7 @@ class Solver:
         if sp.device.type == "cuda":
             torch.cuda.synchronize(sp.device)
         tic = time.perf_counter()
-        # the flat partition's collectives are staged on the host: its
-        # batch runs the host loop
-        run = _run_cp_batch if flat is None else _run_cp_batch_host
-        z, eta, iters, err, hist = run(
+        z, eta, iters, err, hist = _run_cp_batch(
             sp, z0, eta0, x0s, alpha * step_ratio, alpha / step_ratio, tol,
             max_iters, check_every, unroll, adaptive, relax)
         if sp.device.type == "cuda":

@@ -26,7 +26,6 @@ import raocp_tpu.models as jax_models  # noqa: E402
 import raocp_tpu_torch as rt  # noqa: E402
 import raocp_tpu_torch.accel as port_accel  # noqa: E402
 import raocp_tpu_torch.models as port_models  # noqa: E402
-from raocp_tpu_torch import solver as solver_mod  # noqa: E402
 
 CAPS = {"anderson": 60, "supermann": 100}
 
@@ -108,22 +107,12 @@ def test_accelerated_solve_converges(demo_pair, accel):
 
 def test_accel_aliases_and_host_reads(demo_pair):
     """"broyden" and "lbfgs" are SuperMann; every host read is counted:
-    the host loop's (``solver._host_loop()``) at least two an iteration,
-    the device loop's one a period of 16 iterations and two at the end."""
+    the loop's, one a period of 16 iterations and two at the end."""
     _, psolver, alpha, x0 = demo_pair
-    with solver_mod._host_loop():
-        before = port_accel.HOST_READS
-        host = psolver.solve(x0, max_iters=40, tol=1e-3, accel="supermann",
-                             alpha=alpha)
-        reads = port_accel.HOST_READS - before
-    # one residual-norm read per iteration plus the check reads, at least
-    assert reads >= 2 * host.num_iters
-    before = port_accel.HOST_READS
+    before = port_accel.LOOP_COUNTS["host_reads"]
     ref = psolver.solve(x0, max_iters=40, tol=1e-3, accel="supermann",
                         alpha=alpha)
-    reads = port_accel.HOST_READS - before
-    assert ref.num_iters == host.num_iters
-    np.testing.assert_array_equal(ref.xi_history, host.xi_history)
+    reads = port_accel.LOOP_COUNTS["host_reads"] - before
     assert reads <= -(-ref.num_iters // port_accel.PERIOD_CHECK_EVERY_1) + 2
     for alias in ("broyden", "lbfgs"):
         res = psolver.solve(x0, max_iters=40, tol=1e-3, accel=alias,

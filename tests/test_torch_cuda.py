@@ -1,7 +1,8 @@
 """K1 on the card: the CUDA sweep kernel against its plain torch version,
 unbatched and batched (B lanes in one launch set), and against the torch
-stage path; the roofline's rows at the headline; the CP loop's CUDA graphs
-against the host loop; the subtree partition on two gloo ranks that
+stage path; the roofline's rows at the headline; the loops' CUDA graphs
+against the same loops run eagerly; the subtree partition on two gloo ranks
+that
 share the card; and the dual-update kernel against its plain twin (the
 cases of ``tests/test_torch_dual.py``), in a captured graph, in the loop
 and through a solve of the headline.
@@ -332,8 +333,10 @@ def test_partitioned_demo_on_the_card(cuda, tmp_path):
         x0, max_iters=200, tol=1e-3)
     (res, arrays), (res1, arrays1) = ranks
     assert res["cuda_demo"]["device"].startswith("cuda")
-    # the partition's collectives are staged on the host: its host loop
-    assert res["cuda_demo"]["device_loop_periods"] == 0
+    # the partition's collectives are staged on the host: its periods run
+    # eagerly, none captured or replayed
+    loop = res["cuda_demo"]["device_loop"]
+    assert loop["captures"] == loop["replays"] == 0 < loop["periods"]
     assert res["cuda_demo"]["iters"] == single.num_iters == 201
     assert res["cuda_demo"]["alpha"] == pytest.approx(single.alpha,
                                                       rel=1e-10)
@@ -358,18 +361,32 @@ def _loop_start(sp, x0):
     return z0, sp.zero_dual(), x0t
 
 
-def _graph_and_host(sp, x0, alpha, **opts):
-    """``solver._run_cp`` (the graph loop) and the same under
-    ``_host_loop()``, each with the counts of what it ran."""
+@contextlib.contextmanager
+def _eager():
+    """In the block the loops run their periods eagerly on the card, as a
+    partition's do: the capture predicate patched to false."""
+    from raocp_tpu_torch.ops import cond
+
+    real = cond.captures
+    cond.captures = lambda sp: False
+    try:
+        yield
+    finally:
+        cond.captures = real
+
+
+def _graph_and_eager(sp, x0, alpha, **opts):
+    """``solver._run_cp`` (the graph loop) and the same loop run eagerly,
+    each with the counts of what it ran."""
     from raocp_tpu_torch import solver as solver_mod
     from raocp_tpu_torch.scripts.bench_configs import counted_calls
 
     out = {}
-    for name, scope in (("graph", None), ("host", solver_mod._host_loop)):
+    for name, scope in (("graph", contextlib.nullcontext),
+                        ("eager", _eager)):
         z0, eta0, x0t = _loop_start(sp, x0)
         loop = dict(solver_mod.LOOP_COUNTS)
-        with scope() if scope else contextlib.nullcontext(), \
-                counted_calls() as calls:
+        with scope(), counted_calls() as calls:
             got = solver_mod._run_cp(sp, z0, eta0, x0t, alpha, alpha,
                                      **opts)
             torch.cuda.synchronize()
@@ -381,12 +398,12 @@ def _graph_and_host(sp, x0, alpha, **opts):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["demo_f64", "headline_f32"])
 def test_graph_loop_is_the_host_loop(cuda, case):
-    """The graph loop and the host loop on the card: the same count, the
-    same iterates and history bit for bit (the demo's 937 in float64; 200
-    iterations of the headline in float32 at stride 25); K1 launches equal
-    ``prox_f`` calls equal the steps each ran (the graph loop's include
-    the period run past convergence), and the graph loop read one flag a
-    period."""
+    """The graph loop and the same loop run eagerly on the card: the same
+    count, the same iterates and history bit for bit (the demo's 937 in
+    float64; 200 iterations of the headline in float32 at stride 25); K1
+    launches equal ``prox_f`` calls equal the steps each ran (the graph
+    loop's include the period run past convergence), and both read one
+    flag a period."""
     import raocp_tpu_torch as rt
     from raocp_tpu_torch.models import demo_problem
 
@@ -404,15 +421,16 @@ def test_graph_loop_is_the_host_loop(cuda, case):
     # steps (the loop's cap) are 8 periods of 25 and a tail of one
     steps, flags = (937, 937) if case == "demo_f64" else (201, 8)
     for _ in range(2):                  # the capture, then replays alone
-        out = _graph_and_host(sp, x0, alpha, **opts)
+        out = _graph_and_eager(sp, x0, alpha, **opts)
         (g, g_calls, g_loop), (h, h_calls, h_loop) = out["graph"], \
-            out["host"]
+            out["eager"]
         assert g[2] == h[2] == steps
         for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
             assert torch.equal(a, b)
         np.testing.assert_array_equal(g[3], h[3])
         np.testing.assert_array_equal(g[4], h[4])
-        assert h_loop["periods"] == 0
+        assert h_loop["replays"] == h_loop["captures"] == 0
+        assert h_loop["host_reads"] == flags and h_loop["steps"] == steps
         assert g_loop["replays"] > 0 and g_loop["host_reads"] == flags
         assert g_loop["steps"] == steps + g_loop["wasted_steps"]
         assert g_calls["prox_f"] == g_loop["steps"]
@@ -425,9 +443,9 @@ def test_graph_loop_is_the_host_loop(cuda, case):
 @pytest.mark.cuda
 def test_graph_loop_batch_is_the_host_loop(cuda):
     """``solve_batch`` of the demo's three lanes in float64 on the card:
-    the graph loop's counts, histories and iterates are the host loop's."""
+    the graph loop's counts, histories and iterates are those of the same
+    loop run eagerly."""
     import raocp_tpu_torch as rt
-    from raocp_tpu_torch import solver as solver_mod
     from raocp_tpu_torch.models import demo_problem
 
     problem, x0 = demo_problem()
@@ -436,7 +454,7 @@ def test_graph_loop_batch_is_the_host_loop(cuda):
     x0s = np.stack([x0, 0.5 * x0, -0.3 * x0])
     got = solver.solve_batch(x0s, max_iters=2000, tol=1e-3, check_every=25,
                              adaptive=True)
-    with solver_mod._host_loop():
+    with _eager():
         want = solver.solve_batch(x0s, max_iters=2000, tol=1e-3,
                                   check_every=25, adaptive=True)
     for a, b in zip(got, want):
@@ -453,7 +471,7 @@ def test_graph_loop_marks_its_replays(cuda, monkeypatch):
     replayed periods of 25 steps of the headline in float32, every one's
     flag read, are 80 timed periods; their periods and the gaps between
     them come to within 3% of the span that two events recorded on the
-    stream around the drive measure; and the loop is still the host loop
+    stream around the drive measure; and the loop is still the eager loop
     bit for bit."""
     import raocp_tpu_torch as rt
     from raocp_tpu_torch import solver as solver_mod
@@ -478,16 +496,16 @@ def test_graph_loop_marks_its_replays(cuda, monkeypatch):
         return out
 
     monkeypatch.setattr(cond, "drive", timed_drive)
-    _graph_and_host(sp, x0, alpha, **opts)            # the capture
+    _graph_and_eager(sp, x0, alpha, **opts)           # the capture
     spans.clear()
-    out = _graph_and_host(sp, x0, alpha, **opts)
-    (g, _, loop), (h, _, _) = out["graph"], out["host"]
+    out = _graph_and_eager(sp, x0, alpha, **opts)
+    (g, _, loop), (h, _, _) = out["graph"], out["eager"]
     assert g[2] == h[2] == 2000
     for a, b in zip((*g[0], *g[1]), (*h[0], *h[1])):
         assert torch.equal(a, b)
     np.testing.assert_array_equal(g[4], h[4])
     assert loop["replays"] == loop["timed_periods"] == 80
-    (span,) = spans
+    span, _ = spans                     # the graph loop's drive, the eager's
     marked = loop["period_device_seconds"] + loop["gap_device_seconds"]
     assert marked == pytest.approx(span, rel=0.03)
     assert 0 <= loop["gap_device_seconds"] < loop["period_device_seconds"]
@@ -513,8 +531,8 @@ def test_only_capturing_loops_mark(cuda):
 @pytest.mark.cuda
 def test_capture_unsafe_step_raises(cuda, tmp_path):
     """A host read patched into the CP step makes the capture fail: the
-    solve raises and does not rerun on the host loop. (In a process of its
-    own: a failed capture may leave the card's context unusable.)"""
+    solve raises and does not rerun eagerly. (In a process of its own: a
+    failed capture may leave the card's context unusable.)"""
     import subprocess
     import sys
     import textwrap
@@ -555,19 +573,18 @@ def test_capture_unsafe_step_raises(cuda, tmp_path):
 
 def _accel_runs(sp, x0, alpha, name, **opts):
     """``accel.run_cp_<name>`` through the graph loop (its first call
-    captures: run twice) and the host loop, each with its counts and the
-    bodies it ran (``accel.BODY_RUNS``' growth)."""
+    captures: run twice) and the same loop run eagerly, each with its
+    counts and the bodies it ran (``accel.BODY_RUNS``' growth)."""
     from raocp_tpu_torch import accel
-    from raocp_tpu_torch import solver as solver_mod
     from raocp_tpu_torch.scripts.bench_configs import counted_calls
 
     out = {}
-    for loop, scope in (("capture", None), ("graph", None),
-                        ("host", solver_mod._host_loop)):
+    for loop, scope in (("capture", contextlib.nullcontext),
+                        ("graph", contextlib.nullcontext),
+                        ("eager", _eager)):
         z0, eta0, x0t = _loop_start(sp, x0)
         bodies = dict(accel.BODY_RUNS)
-        with scope() if scope else contextlib.nullcontext(), \
-                counted_calls() as calls:
+        with scope(), counted_calls() as calls:
             got = getattr(accel, f"run_cp_{name}")(sp, z0, eta0, x0t, alpha,
                                                    **opts)
             torch.cuda.synchronize()
@@ -596,11 +613,11 @@ ACCEL_CASES = {
 @pytest.mark.parametrize("case", sorted(ACCEL_CASES))
 def test_graph_accel_loop_is_host_loop(cuda, case):
     """The accelerated loops' CUDA graphs (branches as conditional nodes)
-    against their host loops on the card: the same count, T evaluations,
-    iterates and history bit for bit; the graph's own device count of each
-    body it ran equals the host loop's count of the same bodies (a body
-    run untaken would add to it); K1 launches equal ``prox_f`` calls equal
-    T evaluations (on the uniform tree, K1's); at most one host read a
+    against the same loops run eagerly on the card: the same count, T
+    evaluations, iterates and history bit for bit; the graph's own device
+    count of each body it ran equals the eager run's (a body run untaken
+    would add to it); K1 launches equal ``prox_f`` calls equal T
+    evaluations (on the uniform tree, K1's); at most one host read a
     period and two at the end."""
     import raocp_tpu_torch as rt
     from raocp_tpu_torch.models import demo_problem
@@ -614,7 +631,7 @@ def test_graph_accel_loop_is_host_loop(cuda, case):
     sp = solver.stacked
     alpha = 0.999 / solver.operator_norm_sq()
     out = _accel_runs(sp, x0, alpha, name, **opts)
-    (h, h_calls) = out["host"]
+    (h, h_calls) = out["eager"]
     period = 16 if opts.get("check_every", 1) == 1 else opts["check_every"]
     for loop in ("capture", "graph"):
         g, calls = out[loop]
@@ -629,7 +646,10 @@ def test_graph_accel_loop_is_host_loop(cuda, case):
     g_loop = out["graph"][1]["accel_loop"]
     assert g_loop["replays"] > 0 and g_loop["captures"] == 0
     assert g_loop["host_reads"] <= -(-g[2] // period) + 2
-    assert h_calls["prox_f"] == h[3] and h_calls["host_reads"] > h[2]
+    h_loop = h_calls["accel_loop"]
+    assert h_loop["replays"] == h_loop["captures"] == 0
+    assert h_calls["prox_f"] == h[3]
+    assert h_calls["host_reads"] == g_loop["host_reads"]
 
 
 @pytest.mark.cuda
@@ -699,9 +719,9 @@ def test_untaken_bodies_do_not_run(cuda, tmp_path):
 @pytest.mark.cuda
 def test_capture_unsafe_body_raises(cuda, tmp_path):
     """A host read patched into an accelerated loop's body makes its
-    capture fail: the solve raises and does not rerun on the host loop.
-    (In a process of its own: a failed capture may leave the card's
-    context unusable.)"""
+    capture fail: the solve raises and does not rerun eagerly. (In a
+    process of its own: a failed capture may leave the card's context
+    unusable.)"""
     import os
     import subprocess
     import sys
@@ -744,9 +764,9 @@ def test_capture_unsafe_body_raises(cuda, tmp_path):
 @pytest.mark.cuda
 def test_power_iteration_on_the_card(cuda):
     """The power iteration's device loop on the card (masked periods
-    enqueued eagerly) gives its host loop's lambda and count at the
-    headline (24 iterations), one flag read a period and one at the
-    end."""
+    enqueued eagerly) gives the lambda and count of periods of one
+    iteration (a partition's) at the headline (24 iterations), one flag
+    read a period and one at the end."""
     from raocp_tpu_torch import solver as solver_mod
 
     problem, _ = random_network_problem(**FIXTURES["headline"][0])
@@ -754,7 +774,12 @@ def test_power_iteration_on_the_card(cuda):
     before = dict(solver_mod.POWER_COUNTS)
     got = solver_mod._power_iteration(sp)
     ran = {k: solver_mod.POWER_COUNTS[k] - before[k] for k in before}
-    assert got == solver_mod._power_iteration_host(sp)
+    period = solver_mod.POWER_PERIOD
+    solver_mod.POWER_PERIOD = 1
+    try:
+        assert got == solver_mod._power_iteration(sp)
+    finally:
+        solver_mod.POWER_PERIOD = period
     assert got[1] == 24
     assert ran["host_reads"] <= -(-got[1] // solver_mod.POWER_PERIOD) + 1
 
@@ -951,8 +976,8 @@ def test_dual_kernel_in_a_captured_graph(cuda):
 @pytest.mark.cuda
 def test_graph_loop_counts_its_dual_launches(cuda):
     """200 steps of the headline through the graph loop (its capture, then
-    replays alone) and the host loop: one dual-update launch a step each,
-    counted into ``ops.dual.LAUNCHES``; the graph loop's
+    replays alone) and the same loop run eagerly: one dual-update launch a
+    step each, counted into ``ops.dual.LAUNCHES``; each loop's
     ``LOOP_COUNTS["dual_launches"]`` equals its steps."""
     import raocp_tpu_torch as rt
     from raocp_tpu_torch.ops import dual
@@ -964,11 +989,11 @@ def test_graph_loop_counts_its_dual_launches(cuda):
     opts = dict(tol=0.0, max_iters=200, check_every=25)
     for _ in range(2):
         before = dual.LAUNCHES
-        out = _graph_and_host(sp, x0, alpha, **opts)
-        (g, _, g_loop), (h, _, h_loop) = out["graph"], out["host"]
+        out = _graph_and_eager(sp, x0, alpha, **opts)
+        (g, _, g_loop), (h, _, h_loop) = out["graph"], out["eager"]
         assert g[2] == h[2] == 201
         assert g_loop["dual_launches"] == g_loop["steps"] > 0
-        assert h_loop["dual_launches"] == 0       # no periods
+        assert h_loop["dual_launches"] == h_loop["steps"] == h[2]
         assert dual.LAUNCHES - before == g_loop["steps"] + h[2]
 
 

@@ -35,6 +35,7 @@ torch.set_num_threads(1)
 
 import raocp_tpu_torch as rt  # noqa: E402
 import raocp_tpu_torch.models as port_models  # noqa: E402
+import raocp_tpu_torch.solver as solver_mod  # noqa: E402
 from test_torch_subtree import World, _hist_diff  # noqa: E402
 
 UNIFORM = dict(num_states=8, num_inputs=3, num_modes=3, num_stages=5,
@@ -284,7 +285,8 @@ def check_layout(mesh, args):
             z0, eta0 = sp.zero_primal(), sp.zero_dual()
             if fp.rank == 0:
                 z0.x[0] = torch.as_tensor(x0)
-            fp.run_cp(z0, eta0, torch.as_tensor(x0), 0.1, 0.1, 0.0, 1)
+            solver_mod._run_cp(sp, z0, eta0, torch.as_tensor(x0), 0.1, 0.1,
+                               0.0, 1)
         finally:
             flat_mod.exchange = real
         cw = plan.window("np>child")
@@ -359,7 +361,8 @@ def check_ghosts(mesh, args):
         if fp.rank == 0:
             z0.x[0] = x0t
         alpha = 0.999 / solver.operator_norm_sq()
-        z, eta, *_ = fp.run_cp(z0, eta0, x0t, alpha, alpha, 0.0, 50)
+        z, eta, *_ = solver_mod._run_cp(sp, z0, eta0, x0t, alpha, alpha,
+                                        0.0, 50)
         ghost, count = 0.0, 0
         spaces = {**_PRIMAL_SPACES, **_DUAL_SPACES}
         for tree in (z, eta):
@@ -398,9 +401,9 @@ def check_collectives(mesh, args):
             if fp.rank == 0:
                 z0.x[0] = x0t
             sharding.reset_counters()
-            fp.run_cp(z0, eta0, x0t, 0.1, 0.1, 0.0,
-                      50 if every > 1 else 49, check_every=every,
-                      unroll=unroll)
+            solver_mod._run_cp(fp.sp, z0, eta0, x0t, 0.1, 0.1, 0.0,
+                               50 if every > 1 else 49, check_every=every,
+                               unroll=unroll)
             out[f"{name}_every{every}"] = [sharding.EXCHANGES,
                                            sharding.ALL_REDUCES]
             out[f"{name}_every{every}_bytes"] = sharding.EXCHANGE_BYTES
@@ -409,7 +412,6 @@ def check_collectives(mesh, args):
 
 def _counted_prox():
     """Count ``prox_f`` calls (the T evaluations) while a solve runs."""
-    import raocp_tpu_torch.solver as solver_mod
     calls = {"n": 0}
     real = solver_mod.prox_f
 
@@ -468,8 +470,7 @@ def check_chunked(mesh, args):
     solver, x0 = _flat_solver("demo", mesh)
     plain = solver.solve(x0, **CHUNKED)
     chunked = solver.solve(x0, chunk_iters=CHUNK, **CHUNKED)
-    fp = solver.flat
-    real_run = fp.run_cp
+    real_run = solver_mod._run_cp
     calls = {"n": 0}
 
     def flaky(*a, **kw):
@@ -478,7 +479,7 @@ def check_chunked(mesh, args):
             raise DeviceFault("injected device fault")
         return real_run(*a, **kw)
 
-    fp.run_cp = flaky
+    solver_mod._run_cp = flaky
     retried = solver.solve(x0, chunk_iters=CHUNK, **CHUNKED)
     calls["n"] = 0
 
@@ -488,11 +489,11 @@ def check_chunked(mesh, args):
             raise DeviceFault("injected persistent fault")
         return real_run(*a, **kw)
 
-    fp.run_cp = dead
+    solver_mod._run_cp = dead
     ckpt = os.path.join(args.out, "fault.npz")
     fault = _raised(lambda: solver.solve(x0, chunk_iters=CHUNK,
                                          checkpoint_on_fault=ckpt, **PROD))
-    fp.run_cp = real_run
+    solver_mod._run_cp = real_run
 
     def diff(a, b):
         return max(float(np.abs(np.asarray(u) - np.asarray(v)).max())

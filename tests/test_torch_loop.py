@@ -1,13 +1,13 @@
-"""The port's device loop against the loop it replaces and against JAX.
+"""The port's CP loop against JAX.
 
 ``solver._run_cp`` keeps the loop's state on the device and runs a check
-period at a time: on a card a replay of a captured CUDA graph, on the CPU
-(here) the same period eagerly. It must give the host loop's iterates,
-count and history bit for bit (``_run_cp_host``, NaN rows included; with
-and without a period enqueued ahead of the flag the host reads), and the
-JAX package's ``_run_cp`` to 1e-10 in float64 (as Gate A,
-``tests/test_torch_solver.py``). The inputs are made with numpy; both
-packages take the JAX package's step size.
+period at a time: on a card a replay of a captured CUDA graph, elsewhere
+(here, the CPU) the same period eagerly. It must give the JAX package's
+``_run_cp`` to 1e-10 in float64 (as Gate A, ``tests/test_torch_solver.py``),
+and the same iterates, count and history bit for bit (NaN rows included)
+with no period and with one period enqueued ahead of the flag the host
+reads, as a card runs it. The inputs are made with numpy; both packages
+take the JAX package's step size.
 """
 
 import numpy as np
@@ -62,17 +62,13 @@ def _port_start(sp, x0, warm=None):
     return z0, sp.zero_dual(), x0t
 
 
-def _port(solver, x0, alpha, loop, warm=None, tol=TINY_TOL, **opts):
-    """``_run_cp`` through the device loop (``loop`` = the periods it
-    enqueues ahead, 0 or 1) or the host loop (``loop`` = "host")."""
+def _port(solver, x0, alpha, ahead, warm=None, tol=TINY_TOL, **opts):
+    """``_run_cp`` with ``ahead`` periods (0 or 1) enqueued ahead of the
+    flag the host reads."""
     sp = solver.stacked
     z0, eta0, x0t = _port_start(sp, x0, warm)
-    if loop == "host":
-        with solver_mod._host_loop():
-            return solver_mod._run_cp(sp, z0, eta0, x0t, alpha, alpha, tol,
-                                      **opts)
     real = solver_mod._lookahead
-    solver_mod._lookahead = lambda device: loop
+    solver_mod._lookahead = lambda sp: ahead
     try:
         return solver_mod._run_cp(sp, z0, eta0, x0t, alpha, alpha, tol,
                                   **opts)
@@ -97,7 +93,7 @@ def _jax(jsolver, x0, alpha, warm=None, tol=TINY_TOL, **opts):
 
 def _assert_same(got, want):
     """Bit for bit: count, iterates, final residuals and history (NaN rows
-    where the host loop has them)."""
+    where the other run has them)."""
     assert got[2] == want[2]
     for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
         assert torch.equal(a, b)
@@ -115,21 +111,21 @@ def _assert_jax(got, want):
     np.testing.assert_allclose(got[4], want[4], rtol=0, atol=1e-10)
 
 
-def _check(pair, ahead, **opts):
-    """The device loop (``ahead`` periods enqueued ahead of the flag the
-    host reads) against the host loop and JAX; returns the count."""
+def _check(pair, **opts):
+    """The loop with no period and with one period enqueued ahead of the
+    flag the host reads, bit for bit, and JAX's loop to 1e-10; returns
+    the count."""
     solver, jsolver, x0, alpha = pair
-    host = _port(solver, x0, alpha, "host", **opts)
-    _assert_same(_port(solver, x0, alpha, ahead, **opts), host)
-    _assert_jax(host, _jax(jsolver, x0, alpha, **opts))
-    return host[2]
+    got = _port(solver, x0, alpha, 0, **opts)
+    _assert_same(_port(solver, x0, alpha, 1, **opts), got)
+    _assert_jax(got, _jax(jsolver, x0, alpha, **opts))
+    return got[2]
 
 
 def test_demo_937(demo):
-    """The parity gate through the device loop as it runs on a card (a
-    period ahead): 937 iterations in float64, the host loop's run bit for
-    bit, JAX's to 1e-10."""
-    assert _check(demo, 1, max_iters=2000, tol=DEMO_TOL) == 937
+    """The parity gate: 937 iterations in float64, the same with a period
+    ahead (as on a card) bit for bit, JAX's run to 1e-10."""
+    assert _check(demo, max_iters=2000, tol=DEMO_TOL) == 937
 
 
 # name -> (the loop's options, its count: JAX's on this tree)
@@ -149,91 +145,92 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_options_match_host_loop_and_jax(tiny, case):
-    """Each case through the device loop on the CPU's own terms (no period
-    ahead) and on the card's (one ahead), in turns over the cases."""
+    """Each case on the CPU's own terms (no period ahead) and on the
+    card's (one ahead), bit for bit, and against JAX."""
     opts, count = CASES[case]
-    got = _check(tiny, sorted(CASES).index(case) % 2, **opts)
+    got = _check(tiny, **opts)
     if count is not None:
         assert got == count
 
 
-@pytest.mark.parametrize("ahead", ["host", 0, 1])
+@pytest.mark.parametrize("ahead", ["batch", 0, 1])
 def test_unroll_must_divide_check_every(tiny, ahead):
-    """(check_every, unroll) = (1, 5) is refused, as JAX refuses it."""
+    """(check_every, unroll) = (1, 5) is refused, as JAX refuses it, by the
+    loop with no period or one ahead and by ``solve_batch``."""
     solver, jsolver, x0, alpha = tiny
     with pytest.raises(ValueError, match="unroll must divide"):
-        _port(solver, x0, alpha, ahead, max_iters=100, unroll=5)
+        if ahead == "batch":
+            solver.solve_batch(np.stack([x0, -x0]), max_iters=100,
+                               alpha=alpha, unroll=5)
+        else:
+            _port(solver, x0, alpha, ahead, max_iters=100, unroll=5)
     with pytest.raises(ValueError, match="unroll must divide"):
         _jax(jsolver, x0, alpha, max_iters=100, unroll=5)
 
 
 def test_warm_start_k0_and_log_lines(tiny, capfd):
-    """From a warm start, with ``k0`` and ``log_every``: the device loop
-    prints the host loop's lines in its order, and JAX's numbers."""
+    """From a warm start, with ``k0`` and ``log_every``: the loop prints
+    the same lines with a period ahead or none, JAX's lines and numbers."""
     solver, jsolver, x0, alpha = tiny
     sp = solver.stacked
-    warm = _port(solver, x0, alpha, "host", max_iters=40)[:2]
+    warm = _port(solver, x0, alpha, 0, max_iters=40)[:2]
     warm_np = tuple(tuple(v.numpy() for v in t) for t in warm)
     opts = dict(max_iters=200, check_every=5, unroll=5, log_every=7,
                 k0=41)
-    lines = {}
-    for loop in ("host", 0, 1):
-        got = _port(solver, x0, alpha, loop,
-                    warm=tuple(type(t)(*(v.clone() for v in t))
-                               for t in warm), **opts)
-        lines[loop] = capfd.readouterr().out.splitlines()
-        if loop == "host":
-            host = got
-        else:
-            _assert_same(got, host)
+    runs, lines = {}, {}
+    for ahead in (0, 1):
+        runs[ahead] = _port(solver, x0, alpha, ahead,
+                            warm=tuple(type(t)(*(v.clone() for v in t))
+                                       for t in warm), **opts)
+        lines[ahead] = capfd.readouterr().out.splitlines()
+    _assert_same(runs[1], runs[0])
     want = _jax(jsolver, x0, alpha, warm=warm_np, **opts)
     jax_lines = capfd.readouterr().out.splitlines()
-    _assert_jax(host, want)
-    assert lines["host"] == lines[0] == lines[1]
-    assert len(lines["host"]) == -(-host[2] // 7)
-    assert lines["host"][1].split()[2] == str(41 + 7)
-    assert [ln.replace("[raocp_tpu_torch]", "") for ln in lines["host"]] \
+    _assert_jax(runs[0], want)
+    assert lines[0] == lines[1]
+    assert len(lines[0]) == -(-runs[0][2] // 7)
+    assert lines[0][1].split()[2] == str(41 + 7)
+    assert [ln.replace("[raocp_tpu_torch]", "") for ln in lines[0]] \
         == [ln.replace("[raocp_tpu]", "") for ln in jax_lines]
     assert sp.dtype == torch.float64
 
 
-def test_chunked_solve(tiny):
-    """``chunk_iters`` drives the device loop chunk by chunk: the host
-    loop's solve bit for bit, JAX's chunked solve to 1e-10."""
+def test_chunked_solve(tiny, monkeypatch):
+    """``chunk_iters`` drives the loop chunk by chunk: the same solve with
+    a period ahead bit for bit, JAX's chunked solve to 1e-10."""
     solver, jsolver, x0, alpha = tiny
     opts = dict(max_iters=2000, tol=TINY_TOL, alpha=alpha, check_every=25,
                 chunk_iters=60)
     got = solver.solve(x0, **opts)
-    with solver_mod._host_loop():
-        host = solver.solve(x0, **opts)
+    monkeypatch.setattr(solver_mod, "_lookahead", lambda sp: 1)
+    ahead = solver.solve(x0, **opts)
     want = jsolver.solve(x0, **opts)
-    assert got.num_iters == host.num_iters == want.num_iters
+    assert got.num_iters == ahead.num_iters == want.num_iters
     for name in ("xi_history", "delta_history", "xi"):
         np.testing.assert_array_equal(getattr(got, name),
-                                      getattr(host, name))
+                                      getattr(ahead, name))
         np.testing.assert_allclose(getattr(got, name), getattr(want, name),
                                    rtol=0, atol=1e-10)
-    for a, b, c in zip((*got.primal, *got.dual), (*host.primal, *host.dual),
+    for a, b, c in zip((*got.primal, *got.dual), (*ahead.primal, *ahead.dual),
                        (*want.primal, *want.dual)):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_allclose(a, np.asarray(c), rtol=0, atol=1e-10)
 
 
 def test_batch_of_three_lanes(tiny, monkeypatch):
-    """``solve_batch`` of three lanes through the device loop (a [B] flag
-    a period, a period enqueued ahead): the host loop's lanes bit for bit,
-    and JAX's per-lane counts and histories."""
+    """``solve_batch`` of three lanes (a [B] flag a period) with a period
+    enqueued ahead: the lanes with none ahead bit for bit, and JAX's
+    per-lane counts and histories."""
     solver, jsolver, x0, alpha = tiny
     x0s = np.stack([x0, 0.5 * x0, -0.3 * x0])
     opts = dict(max_iters=2000, tol=TINY_TOL, alpha=alpha, check_every=25,
                 unroll=5)
-    monkeypatch.setattr(solver_mod, "_lookahead", lambda device: 1)
+    base = solver.solve_batch(x0s, **opts)
+    monkeypatch.setattr(solver_mod, "_lookahead", lambda sp: 1)
     got = solver.solve_batch(x0s, **opts)
-    with solver_mod._host_loop():
-        host = solver.solve_batch(x0s, **opts)
     want = jsolver.solve_batch(x0s, **opts)
     assert len({r.num_iters for r in want}) > 1      # lanes stop apart
-    for g, h, w in zip(got, host, want):
+    for g, h, w in zip(got, base, want):
         assert g.num_iters == h.num_iters == w.num_iters
         for name in ("xi_history", "delta_history", "xi"):
             np.testing.assert_array_equal(getattr(g, name), getattr(h, name))

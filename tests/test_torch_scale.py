@@ -71,17 +71,15 @@ def test_run_tree_matches_jax_run_cp(stages):
     assert (run.row["k1_launches"], run.row["prox_f_calls"]) == (0, 50)
 
 
-@pytest.mark.parametrize("loop", ["graph", "host"])
-def test_scale_row_fields(loop):
-    """``run_tree`` with its own power iteration, best of two runs, through
-    the device loop or the host loop: the JAX script's fields and the
-    port's (no card: no peak memory, no card name), one warm-up run and
-    the timed runs counted, a host read a check period either way."""
+def test_scale_row_fields():
+    """``run_tree`` with its own power iteration, best of two runs: the JAX
+    script's fields and the port's (no card: no peak memory, no card
+    name), one warm-up run and the timed runs counted, a host read a check
+    period."""
     row = bench_scale.run_tree(4, **SMALL, iters=50, repeats=2,
-                               dtype=torch.float64, device="cpu",
-                               loop=loop).row
-    assert row["loop"] == loop and row["loop_host_reads"] == 1 + 2 * 2
-    assert row["loop_periods"] == (5 if loop == "graph" else 0)
+                               dtype=torch.float64, device="cpu").row
+    assert row["loop_host_reads"] == 1 + 2 * 2
+    assert row["loop_periods"] == 5
     for key in ROW_FIELDS:
         assert key in row, key
     assert row["metric"] == "cp_iterations_per_s_121node_6state_tree"

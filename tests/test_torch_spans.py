@@ -97,14 +97,37 @@ def test_build_and_power_spans():
 
 
 @pytest.mark.parametrize("method", ["anderson", "supermann"])
-def test_host_loops_leave_the_accel_counts(tiny, method):
-    """The accelerated host loops add nothing to ``accel.LOOP_COUNTS``,
-    their spans' keys included."""
+def test_eager_loops_move_the_accel_counts(tiny, method):
+    """An accelerated loop that does not capture (``cond.captures`` false,
+    as on the CPU and on a partition) adds its periods, host reads,
+    iterations and T evaluations to ``accel.LOOP_COUNTS``, but no capture,
+    replay, replayed T evaluation or timed period."""
     solver, x0 = tiny
+    assert not cond.captures(solver.stacked)
     before = dict(accel.LOOP_COUNTS)
-    with solver_mod._host_loop():
-        solver.solve(x0, max_iters=60, tol=1e-12, accel=method)
-    assert accel.LOOP_COUNTS == before
+    res = solver.solve(x0, max_iters=60, tol=1e-12, accel=method)
+    ran = {k: accel.LOOP_COUNTS[k] - before[k] for k in before}
+    period = accel.PERIOD_CHECK_EVERY_1
+    assert ran["iterations"] == res.num_iters == 61
+    assert ran["periods"] == -(-61 // period)
+    assert ran["host_reads"] == ran["periods"] + 2
+    assert ran["t_evals"] > ran["iterations"]
+    for key in ("captures", "replays", "replayed_t_evals", "capture_seconds",
+                *DEVICE_KEYS):
+        assert ran[key] == 0, key
+
+
+@pytest.mark.parametrize("where", ["cpu", "card", "card_partition"])
+def test_only_a_single_card_captures(where):
+    """The loops capture their periods as CUDA graphs on a single device
+    on a card, and nowhere else: not on the CPU, and not on a partition,
+    whose collectives are staged on the host."""
+    import types
+
+    sp = types.SimpleNamespace(
+        device=torch.device("cpu" if where == "cpu" else "cuda"),
+        spmd_group=object() if where == "card_partition" else None)
+    assert cond.captures(sp) == (where == "card")
 
 
 def test_span_counts_a_block_that_raises():

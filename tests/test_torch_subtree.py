@@ -222,7 +222,8 @@ def check_ghosts(mesh, args):
         x0t = torch.as_tensor(x0, dtype=stp.sp.dtype)
         z0.x[0] = x0t
         alpha = 0.999 / solver.operator_norm_sq()
-        z, eta, *_ = stp.run_cp(z0, eta0, x0t, alpha, alpha, 0.0, 50)
+        z, eta, *_ = solver_mod._run_cp(stp.sp, z0, eta0, x0t, alpha,
+                                        alpha, 0.0, 50)
         ghost = 0.0
         count = 0
         spaces = dict(x="np", u="nl", y="nl", tau="np", s="np", e1="nl",
@@ -277,8 +278,7 @@ def check_chunked(mesh, args):
     solver, x0 = _partitioned("uniform", mesh)
     plain = solver.solve(x0, **CHUNKED)
     chunked = solver.solve(x0, chunk_iters=150, **CHUNKED)
-    stp = solver.subtree
-    real_run = stp.run_cp
+    real_run = solver_mod._run_cp
     calls = {"n": 0}
 
     def flaky(*a, **kw):
@@ -287,7 +287,7 @@ def check_chunked(mesh, args):
             raise DeviceFault("injected device fault")
         return real_run(*a, **kw)
 
-    stp.run_cp = flaky
+    solver_mod._run_cp = flaky
     retried = solver.solve(x0, chunk_iters=150, **CHUNKED)
     calls["n"] = 0
 
@@ -297,11 +297,11 @@ def check_chunked(mesh, args):
             raise DeviceFault("injected persistent fault")
         return real_run(*a, **kw)
 
-    stp.run_cp = dead
+    solver_mod._run_cp = dead
     ckpt = os.path.join(args.out, "fault.npz")
     fault = _raised(lambda: solver.solve(x0, chunk_iters=150,
                                          checkpoint_on_fault=ckpt, **PROD))
-    stp.run_cp = real_run
+    solver_mod._run_cp = real_run
     z, eta, k = rt.SolverResult.load_checkpoint(ckpt)
     resumed = rt.Solver(_uniform()[0], device="cpu").solve(
         x0, warm_start=(z, eta), **PROD)
@@ -381,9 +381,9 @@ def check_collectives(mesh, args):
             z0, eta0 = stp.sp.zero_primal(), stp.sp.zero_dual()
             z0.x[0] = x0t
             sharding.ALL_REDUCES = sharding.ALL_REDUCE_BYTES = 0
-            stp.run_cp(z0, eta0, x0t, 0.1, 0.1, 0.0,
-                       50 if every > 1 else 49, check_every=every,
-                       unroll=unroll)
+            solver_mod._run_cp(stp.sp, z0, eta0, x0t, 0.1, 0.1, 0.0,
+                               50 if every > 1 else 49, check_every=every,
+                               unroll=unroll)
             out[f"{name}_every{every}"] = sharding.ALL_REDUCES
             out[f"{name}_every{every}_bytes"] = sharding.ALL_REDUCE_BYTES
     return out, {}
@@ -424,15 +424,16 @@ def check_jax_alpha(mesh, args):
 
 def check_cuda_demo(mesh, args):
     """200 iterations of the demo in float64, partitioned over ranks that
-    share the card, for the card's own tests."""
+    share the card, for the card's own tests; the loop's captures and
+    replays (a partition runs its periods eagerly)."""
     problem, x0 = port_models.demo_problem()
     solver = rt.Solver(problem, dtype=torch.float64, mesh=mesh)
-    periods = solver_mod.LOOP_COUNTS["periods"]
+    before = dict(solver_mod.LOOP_COUNTS)
     res = solver.solve(x0, max_iters=200, tol=1e-3)
+    ran = {k: solver_mod.LOOP_COUNTS[k] - before[k]
+           for k in ("captures", "replays", "periods")}
     return dict(iters=res.num_iters, device=str(solver.subtree.sp.device),
-                alpha=res.alpha,
-                device_loop_periods=solver_mod.LOOP_COUNTS["periods"]
-                - periods), _global(res, "cuda_demo")
+                alpha=res.alpha, device_loop=ran), _global(res, "cuda_demo")
 
 
 CHECKS = {name[len("check_"):]: fn for name, fn in globals().items()

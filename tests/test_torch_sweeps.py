@@ -235,6 +235,12 @@ def test_accel_config1_windows_match_jax(accel_rows, accel):
     assert row["converged"] and ref["converged"]
     assert (row["jax_iterations"], row["jax_t_evals"]) == \
         (ref["iterations"], ref["t_evals"])
+    # the row's host reads are its accelerated loop's: a flag a period of
+    # 25 iterations and two at the end
+    assert row["host_reads"] == row["accel_loop_counts"]["host_reads"] \
+        == -(-row["iterations"] // 25) + 2
+    assert row["host_reads_per_iter"] \
+        == row["host_reads"] / row["iterations"]
 
 
 def test_reference_holds_every_sweep_row():
