@@ -12,6 +12,9 @@
                                         # (subtree and flat)
     python3 chip_smoke.py --dual        # the dual-update kernel against
                                         # its plain twin, timed, alone
+    python3 chip_smoke.py --relax       # the over-relaxation kernel
+                                        # against its plain twin, timed,
+                                        # alone
     python3 chip_smoke.py --loop        # loop_graph alone: the graph
                                         # loop against the same loop run
                                         # eagerly
@@ -32,7 +35,10 @@ conditional nodes' set kernel, ``csrc/cond.cu``, held against the eager
 branch in ``cond_kernel_vs_plain``; and the CP step's dual update,
 ``csrc/dual.cu``, held against its plain twin in ``dual_kernel_vs_plain``
 at the headline, at config 5's full size and in 8 lanes, each with its
-time, device time, the twin's time and its bound in bytes) from
+time, device time, the twin's time and its bound in bytes; and the CP
+loop's over-relaxation, ``csrc/relax.cu``, held against its plain twin to
+the bit in ``relax_kernel_vs_plain`` at config 5's full size and the
+headline, timed likewise) from
 ``raocp_tpu_torch/csrc``, one ``nvcc`` each at once, holds K1 against its
 plain torch version on the card (at the shapes of every path below, BASELINE configs 1-3, config
 5's width, the 88,573- and 797,161-node trees of the scale runs and
@@ -229,6 +235,7 @@ from raocp_tpu_torch.models import (demo_problem,  # noqa: E402
                                     random_network_problem,
                                     soc_network_problem)
 from raocp_tpu_torch.ops import cond, dual, prox, sweep, work  # noqa: E402
+from raocp_tpu_torch.ops import relax  # noqa: E402
 from raocp_tpu_torch.scripts import (bench_batch,  # noqa: E402
                                      bench_components, bench_configs,
                                      bench_pallas, bench_relax, bench_scale,
@@ -385,18 +392,20 @@ def phase_device():
 
 
 def phase_build():
-    """K1's library, the conditional nodes' library and the dual-update
-    kernel's, one ``nvcc`` each, all started at once."""
+    """K1's library, the conditional nodes' library, the dual-update
+    kernel's and the over-relaxation's, one ``nvcc`` each, all started at
+    once."""
     from concurrent.futures import ThreadPoolExecutor
 
     tic = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = [pool.submit(build) for build in (sweep.build_library,
                                                  cond.build_library,
-                                                 dual.build_library)]
+                                                 dual.build_library,
+                                                 relax.build_library)]
         libs = [lib.result() for lib in libs]
     emit("build", kernels=["K1 sweep", "conditional-node set",
-                           "dual update"],
+                           "dual update", "over-relaxation"],
          libraries=[lib.name for lib in libs],
          seconds=time.perf_counter() - tic)
 
@@ -1470,6 +1479,97 @@ def phase_dual_kernel():
         check(row["device_ms"] >= row["bound_ms"],
               f"dual {name}: device time under its bound")
         out[name] = row
+    return out
+
+
+def _relax_inputs(sp, lanes=None):
+    """The over-relaxation's inputs on the card as the relaxed loop holds
+    them: the current (z, eta, L z, L'eta) contiguous, the step's z+ and
+    eta+ contiguous with L z+ and L'eta+ from ``ell`` and ``ell_t`` (L z+'s
+    e3 and e4 column slices of one tensor, e5 the tensor of e6, e12 of
+    e13, e1 z+'s y); rho 1.8, the closed loop's ``relax="auto"``."""
+    from raocp_tpu_torch.core.variables import (Dual, Primal, dual_shapes,
+                                                primal_shapes)
+    from raocp_tpu_torch.ops.operator import ell, ell_t
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    lead = () if lanes is None else (lanes,)
+
+    def tree(cls, shapes):
+        return cls(*(torch.randn(lead + s, generator=gen, dtype=sp.dtype,
+                                 device=DEV) for s in shapes))
+
+    z, zn = (tree(Primal, primal_shapes(sp)) for _ in range(2))
+    eta, en = (tree(Dual, dual_shapes(sp)) for _ in range(2))
+    cur = (z, eta, tree(Dual, dual_shapes(sp)), tree(Primal,
+                                                     primal_shapes(sp)))
+    new = (zn, en, ell(sp, zn), ell_t(sp, en))
+    return solver_mod._resolve_relax("auto"), tuple(zip(cur, new))
+
+
+def phase_relax_kernel():
+    """The over-relaxation kernel (``csrc/relax.cu``) against its plain
+    twin at config 5's full size (88,573 nodes, n=100, m=40) in float32,
+    the loop's main path, and float64, and at the headline (9,841 nodes)
+    in float32 and in 8 lanes: bit for bit, a second launch's bits, its ms
+    a call (CUDA events) beside its device time and launches (a profile of
+    20 calls), the twin's ms (96 PyTorch kernels), and the bound
+    (``work.over_relax`` at 3.35 TB/s)."""
+    cases = (("config5_full_f32", CONFIG5, torch.float32, None),
+             ("config5_full_f64", CONFIG5, torch.float64, None),
+             ("headline_f32", HEADLINE, torch.float32, None),
+             ("headline_b8_f32", HEADLINE, torch.float32, 8))
+    out = {}
+    for name, kwargs, dtype, lanes in cases:
+        spec, _ = random_network_problem(**kwargs)
+        sp = build_stacked(spec, dtype=dtype, offline="device", device=DEV)
+        rho, pairs = _relax_inputs(sp, lanes)
+        before = relax.LAUNCHES
+        got = relax.over_relax(rho, pairs)
+        torch.cuda.synchronize()
+        check(relax.LAUNCHES == before + 1,
+              f"relax {name}: one call counted {relax.LAUNCHES - before}")
+        want = relax.over_relax_plain(rho, pairs)
+        leaves = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+        equal = all(torch.equal(a, b) for a, b in leaves)
+        err = max(float((a - b).abs().max()) for a, b in leaves
+                  if a.numel())
+        again = relax.over_relax(rho, pairs)
+        same = all(torch.equal(a, b) for g, h in zip(got, again)
+                   for a, b in zip(g, h))
+        count = work.over_relax(sp, lanes or 1)
+        bound_s, bound_by = work.bound(count, dtype)
+        _, _, trees = relax._leaves(rho, pairs)
+        table = relax._table(trees, dtype, DEV)[1]
+        vec = table[relax.FIELDS - 1::relax.FIELDS]
+        row = dict(case=name, nodes=sp.num_nodes, n=sp.n, m=sp.m,
+                   dtype=str(dtype), lanes=lanes or 1, rho=rho,
+                   bit_equal=equal, max_abs_err=err,
+                   second_apply_same=same, vector_leaves=sum(vec),
+                   leaves=len(vec), bytes=count["bytes"],
+                   flop=count["flop"], bound_ms=1e3 * bound_s,
+                   bound_by=bound_by)
+        del got, want, again, leaves
+        (row["device_launches_per_apply"], row["device_ms"],
+         row["profiles_taken"], row["profiled_calls_left_out"]) = \
+            _k1_profile(lambda: relax.over_relax(rho, pairs), 20,
+                        is_kernel=lambda k: "over_relax_kernel" in k)
+        row["ms"] = _median_ms(lambda: relax.over_relax(rho, pairs))
+        row["plain_ms"] = _median_ms(
+            lambda: relax.over_relax_plain(rho, pairs))
+        row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+        row["bandwidth_tb_s"] = count["bytes"] / row["device_ms"] / 1e9
+        emit("relax_kernel_vs_plain", **row)
+        check(equal, f"relax {name}: not the twin's bits (max {err})")
+        check(same, f"relax {name}: two calls differ")
+        check(row["device_launches_per_apply"] == 1,
+              f"relax {name}: {row['device_launches_per_apply']} kernels "
+              f"a call on the card")
+        check(row["device_ms"] >= row["bound_ms"],
+              f"relax {name}: device time under its bound")
+        out[name] = row
+        del sp, pairs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2676,6 +2776,8 @@ def main():
                          "against the same loop run eagerly)")
     ap.add_argument("--dual", action="store_true",
                     help="run the dual-update kernel's phase alone")
+    ap.add_argument("--relax", action="store_true",
+                    help="run the over-relaxation kernel's phase alone")
     ap.add_argument("--accel-loop", action="store_true",
                     help="run the accelerated loops' graphs against the "
                          "same loops run eagerly to 1e-3, and the power "
@@ -2711,6 +2813,14 @@ def main():
              libraries=[dual.build_library().name],
              seconds=time.perf_counter() - tic)
         phase_dual_kernel()
+        print(smi, flush=True)
+        return 0
+    if args.relax:
+        tic = time.perf_counter()
+        emit("build", kernels=["over-relaxation"],
+             libraries=[relax.build_library().name],
+             seconds=time.perf_counter() - tic)
+        phase_relax_kernel()
         print(smi, flush=True)
         return 0
     phase_build()
@@ -2753,6 +2863,7 @@ def main():
     kernel = phase_kernel()
     cond_row = phase_cond_kernel()
     dual_rows = phase_dual_kernel()
+    relax_rows = phase_relax_kernel()
     phase_matmul_context()
     phase_roofline_headline()
     phase_stage_ab()
@@ -2816,7 +2927,20 @@ def main():
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "device_launches_per_apply", "device_over_bound")}
             for name, r in dual_rows.items()},
-        "library_note": "no single PyTorch call computes the update"}]}),
+        "library_note": "no single PyTorch call computes the update"}, {
+        "name": "over-relaxation of the CP loop's iterates",
+        "route": "cuda",
+        "source": "raocp_tpu_torch/csrc/relax.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: XLA fuses the JAX package's "
+                         "relaxation",
+        "bit_equal": all(r["bit_equal"] for r in relax_rows.values()),
+        "per_shape": {name: {k: r[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "device_launches_per_apply", "device_over_bound")}
+            for name, r in relax_rows.items()},
+        "library_note": "torch.lerp computes it in one call but rounds "
+                        "otherwise for a weight of 0.5 or more"}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

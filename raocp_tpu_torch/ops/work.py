@@ -54,7 +54,8 @@ from raocp_tpu_torch.ops.sweep import _esize, sweep_eligible, sweep_work
 __all__ = ["PEAK_FLOPS", "PEAK_VECTOR_FLOPS", "PEAK_BYTES", "bound", "ell",
            "ell_t", "project_dynamics", "project_dynamics_stages",
            "project_kernel", "prox_f", "g_conj_projections", "dual_update",
-           "max_norm", "cp_step", "cp_iteration", "production_trip"]
+           "over_relax", "max_norm", "cp_step", "cp_iteration",
+           "production_trip"]
 
 PEAK_FLOPS = {4: 67e12, 8: 67e12}
 PEAK_VECTOR_FLOPS = {4: 67e12, 8: 34e12}
@@ -438,6 +439,19 @@ def dual_update(sp, lanes: int = 1) -> dict:
     ew = lanes * (t.ew + 8 * D)
     return dict(flop=ew, flop_mm=0, flop_ew=ew,
                 bytes=(reads + lanes * D) * esize + tables)
+
+
+def over_relax(sp, lanes: int = 1) -> dict:
+    """The over-relaxation kernel (``ops/relax.py``) on ``lanes`` lanes:
+    reads the current (z, eta, L z, L'eta) and the step's (L z+'s e1 is
+    z+'s y, its e6 its e5, its e13 its e12: each once), writes the relaxed
+    four; three operations an element (a subtraction, a product, a
+    sum)."""
+    P, D, DL = _elements(sp)
+    S = 2 * P + 2 * D
+    ew = lanes * 3 * S
+    return dict(flop=ew, flop_mm=0, flop_ew=ew,
+                bytes=lanes * (S + (2 * P + D + DL) + S) * _esize(sp.dtype))
 
 
 def max_norm(sp) -> dict:

@@ -45,10 +45,12 @@ from raocp_tpu_torch.core.variables import (Dual, Primal, lane_view,
 from raocp_tpu_torch.ops import cond
 from raocp_tpu_torch.ops import dual as dual_mod
 from raocp_tpu_torch.ops import prox as prox_mod
+from raocp_tpu_torch.ops import relax as relax_mod
 from raocp_tpu_torch.ops import sweep as sweep_mod
 from raocp_tpu_torch.ops.dual import dual_update
 from raocp_tpu_torch.ops.operator import ell, ell_t
 from raocp_tpu_torch.ops.prox import half_shift_dual, prox_f
+from raocp_tpu_torch.ops.relax import over_relax
 from raocp_tpu_torch.ops.sweep import DeviceFault
 from raocp_tpu_torch.parallel.flat import FlatProblem
 from raocp_tpu_torch.parallel.sharding import (all_reduce, mesh_device,
@@ -338,14 +340,15 @@ def _log_residuals(k, err):
 # seconds from the card's clock (``ops.cond.Flags``): the replayed periods
 # whose flag was read, their number, and the card's gaps between two of
 # them in one call. The launches of the dual-update kernel
-# (``ops.dual``) in the device loop's periods: an eager period's own, and
-# what a replay's graph recorded.
+# (``ops.dual``) and of the over-relaxation's (``ops.relax``) in the device
+# loop's periods: an eager period's own, and what a replay's graph
+# recorded.
 LOOP_COUNTS = dict(periods=0, replays=0, captures=0, capture_seconds=0.0,
                    host_reads=0, steps=0, wasted_steps=0, replayed_steps=0,
                    solve_seconds=0.0, drive_seconds=0.0, launch_seconds=0.0,
                    build_seconds=0.0, power_seconds=0.0,
                    period_device_seconds=0.0, gap_device_seconds=0.0,
-                   timed_periods=0, dual_launches=0)
+                   timed_periods=0, dual_launches=0, relax_launches=0)
 
 
 # -- the device-resident loop (JAX: _run_cp's jitted while_loop) -----------
@@ -413,7 +416,8 @@ def _period(sp: StackedProblem, src: _Carry, dst: _Carry, steps: int,
     steps; the tail has none): its residuals are evaluated, rebalance the
     steps under ``adaptive`` and write their [err, derr] row of ``hist``
     at the device's count (``index_copy_``). ``relax`` over-relaxes each
-    step after its residuals. ``running`` then
+    step after its residuals (:func:`over_relax`, one launch a step on a
+    card; nothing runs at 1.0). ``running`` then
     takes the loop's condition: the last checked residual above ``tol``
     (compared in float64) and k + unroll < max_iters + 2 (k < ``limit``).
 
@@ -441,9 +445,8 @@ def _period(sp: StackedProblem, src: _Carry, dst: _Carry, steps: int,
                     keep[:, None, None], row[:, None],
                     hist.index_select(1, at)))
         if relax != 1.0:
-            z, eta, Lz, Lt = (
-                type(cur)(*(c + relax * (p - c) for c, p in zip(cur, nw)))
-                for cur, nw in ((z, zn), (eta, en), (Lz, Lzn), (Lt, Ltn)))
+            z, eta, Lz, Lt = over_relax(
+                relax, ((z, zn), (eta, en), (Lz, Lzn), (Lt, Ltn)))
         else:
             z, eta, Lz, Lt = zn, en, Lzn, Ltn
     k = src.k + steps
@@ -498,6 +501,7 @@ class _DeviceLoop:
         self.graphs = None
         self.k1_per_period = 0
         self.dual_per_period = 0
+        self.relax_per_period = 0
         self.flags = cond.Flags(dev, LOOP_COUNTS, lead,
                                 marked=cond.captures(sp))
 
@@ -527,12 +531,13 @@ class _DeviceLoop:
     def run_period(self, sp, parity: int, steps: Optional[int] = None):
         """One period from carry ``parity`` into the other, eagerly; with
         ``steps``, the tail: that many steps and no check."""
-        launched = dual_mod.LAUNCHES
+        launched, relaxed = dual_mod.LAUNCHES, relax_mod.LAUNCHES
         _period(sp, self.sets[parity], self.sets[1 - parity],
                 self.steps if steps is None else steps, steps is None,
                 self.adaptive, self.relax, self.x0, self.shift, self.hist,
                 self.tol, self.limit)
         LOOP_COUNTS["dual_launches"] += dual_mod.LAUNCHES - launched
+        LOOP_COUNTS["relax_launches"] += relax_mod.LAUNCHES - relaxed
 
     def capture(self, sp):
         """Run period 0 eagerly on a side stream (it builds K1's library,
@@ -540,8 +545,9 @@ class _DeviceLoop:
         capture a period from each carry into the other, between two marks
         of the card's clock (``ops.cond.Flags.mark``), sharing one memory
         pool (they never run at once). The K1 launches recorded in a graph
-        are what each of its replays adds to ``ops.sweep.LAUNCHES``, and
-        the dual-update kernel's to ``ops.dual.LAUNCHES``."""
+        are what each of its replays adds to ``ops.sweep.LAUNCHES``, the
+        dual-update kernel's to ``ops.dual.LAUNCHES`` and the
+        over-relaxation's to ``ops.relax.LAUNCHES``."""
         tic = time.perf_counter()
         side = torch.cuda.Stream(sp.device)
         side.wait_stream(torch.cuda.current_stream(sp.device))
@@ -554,12 +560,14 @@ class _DeviceLoop:
             graph = torch.cuda.CUDAGraph()
             recorded = sweep_mod.RECORDED
             dual_recorded = dual_mod.RECORDED
+            relax_recorded = relax_mod.RECORDED
             with torch.cuda.graph(graph, pool=pool, stream=side):
                 self.flags.mark(0)
                 self.run_period(sp, parity)
                 self.flags.mark(1)
             self.k1_per_period = sweep_mod.RECORDED - recorded
             self.dual_per_period = dual_mod.RECORDED - dual_recorded
+            self.relax_per_period = relax_mod.RECORDED - relax_recorded
             graphs.append(graph)
         self.graphs = graphs
         LOOP_COUNTS["captures"] += 1
@@ -584,6 +592,8 @@ class _DeviceLoop:
             sweep_mod.LAUNCHES += self.k1_per_period
             dual_mod.LAUNCHES += self.dual_per_period
             LOOP_COUNTS["dual_launches"] += self.dual_per_period
+            relax_mod.LAUNCHES += self.relax_per_period
+            LOOP_COUNTS["relax_launches"] += self.relax_per_period
         LOOP_COUNTS["periods"] += 1
         LOOP_COUNTS["steps"] += self.steps
         self.flags.post(n, self.sets[1 - parity].running, timed=replay)
@@ -603,14 +613,15 @@ def _loop_for(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive, relax,
     else a new one. The key is what changes the captured program: the
     lanes, the period, ``adaptive``, ``relax``, the dynamics projection's
     dispatch (K1, the stage path, or a patched sweep), the dual update
-    (the kernel, or a patched one) and the history's capacity (a power of
-    two, at least 1,024 rows)."""
+    and the over-relaxation (the kernels, or patched ones) and the
+    history's capacity (a power of two, at least 1,024 rows)."""
     capacity = max(1024, 1 << (rows - 1).bit_length())
     if not cond.captures(sp):
         return _DeviceLoop(sp, z0, eta0, Lz0, Lt0, lanes, steps, adaptive,
                            relax, rows)
     key = (lanes, steps, adaptive, relax, sweep_mod.sweep_eligible(sp),
-           prox_mod.project_dynamics_sweep, dual_update, capacity)
+           prox_mod.project_dynamics_sweep, dual_update, over_relax,
+           capacity)
     cached = _LOOPS.get(id(sp))
     if cached is not None and cached[0] == key:
         return cached[1]

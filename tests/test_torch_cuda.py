@@ -3,9 +3,12 @@ unbatched and batched (B lanes in one launch set), and against the torch
 stage path; the roofline's rows at the headline; the loops' CUDA graphs
 against the same loops run eagerly; the subtree partition on two gloo ranks
 that
-share the card; and the dual-update kernel against its plain twin (the
+share the card; the dual-update kernel against its plain twin (the
 cases of ``tests/test_torch_dual.py``), in a captured graph, in the loop
-and through a solve of the headline.
+and through a solve of the headline; and the over-relaxation kernel
+against its plain twin bit for bit (the cases of
+``tests/test_torch_relax_kernel.py``), in a captured graph and in the
+relaxed loop.
 
 These tests need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -1016,3 +1019,174 @@ def test_headline_to_tolerance_through_the_dual_kernel(cuda, monkeypatch):
     assert kernel.status == twin.status == 0
     assert abs(kernel.num_iters - twin.num_iters) <= 2 * 25
     assert launched >= kernel.num_iters
+
+
+# -- the over-relaxation kernel (csrc/relax.cu) ------------------------------
+
+# case -> (the case of tests/test_torch_relax_kernel.py, its tree instead of
+# the case's own): config 5's width (n=100, m=40; 16-byte vectors) in both
+# dtypes and in 8 lanes, its full 88,573 nodes in float32; a side without
+# lanes read by 3; the current side one element off its allocation (no
+# vectors). Every case's L z comes from ``ell`` (e3 and e4 column slices of
+# one tensor, e5 the tensor of e6, e12 of e13)
+RELAX_CASES = {
+    "config5_width_f32": ("config5_width_f32", None),
+    "config5_width_f64": ("config5_width_f64", None),
+    "config5_full_f32": ("config5_width_f32", "config5"),
+    "lanes8_f32": ("lanes8_f32", None),
+    "lanes8_f64": ("lanes8_f64", None),
+    "broadcast_f32": ("broadcast_f32", None),
+    "odd_f64": ("odd_f64", None),
+    "small_f32": ("small_f32", None),
+}
+
+
+def _relax_case(cuda, name):
+    from raocp_tpu_torch.scripts.bench_configs import CONFIG5
+    from test_torch_relax_kernel import relax_case
+
+    case, problem = RELAX_CASES[name]
+    return relax_case(case, cuda, CONFIG5 if problem == "config5" else None)
+
+
+def _leaves(trees):
+    return [v for t in trees for v in t]
+
+
+def _same(got, want):
+    return len(got) == len(want) and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(_leaves(got), _leaves(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RELAX_CASES))
+def test_relax_kernel_matches_plain_twin(cuda, name):
+    """One launch gives every leaf of the plain twin's c + rho (p - c)
+    (PyTorch's own kernels on the same CUDA tensors) bit for bit, in its
+    shape, dtype and tree type; a second launch gives the same bits."""
+    from raocp_tpu_torch.ops import relax
+
+    rho, pairs = _relax_case(cuda, name)
+    before = relax.LAUNCHES
+    got = relax.over_relax(rho, pairs)
+    torch.cuda.synchronize()
+    assert relax.LAUNCHES == before + 1
+    want = relax.over_relax_plain(rho, pairs)
+    assert [type(t) for t in got] == [type(t) for t in want]
+    assert all(t.is_contiguous() for t in _leaves(got))
+    assert _same(got, want)
+    assert _same(relax.over_relax(rho, pairs), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config5_width_f32", "lanes8_f64",
+                                  "odd_f64"])
+def test_relax_kernel_bits_do_not_depend_on_the_block_split(cuda, name):
+    """The pairs one a launch, in reverse order, and each leaf alone (each
+    table's leaves at other blocks, other leaves beside them) give the one
+    launch's bits: an entry's result depends on its c and p alone."""
+    from raocp_tpu_torch.ops import relax
+
+    rho, pairs = _relax_case(cuda, name)
+    whole = relax.over_relax(rho, pairs)
+    alone = tuple(relax.over_relax(rho, (pair,))[0] for pair in pairs)
+    reverse = relax.over_relax(rho, pairs[::-1])[::-1]
+    leaf_by_leaf = tuple(
+        type(cur)(*(relax.over_relax(rho, (((c,), (p,)),))[0][0]
+                    for c, p in zip(cur, new)))
+        for cur, new in pairs)
+    for other in (alone, reverse, leaf_by_leaf):
+        assert _same(other, whole)
+
+
+@pytest.mark.cuda
+def test_relax_kernel_in_a_captured_graph(cuda):
+    """Captured in a CUDA graph the call records one launch and launches
+    none; each replay reads what its inputs hold then (changed in place
+    between replays) and gives the eager kernel's bits."""
+    from raocp_tpu_torch.ops import relax
+
+    rho, pairs = _relax_case(cuda, "lanes8_f32")
+    relax.over_relax(rho, pairs)                 # the library, warm
+    torch.cuda.synchronize()
+    launches, recorded = relax.LAUNCHES, relax.RECORDED
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = relax.over_relax(rho, pairs)
+    assert relax.RECORDED == recorded + 1 and relax.LAUNCHES == launches
+    for scale in (1.0, -0.5, 3.0):
+        for t in {id(v): v for cur, _ in pairs for v in cur}.values():
+            t.mul_(scale)
+        graph.replay()
+        want = relax.over_relax(rho, pairs)
+        torch.cuda.synchronize()
+        assert _same(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rho", [1.8, 1.0])
+def test_graph_loop_counts_its_relax_launches(cuda, rho):
+    """200 steps of the headline through the graph loop (its capture, then
+    replays alone) and the same loop run eagerly: at relax 1.8 one
+    relaxation launch a step each, counted into ``ops.relax.LAUNCHES``,
+    each loop's ``LOOP_COUNTS["relax_launches"]`` equal to its steps; at
+    relax 1.0 none."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch.ops import relax
+
+    problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+    solver = rt.Solver(problem, device=cuda)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    opts = dict(tol=0.0, max_iters=200, check_every=25, relax=rho)
+    per_step = int(rho != 1.0)
+    for _ in range(2):
+        before = relax.LAUNCHES
+        out = _graph_and_eager(sp, x0, alpha, **opts)
+        (g, _, g_loop), (h, _, h_loop) = out["graph"], out["eager"]
+        assert g[2] == h[2] == 201
+        assert g_loop["steps"] > 0
+        assert g_loop["relax_launches"] == per_step * g_loop["steps"]
+        assert h_loop["relax_launches"] == per_step * h_loop["steps"] \
+            == per_step * h[2]
+        assert relax.LAUNCHES - before == per_step * (g_loop["steps"] + h[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["demo_f64", "headline_f32"])
+def test_relaxed_loop_is_its_eager_run_and_its_twin(cuda, case,
+                                                    monkeypatch):
+    """A relaxed solve (rho 1.8) through the graph loop, the same loop run
+    eagerly, and the graph loop with the relaxation patched to the plain
+    twin: the same count, iterates and histories bit for bit (the demo to
+    1e-3 in float64 at stride 1; the headline's 500 steps in float32 at
+    stride 25)."""
+    import raocp_tpu_torch as rt
+    from raocp_tpu_torch import solver as solver_mod
+    from raocp_tpu_torch.models import demo_problem
+    from raocp_tpu_torch.ops import relax
+
+    if case == "demo_f64":
+        problem, x0 = demo_problem()
+        solver = rt.Solver(problem, dtype=torch.float64, device=cuda)
+        opts = dict(tol=1e-3, max_iters=2000, relax=1.8)
+    else:
+        problem, x0 = random_network_problem(**FIXTURES["headline"][0])
+        solver = rt.Solver(problem, device=cuda)
+        opts = dict(tol=0.0, max_iters=500, check_every=25, relax=1.8)
+    sp = solver.stacked
+    alpha = 0.999 / solver.operator_norm_sq()
+    out = _graph_and_eager(sp, x0, alpha, **opts)
+    monkeypatch.setattr(solver_mod, "over_relax", relax.over_relax_plain)
+    twin = _graph_and_eager(sp, x0, alpha, **opts)["graph"]
+    g, h = out["graph"], out["eager"]
+    assert g[2]["relax_launches"] > 0 and twin[2]["relax_launches"] == 0
+    if case == "demo_f64":
+        assert g[0][2] < 937               # relaxed: fewer than the plain 937
+    for other in (h, twin):
+        assert g[0][2] == other[0][2]
+        for a, b in zip((*g[0][0], *g[0][1]), (*other[0][0], *other[0][1])):
+            assert torch.equal(a, b)
+        np.testing.assert_array_equal(g[0][3], other[0][3])
+        np.testing.assert_array_equal(g[0][4], other[0][4])
